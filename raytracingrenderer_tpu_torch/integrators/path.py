@@ -1,0 +1,148 @@
+"""Path tracer: NEE (+MIS) with Russian roulette over flat ray batches.
+
+Counterpart of raytracingrenderer_tpu/integrators/path.py (RTBase
+RayTracer::pathTrace, Renderer.h:328-392).  The JAX package's
+`lax.scan` over depths becomes a Python loop with alive masks; RR, the
+depth cutoff and emissive termination are masks, as there:
+
+  depth 0..max_depth   : emissive-hit add -> NEE -> RR -> BSDF continue
+  depth max_depth+1    : emissive-hit add -> NEE -> stop
+
+Deliberate departures from RTBase are the JAX package's: MIS on by
+default, escaped rays weighted by throughput, one-sided emission.
+Every random decision is keyed by the ray's pixel id (rng.uniform_ids),
+so the same key gives the same path in both packages.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..config import EPSILON, RenderConfig
+from ..core.vec import V3, vwhere
+from ..geometry import intersect
+from ..lights import lights as lights_mod
+from ..materials import bsdf as bsdf_mod
+from ..sampling import rng
+from ..scene.types import Scene
+from .common import balance_heuristic, compute_direct, shading_data
+
+
+def init_state(o: V3, d: V3) -> dict:
+    """Fresh per-ray bounce state for a batch of primary rays."""
+    n = o.x.shape[0]
+    dev = o.x.device
+    return dict(
+        o=o, d=d,
+        ids=torch.arange(n, dtype=torch.int64, device=dev),
+        throughput=V3.full((n,), 1.0, 1.0, 1.0, device=dev),
+        radiance=V3.zeros((n,), device=dev),
+        alive=torch.ones(n, dtype=torch.bool, device=dev),
+        # canHitLight: on the primary ray and after specular bounces
+        can_hit_light=torch.ones(n, dtype=torch.bool, device=dev),
+        prev_pdf=torch.zeros(n, dtype=torch.float32, device=dev),
+    )
+
+
+def bounce_step(scene: Scene, state: dict, depth: int, key: rng.Key,
+                cfg: RenderConfig) -> dict:
+    """One bounce over the whole ray batch."""
+    o, d = state["o"], state["d"]
+    ids = state["ids"]
+    alive = state["alive"]
+    beta = state["throughput"]
+    radiance = state["radiance"]
+
+    hit = intersect.closest_hit(scene, o, d, alive)
+    found = hit.valid & alive
+    missed = alive & ~hit.valid
+
+    # ---- escaped rays: background -------------------------------------
+    bg = lights_mod.eval_background(scene, d)
+    if lights_mod.background_enabled(scene):
+        if cfg.mis:
+            _, pmf_bg = lights_mod.selection_pmf(scene, cfg.power_lights)
+            pdf_l = lights_mod.background_pdf(scene, d) * pmf_bg
+            w_bg = torch.where(state["can_hit_light"], 1.0,
+                               balance_heuristic(state["prev_pdf"], pdf_l))
+        else:
+            w_bg = state["can_hit_light"].to(torch.float32)
+    else:
+        w_bg = torch.ones_like(d.z)  # pure miss colour, not a light
+    radiance = radiance + vwhere(missed, beta * bg * w_bg, 0.0)
+
+    sh = shading_data(scene, hit, o, d, geom_grads=cfg.geom_grads)
+
+    # ---- emissive hit: add Le, terminate ------------------------------
+    hit_le = sh.mp.emission
+    one_sided = d.dot(sh.gn_raw) < 0.0
+    is_light = found & sh.mp.is_emissive
+    if cfg.mis:
+        pdf_l = lights_mod.hit_light_pdf_solid(
+            scene, sh.light_id, o, sh.x, sh.gn_raw, power=cfg.power_lights)
+        w_le = torch.where(state["can_hit_light"], 1.0,
+                           balance_heuristic(state["prev_pdf"], pdf_l))
+    else:
+        w_le = state["can_hit_light"].to(torch.float32)
+    add_le = is_light & one_sided
+    if not cfg.debug_no_emission:
+        radiance = radiance + vwhere(add_le, beta * hit_le * w_le, 0.0)
+
+    shade = found & ~is_light  # terminate on lights
+
+    # ---- NEE -----------------------------------------------------------
+    r_pick = rng.uniform_ids(key, depth, rng.LIGHT_PICK, ids)
+    r_lu = rng.uniform_ids(key, depth, rng.LIGHT_POS_U, ids)
+    r_lv = rng.uniform_ids(key, depth, rng.LIGHT_POS_V, ids)
+    r_aux = rng.uniform_ids(key, depth, rng.LIGHT_AUX, ids)
+    direct = compute_direct(scene, sh, shade, r_pick, r_lu, r_lv, cfg.mis,
+                            cfg.mat_types, r3=r_aux,
+                            geom_grads=cfg.geom_grads,
+                            power=cfg.power_lights)
+    if not cfg.debug_no_nee:
+        radiance = radiance + beta * direct
+
+    # ---- depth cutoff / RR / BSDF continuation -------------------------
+    cont = shade & (depth <= cfg.max_depth)
+    if cfg.rr:
+        rr_p = torch.clamp(beta.lum(), max=cfg.rr_cap)
+        r_rr = rng.uniform_ids(key, depth, rng.RR, ids)
+        survive = cont & (r_rr < rr_p)
+        beta = vwhere(survive, beta / torch.clamp(rr_p, min=1e-9), beta)
+    else:
+        survive = cont
+
+    r1 = rng.uniform_ids(key, depth, rng.BSDF_U, ids)
+    r2 = rng.uniform_ids(key, depth, rng.BSDF_V, ids)
+    rl = rng.uniform_ids(key, depth, rng.BSDF_LOBE, ids)
+    wi_local, colour, pdf, ok = bsdf_mod.sample(
+        sh.mp, sh.wo_local, r1, r2, rl, cfg.mat_types)
+    specular = bsdf_mod.is_specular(sh.mp.mtype)
+    # throughput update: specular lanes skip the cosine (their colour/pdf
+    # already account for it)
+    cos_term = torch.where(specular, 1.0, torch.abs(wi_local.z))
+    weight = colour * (cos_term / torch.clamp(pdf, min=1e-9))
+    alive_next = survive & ok & (weight.max_comp() > 0.0)
+    beta = vwhere(alive_next, beta * weight, beta)
+
+    wi = sh.frame.to_world(wi_local)
+    new_o = sh.x + wi * EPSILON
+    return dict(
+        o=vwhere(alive_next, new_o, o),
+        d=vwhere(alive_next, wi, d),
+        ids=ids,
+        throughput=beta,
+        radiance=radiance,
+        alive=alive_next,
+        can_hit_light=torch.where(alive_next, specular,
+                                  state["can_hit_light"]),
+        prev_pdf=torch.where(alive_next, pdf, state["prev_pdf"]),
+    )
+
+
+def trace_radiance(scene: Scene, o: V3, d: V3, key: rng.Key,
+                   cfg: RenderConfig) -> V3:
+    """Estimate radiance along a batch of primary rays (one sample/ray)."""
+    state = init_state(o, d)
+    for depth in range(cfg.max_depth + 2):  # depths 0..max_depth+1
+        state = bounce_step(scene, state, depth, key, cfg)
+    return state["radiance"]
