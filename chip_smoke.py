@@ -7,18 +7,39 @@ kernels and renders.
 
 Phases (any failure exits non-zero):
   1. card facts: nvidia-smi's name and power limit, torch's device name;
-  2. build every kernel of the render path from csrc/ with nvcc (sm_90a);
-  3. each kernel against its plain torch version on the card, at the
-     shapes the render gives it, closest-hit and any-hit, with 10% dead
-     lanes: t within rtol/atol 1e-4, triangle ids and any-hit bits
+     the host CPU's model and whether it has avx512f;
+  2. build every kernel of the render paths from csrc/ with nvcc
+     (sm_90a), one nvcc per source, all started together, beside the
+     native BVH builder's library (the committed one, or g++ of
+     native/bvh_builder.cpp where the CPU lacks AVX-512);
+  3. the MT kernel (B1) against its plain torch version on the card, at
+     the shapes the renders give it, closest-hit and any-hit, with 10%
+     dead lanes: t within rtol/atol 1e-4, triangle ids and any-hit bits
      agreeing on >= 99.9% of rays, no dead lane hit; kernel and plain
      times at 1,048,576 rays;
-  4. the main path at full size: the in-repo cornell box (36 triangles)
-     at 1024x1024, RenderConfig(mis=True, jitter=True, max_depth=4),
-     8 spp, loaded and rendered on "cuda"; every kernel of the path must
-     have launched; a finite image with a sane mean, written as .hdr;
-  5. the same scene at 128x128, 2 spp, on "cuda" (kernels) and on "cpu"
-     (plain versions), same keys: >= 99% of pixels within rtol 1e-3 /
+  4. the BVH kernel (B2) against its plain torch version on the spheres
+     scene (the cornell box plus 16 icospheres, 327,716 triangles),
+     closest-hit and any-hit, with the same bars: (a) 2^20 + 77 rays from
+     inside the box with 10% dead lanes (hit fraction above 0.1);
+     (b) 2^20 live rays, which also time the kernel and the plain
+     version; (c) the inputs of every B2 launch of one sample pass of the
+     1024x1024 spheres render (coherence-sorted rays, any-hit seeds
+     negated where the proxy pre-pass resolved them), kept by wrapping
+     the wrapper for that pass;
+  5. main path 1, the in-repo cornell box (36 triangles, brute force):
+     1024x1024, RenderConfig(mis=True, jitter=True, max_depth=4), 8 spp,
+     loaded and rendered on "cuda"; the MT kernel must have launched; a
+     finite image with a sane mean, written as .hdr;
+  6. main path 2, the spheres scene (BVH, the wavefront integrator
+     chosen automatically): the same render; both B2 variants and B1
+     (the any-hit proxy pre-pass) must have launched and no walk may
+     have taken the stackless fall-back; a finite image with a sane
+     mean, written as .hdr.  Then the same render through the scan
+     integrator (wavefront=False), timed beside it: its image must agree
+     with the wavefront's on >= 99% of pixels (rtol 1e-3 / atol 1e-5);
+  7. GPU against CPU: the cornell box and the 5,156-triangle spheres
+     scene at 128x128, 2 spp, on "cuda" (kernels) and on "cpu" (plain
+     versions), same keys: >= 99% of pixels within rtol 1e-3 /
      atol 1e-5, image means within 0.5%.
 
 The line before the last is a JSON object describing every kernel; the
@@ -40,7 +61,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BIG_T = 3.4e38
 N_TIMED = 1 << 20
 N_CHECK = (1 << 20) + 77          # not a multiple of the 256-thread block
+N_BVH_CHECK = (1 << 20) + 77      # B2: the render's primary width + a tail
 BENCH_CFG = dict(mis=True, jitter=True, max_depth=4)
+SPP = 8
 
 
 def fail(msg: str) -> None:
@@ -67,6 +90,27 @@ def card_facts(torch):
     return card
 
 
+def host_facts():
+    """The host CPU's model (vendor, family and model number where the
+    model name is withheld) and whether it has AVX-512."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                info.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    model = info.get("model name", "unknown")
+    if model == "unknown":
+        model = (f"{info.get('vendor_id', '?')} family "
+                 f"{info.get('cpu family', '?')} model "
+                 f"{info.get('model', '?')}")
+    from raytracingrenderer_tpu_torch.geometry import bvh_native
+    log(f"host CPU: {model}, {os.cpu_count()} cores, avx512f: "
+        f"{'avx512f' in bvh_native.cpu_flags()}")
+
+
 def load_scene_writer():
     path = os.path.join(ROOT, "tests", "torch_scenes.py")
     if not os.path.isfile(path):
@@ -75,6 +119,30 @@ def load_scene_writer():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def build_all():
+    """nvcc for every kernel source and the native BVH builder's library,
+    all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    from raytracingrenderer_tpu_torch.geometry import bvh_native
+    from raytracingrenderer_tpu_torch.ops import build
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        libs = [pool.submit(build.build, name)
+                for name in ("mt_kernel", "bvh_kernel")]
+        native = pool.submit(bvh_native.library_path)
+        paths = [f.result() for f in libs] + [native.result()]
+    log(f"build: {', '.join(os.path.relpath(p, ROOT) for p in paths)} "
+        f"ready in {time.perf_counter() - t0:.2f} s")
+    for name, (secs, out) in build.build_log.items():
+        log(f"nvcc {name}.cu: {secs:.2f} s")
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line \
+                    or "Compiling entry" in line:
+                log(f"  {line.strip()}")
+    log(f"BVH builder: {os.path.relpath(paths[-1], ROOT)} "
+        f"({'committed' if paths[-1] == bvh_native.COMMITTED_LIB else 'compiled here with g++'})")
 
 
 def make_rays(torch, n, seed, dead_frac=0.1):
@@ -94,7 +162,7 @@ def make_rays(torch, n, seed, dead_frac=0.1):
     from raytracingrenderer_tpu_torch.core.vec import V3
     return (V3(*(cu(o[:, i]) for i in range(3))),
             V3(*(cu(d[:, i]) for i in range(3))),
-            cu(t_closest), cu(t_any), cu(dead))
+            cu(t_closest), cu(t_any))
 
 
 def random_tris(torch, n_tri, seed):
@@ -131,33 +199,61 @@ def time_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def check_mt_kernel(torch, name, tris, timed: bool):
-    """Kernel vs plain on the card; returns (max_abs_err, ms, plain_ms)."""
-    from raytracingrenderer_tpu_torch.ops import mt_kernel
-    o, d, t_closest, t_any, dead = make_rays(torch, N_CHECK, seed=0)
-    hk = mt_kernel.intersect(tris, o, d, t_closest)
-    hp = mt_kernel.intersect_plain(tris, o, d, t_closest)
-    ak = mt_kernel.any_hit(tris, o, d, t_any)
-    ap = mt_kernel.intersect_plain(tris, o, d, t_any).tri >= 0
+def time_once(torch, fn):
+    """One call of fn timed with CUDA events -> (its result, ms)."""
     torch.cuda.synchronize()
-    err = (hk.t - hp.t).abs().max().item()
-    t_ok = torch.allclose(hk.t, hp.t, rtol=1e-4, atol=1e-4)
-    tri_agree = (hk.tri == hp.tri).float().mean().item()
-    any_agree = (ak == ap).float().mean().item()
-    dead_hits = int((hk.tri[dead] >= 0).sum().item()
-                    + ak[dead].sum().item())
-    hit_frac = (hk.tri >= 0).float().mean().item()
-    log(f"mt_kernel {name}: {N_CHECK} rays, {tris.count} triangles: "
-        f"max|dt| {err:.3e} (allclose 1e-4: {t_ok}), tri agreement "
-        f"{tri_agree:.6f}, any-hit agreement {any_agree:.6f}, dead-lane "
-        f"hits {dead_hits}, hit fraction {hit_frac:.3f}")
-    if not (t_ok and tri_agree >= 0.999 and any_agree >= 0.999
-            and dead_hits == 0 and hit_frac > 0.1):
-        fail(f"mt_kernel disagrees with its plain version ({name})")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def compare(torch, what, t_init, k, p, any_hit, min_hit_frac=None):
+    """A kernel's output against its plain version's on one batch: log
+    the numbers and fail past the bars (t within rtol/atol 1e-4, ids or
+    bits agreeing on >= 99.9% of rays, no hit on a dead lane, one whose
+    t_init < 0).  For closest-hit k and p are Hits and the error is
+    max |dt|; for any-hit they are the occluded bits and the error is
+    max |k - p| over them (0 or 1).  Returns (max_abs_err, mismatches)."""
+    n = t_init.shape[0]
+    if any_hit:
+        hits, mism = k, int((k != p).sum())
+        err, t_ok = float(mism > 0), True
+    else:
+        hits, mism = k.tri >= 0, int((k.tri != p.tri).sum())
+        err = (k.t - p.t).abs().max().item()
+        t_ok = torch.allclose(k.t, p.t, rtol=1e-4, atol=1e-4)
+    dead_hits = int(hits[t_init < 0].sum())
+    frac = hits.float().mean().item()
+    log(f"{what}: {n} rays, max_abs_err {err:.3e} (t allclose 1e-4: "
+        f"{t_ok}), {mism} {'bits' if any_hit else 'ids'} differ "
+        f"({1 - mism / n:.6f} agree), dead-lane hits {dead_hits}, "
+        f"hit fraction {frac:.3f}")
+    if not (t_ok and mism <= 0.001 * n and dead_hits == 0
+            and (min_hit_frac is None or frac > min_hit_frac)):
+        fail(f"kernel disagrees with its plain version ({what})")
+    return err, mism
+
+
+def check_mt_kernel(torch, name, tris, timed: bool):
+    """B1 vs plain on the card; returns (max_abs_err, ms, plain_ms)."""
+    from raytracingrenderer_tpu_torch.ops import mt_kernel
+    o, d, t_closest, t_any = make_rays(torch, N_CHECK, seed=0)
+    what = f"mt_kernel {name}, {tris.count} triangles"
+    err, _ = compare(torch, f"{what}, closest-hit", t_closest,
+                     mt_kernel.intersect(tris, o, d, t_closest),
+                     mt_kernel.intersect_plain(tris, o, d, t_closest),
+                     any_hit=False, min_hit_frac=0.1)
+    compare(torch, f"{what}, any-hit", t_any,
+            mt_kernel.any_hit(tris, o, d, t_any),
+            mt_kernel.intersect_plain(tris, o, d, t_any).tri >= 0,
+            any_hit=True)
     ms = plain_ms = None
     if timed:
-        o, d, t_closest, _, _ = make_rays(torch, N_TIMED, seed=1,
-                                          dead_frac=0.0)
+        o, d, t_closest, _ = make_rays(torch, N_TIMED, seed=1, dead_frac=0.0)
         ms = time_ms(torch, lambda: mt_kernel.intersect(
             tris, o, d, t_closest), 20)
         plain_ms = time_ms(torch, lambda: mt_kernel.intersect_plain(
@@ -168,11 +264,175 @@ def check_mt_kernel(torch, name, tris, timed: bool):
     return err, ms, plain_ms
 
 
+def capture_b2_inputs(torch, scene):
+    """One sample pass of the full-size render with B2's wrapper wrapped,
+    keeping a copy of the inputs of every launch: the widths, ray order
+    and seeds the main path gives the kernel (coherence-sorted rays;
+    any-hit seeds negated where the proxy pre-pass resolved the ray).
+    -> [(any_hit, o, d, t_init)]."""
+    from raytracingrenderer_tpu_torch.config import RenderConfig
+    from raytracingrenderer_tpu_torch.core.vec import V3
+    from raytracingrenderer_tpu_torch.ops import bvh_kernel
+    from raytracingrenderer_tpu_torch.render import render
+    real = bvh_kernel.traverse_packet
+    kept = []
+
+    def keep(bvh, tris, o, d, t_init, any_hit=False, leaf16=None):
+        if o.x.shape[0]:
+            kept.append((any_hit, V3(*(c.clone() for c in o)),
+                         V3(*(c.clone() for c in d)), t_init.clone()))
+        return real(bvh, tris, o, d, t_init, any_hit, leaf16)
+
+    bvh_kernel.traverse_packet = keep
+    try:
+        render(scene, RenderConfig(**BENCH_CFG), spp=1)
+    finally:
+        bvh_kernel.traverse_packet = real
+    torch.cuda.synchronize()
+    return kept
+
+
+def check_bvh_kernel(torch, scene):
+    """B2 vs plain on the card at the spheres scene, per variant: (a) a
+    random batch with dead lanes, (b) a live random batch, which also
+    times the kernel and the plain version, (c) every launch of one
+    sample pass of the render.  Returns per variant the numbers of the
+    kernels line."""
+    from raytracingrenderer_tpu_torch.ops import bvh_kernel
+    bvh, tris = scene.bvh, scene.triangles
+    out = {v: dict(max_abs_err=0.0, mismatches=0, checked_rays=0,
+                   checked_batches=0) for v in ("closest_hit", "any_hit")}
+
+    def kernel(o, d, t_init, any_hit):
+        return bvh_kernel.traverse_packet(bvh, tris, o, d, t_init,
+                                          any_hit=any_hit)
+
+    def plain(o, d, t_init, any_hit):
+        return bvh_kernel.traverse_plain(bvh, tris, o, d, t_init,
+                                         any_hit=any_hit)
+
+    def check(what, t_init, any_hit, k, p, min_hit_frac=None):
+        variant = "any_hit" if any_hit else "closest_hit"
+        if any_hit:
+            k, p = k.tri >= 0, p.tri >= 0
+        err, mism = compare(torch, f"bvh_kernel {variant} {what}", t_init,
+                            k, p, any_hit, min_hit_frac)
+        r = out[variant]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["mismatches"] += mism
+        r["checked_rays"] += t_init.shape[0]
+        r["checked_batches"] += 1
+
+    # (a) random rays with dead lanes, a width that is no multiple
+    o, d, t_closest, t_any = make_rays(torch, N_BVH_CHECK, seed=4)
+    for t_init, any_hit in ((t_closest, False), (t_any, True)):
+        check("random with dead lanes", t_init, any_hit,
+              kernel(o, d, t_init, any_hit), plain(o, d, t_init, any_hit),
+              0.1)
+    # (b) live random rays: kernel and plain timed at the same width
+    o, d, t_closest, t_any = make_rays(torch, N_TIMED, seed=5,
+                                       dead_frac=0.0)
+    for t_init, any_hit in ((t_closest, False), (t_any, True)):
+        variant = "any_hit" if any_hit else "closest_hit"
+        ms = time_ms(torch, lambda: kernel(o, d, t_init, any_hit), 10)
+        p, plain_ms = time_once(torch, lambda: plain(o, d, t_init, any_hit))
+        check("random, live", t_init, any_hit, kernel(o, d, t_init, any_hit),
+              p, 0.1)
+        log(f"bvh_kernel {variant}: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms at {N_TIMED} rays ({tris.count} triangles)")
+        out[variant].update(ms=ms, plain_ms=plain_ms, rays=N_TIMED,
+                            plain_rays=N_TIMED)
+    # (c) what the render gives the kernel
+    t0 = time.perf_counter()
+    batches = capture_b2_inputs(torch, scene)
+    for i, (any_hit, o, d, t_init) in enumerate(batches):
+        check(f"render launch {i}", t_init, any_hit,
+              kernel(o, d, t_init, any_hit), plain(o, d, t_init, any_hit))
+    if {b[0] for b in batches} != {False, True}:
+        fail("one sample pass of the spheres render did not launch both "
+             "bvh_kernel variants")
+    log(f"bvh_kernel: {len(batches)} launches of one sample pass checked "
+        f"in {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def reset_counts():
+    from raytracingrenderer_tpu_torch.geometry import intersect
+    from raytracingrenderer_tpu_torch.ops import bvh_kernel, mt_kernel
+    mt_kernel.launches = 0
+    for k in bvh_kernel.launches:
+        bvh_kernel.launches[k] = 0
+    intersect.stackless_calls = 0
+
+
+def render_full(torch, scene, name, card, out_dir, **cfg_over):
+    """The main path at full size: warm-up pass, counts to 0, SPP
+    passes; returns the image (numpy) and its wall seconds."""
+    from raytracingrenderer_tpu_torch.config import RenderConfig
+    from raytracingrenderer_tpu_torch.imaging import film as film_mod
+    from raytracingrenderer_tpu_torch.io.hdr import write_hdr
+    from raytracingrenderer_tpu_torch.render import _use_wavefront, render
+    cfg = RenderConfig(**BENCH_CFG, **cfg_over)
+    cam = scene.camera
+    render(scene, cfg, spp=1)                       # warm-up pass
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    film = render(scene, cfg, spp=SPP)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    img = film_mod.to_hdr(film)
+    if tuple(img.shape) != (cam.height, cam.width, 3):
+        fail(f"{name}: image shape {tuple(img.shape)}")
+    if not bool(torch.isfinite(img).all()):
+        fail(f"{name}: non-finite pixels in the full-size render")
+    mean = img.mean().item()
+    pps = cam.width * cam.height * SPP / dt
+    log(f"render {name} {cam.width}x{cam.height}, {SPP} spp, mis+jitter, "
+        f"max_depth 4, {'wavefront' if _use_wavefront(scene, cfg) else 'scan'}"
+        f": {dt:.3f} s, {pps:.6g} pixel-paths/s [{card}], image mean "
+        f"{mean:.5f}")
+    if not 0.03 < mean < 0.5:
+        fail(f"{name}: implausible image mean {mean}")
+    img = img.cpu().numpy()
+    hdr_path = os.path.join(
+        out_dir, f"{name}_{cam.width}x{cam.height}_{SPP}spp.hdr")
+    write_hdr(hdr_path, img)
+    log(f"wrote {hdr_path} ({os.path.getsize(hdr_path)} bytes)")
+    return img, dt
+
+
+def same_image(what, a, b):
+    """>= 99% of pixels within rtol 1e-3 / atol 1e-5 and means within
+    0.5%, or fail."""
+    import numpy as np
+    close = np.isclose(a, b, rtol=1e-3, atol=1e-5).all(-1).mean()
+    rel = abs(a.mean() - b.mean()) / max(abs(b.mean()), 1e-12)
+    log(f"{what}: {close:.4%} of pixels within rtol 1e-3/atol 1e-5, "
+        f"means {a.mean():.6f} vs {b.mean():.6f} (rel {rel:.2e})")
+    if close < 0.99 or rel > 0.005:
+        fail(f"{what}: the images disagree")
+
+
+def gpu_vs_cpu(name, scene_dir):
+    from raytracingrenderer_tpu_torch.config import RenderConfig
+    from raytracingrenderer_tpu_torch.imaging import film as film_mod
+    from raytracingrenderer_tpu_torch.render import render
+    from raytracingrenderer_tpu_torch.scene.loader import load_scene
+    imgs = {}
+    for dev in ("cuda", "cpu"):
+        f = render(load_scene(scene_dir, device=dev),
+                   RenderConfig(**BENCH_CFG), spp=2)
+        imgs[dev] = film_mod.to_hdr(f).cpu().numpy()
+    same_image(f"{name} 128x128 2 spp, cuda vs cpu", imgs["cuda"],
+               imgs["cpu"])
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
-                    help="directory for the rendered .hdr (default: a "
-                         "temporary directory)")
+                    help="directory for the rendered .hdr files (default: "
+                         "a temporary directory)")
     args = ap.parse_args()
 
     try:
@@ -187,103 +447,126 @@ def main() -> None:
     scenes = load_scene_writer()
 
     import numpy as np
-    from raytracingrenderer_tpu_torch.config import RenderConfig
-    from raytracingrenderer_tpu_torch.imaging import film as film_mod
-    from raytracingrenderer_tpu_torch.io.hdr import write_hdr
-    from raytracingrenderer_tpu_torch.ops import build, mt_kernel
-    from raytracingrenderer_tpu_torch.render import render
+    from raytracingrenderer_tpu_torch.geometry import intersect
+    from raytracingrenderer_tpu_torch.ops import bvh_kernel, mt_kernel
     from raytracingrenderer_tpu_torch.scene.loader import load_scene
 
-    # -- 1. card facts ---------------------------------------------------
+    # -- 1. card and host facts --------------------------------------------
     card = card_facts(torch)
     kind = torch.cuda.get_device_name(0)
+    host_facts()
 
-    # -- 2. build --------------------------------------------------------
-    t0 = time.perf_counter()
-    lib = build.build("mt_kernel")
-    log(f"build: {os.path.relpath(lib, ROOT)} ready in "
-        f"{time.perf_counter() - t0:.2f} s")
-    for name, (secs, out) in build.build_log.items():
-        log(f"nvcc {name}.cu: {secs:.2f} s")
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  {line.strip()}")
+    # -- 2. build ----------------------------------------------------------
+    build_all()
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     out_dir = args.out or tmp
     os.makedirs(out_dir, exist_ok=True)
-    scene_dir = scenes.write_cornell(os.path.join(tmp, "cornell"))
-    scene = load_scene(scene_dir, device="cuda")
-    if scene.triangles.count != 36:
-        fail(f"cornell box has {scene.triangles.count} triangles, not 36")
+    cornell_dir = scenes.write_cornell(os.path.join(tmp, "cornell"))
+    cornell = load_scene(cornell_dir, device="cuda")
+    if cornell.triangles.count != 36:
+        fail(f"cornell box has {cornell.triangles.count} triangles, not 36")
+    t0 = time.perf_counter()
+    spheres_dir = scenes.write_spheres(os.path.join(tmp, "spheres"),
+                                       subdiv=5)
+    t1 = time.perf_counter()
+    spheres = load_scene(spheres_dir, device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    bvh = spheres.bvh
+    if spheres.triangles.count != 327_716 or bvh is None:
+        fail(f"spheres scene: {spheres.triangles.count} triangles, BVH "
+             f"{bvh is not None}")
+    # the build alone, timed again on the loaded triangles
+    from raytracingrenderer_tpu_torch.geometry import bvh_native
+    from raytracingrenderer_tpu_torch.scene import loader
+    tr = spheres.triangles
+    p0 = tr.p0.stacked().cpu().numpy()
+    tp = np.stack([p0, p0 + tr.e1.stacked().cpu().numpy(),
+                   p0 + tr.e2.stacked().cpu().numpy()], axis=1)
+    t3 = time.perf_counter()
+    bvh_native.build(tp, max_leaf=loader.BVH_MAX_LEAF, bins=loader.BVH_BINS,
+                     all_axes=True)
+    build_s = time.perf_counter() - t3
+    n_leaf = (bvh.n_nodes + 1) // 2
+    tab_bytes = {leaf16: sum(
+        t.numel() * t.element_size()
+        for t in bvh_kernel.tables(bvh, spheres.triangles, leaf16))
+        for leaf16 in (False, True)}
+    log(f"spheres scene: {spheres.triangles.count} triangles, written in "
+        f"{t1 - t0:.2f} s, loaded with its BVH on cuda in {t2 - t1:.2f} s "
+        f"(native BVH build alone {build_s:.2f} s); BVH depth {bvh.depth}, {bvh.n_nodes} nodes ({n_leaf - 1} internal, "
+        f"{n_leaf} leaves), leaf_max {bvh.leaf_max}; packed tables "
+        f"{tab_bytes[False]} B (raw leaves), {tab_bytes[True]} B "
+        f"(constant-form leaves)")
+    if not bvh_kernel.usable(bvh):
+        fail(f"the spheres BVH (depth {bvh.depth}) does not fit the "
+             f"kernel's stack")
 
-    # -- 3. kernel vs plain on the card ----------------------------------
+    # -- 3. B1 against its plain version -----------------------------------
     err_a, ms_a, plain_a = check_mt_kernel(torch, "(a) cornell",
-                                           scene.triangles, timed=True)
+                                           cornell.triangles, timed=True)
     err_b, _, _ = check_mt_kernel(torch, "(b) random-128",
                                   random_tris(torch, 128, 2), timed=False)
     err_c, ms_c, plain_c = check_mt_kernel(
         torch, "(c) random-4096", random_tris(torch, 4096, 3), timed=True)
 
-    # -- 4. the main path at full size -----------------------------------
-    cfg = RenderConfig(**BENCH_CFG)
-    spp = 8
-    cam = scene.camera
-    render(scene, cfg, spp=1)                       # warm-up pass
-    torch.cuda.synchronize()
-    mt_kernel.launches = 0
-    t0 = time.perf_counter()
-    film = render(scene, cfg, spp=spp)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = mt_kernel.launches
-    img = film_mod.to_hdr(film)
-    if tuple(img.shape) != (cam.height, cam.width, 3):
-        fail(f"image shape {tuple(img.shape)}")
-    if not bool(torch.isfinite(img).all()):
-        fail("non-finite pixels in the 1024x1024 render")
-    mean = img.mean().item()
-    pps = cam.width * cam.height * spp / dt
-    log(f"render cornell {cam.width}x{cam.height}, {spp} spp, "
-        f"mis+jitter, max_depth 4: {dt:.3f} s, {pps:.6g} pixel-paths/s "
-        f"[{card}], image mean {mean:.5f}, mt_kernel launches {launches}")
-    if launches == 0:
-        fail("the render never launched mt_kernel")
-    if not 0.03 < mean < 0.5:
-        fail(f"implausible image mean {mean}")
-    hdr_path = os.path.join(
-        out_dir, f"cornell_{cam.width}x{cam.height}_{spp}spp.hdr")
-    write_hdr(hdr_path, img.cpu().numpy())
-    log(f"wrote {hdr_path} ({os.path.getsize(hdr_path)} bytes)")
+    # -- 4. B2 against its plain version -----------------------------------
+    b2 = check_bvh_kernel(torch, spheres)
 
-    # -- 5. GPU (kernel) vs CPU (plain) ----------------------------------
-    small_dir = scenes.write_cornell(os.path.join(tmp, "cornell128"),
-                                     128, 128)
-    imgs = {}
-    for dev in ("cuda", "cpu"):
-        f = render(load_scene(small_dir, device=dev), cfg, spp=2)
-        imgs[dev] = film_mod.to_hdr(f).cpu().numpy()
-    a, b = imgs["cuda"], imgs["cpu"]
-    close = np.isclose(a, b, rtol=1e-3, atol=1e-5).all(-1).mean()
-    rel = abs(a.mean() - b.mean()) / max(abs(b.mean()), 1e-12)
-    log(f"cornell 128x128 2 spp, cuda vs cpu: {close:.4%} of pixels within "
-        f"rtol 1e-3/atol 1e-5, means {a.mean():.6f} vs {b.mean():.6f} "
-        f"(rel {rel:.2e})")
-    if close < 0.99 or rel > 0.005:
-        fail("GPU render disagrees with the CPU render")
+    # -- 5. main path 1: cornell (brute force, B1) --------------------------
+    render_full(torch, cornell, "cornell", card, out_dir)
+    mt_cornell = mt_kernel.launches
+    log(f"cornell launches: mt_kernel {mt_cornell}, bvh_kernel "
+        f"{bvh_kernel.launches}")
+    if mt_cornell == 0:
+        fail("the cornell render never launched mt_kernel")
 
+    # -- 6. main path 2: spheres (BVH, wavefront, B2 + B1) ------------------
+    wave_img, wave_s = render_full(torch, spheres, "spheres", card, out_dir)
+    b2_launches = dict(bvh_kernel.launches)
+    mt_spheres = mt_kernel.launches
+    log(f"spheres launches: bvh_kernel {b2_launches}, mt_kernel (proxy "
+        f"pre-pass) {mt_spheres}, stackless walks "
+        f"{intersect.stackless_calls}")
+    if min(b2_launches.values()) == 0:
+        fail("the spheres render did not launch both bvh_kernel variants")
+    if mt_spheres == 0:
+        fail("the spheres render never launched the proxy pre-pass")
+    if intersect.stackless_calls:
+        fail("the spheres render took the stackless walk")
+    # the same render through the scan integrator, timed beside it
+    scan_img, scan_s = render_full(torch, spheres, "spheres-scan", card,
+                                   out_dir, wavefront=False)
+    log(f"spheres 8 spp: wavefront {wave_s:.3f} s, scan {scan_s:.3f} s "
+        f"(wavefront / scan {wave_s / scan_s:.3f}) [{card}]")
+    same_image("spheres 1024x1024 8 spp, wavefront vs scan", wave_img,
+               scan_img)
+
+    # -- 7. GPU (kernels) against CPU (plain versions) -----------------------
+    gpu_vs_cpu("cornell", scenes.write_cornell(
+        os.path.join(tmp, "cornell128"), 128, 128))
+    gpu_vs_cpu("spheres-5156", scenes.write_spheres(
+        os.path.join(tmp, "spheres128"), 128, 128, subdiv=2))
+
+    bvh_src = dict(route="cuda",
+                   source="raytracingrenderer_tpu_torch/csrc/bvh_kernel.cu",
+                   replaces="raytracingrenderer_tpu/ops/bvh_kernel.py:65")
     log(json.dumps({"kernels": [{
         "name": "mt_intersect",
         "route": "cuda",
         "source": "raytracingrenderer_tpu_torch/csrc/mt_kernel.cu",
         "replaces": "raytracingrenderer_tpu/ops/mt_kernel.py:41",
-        "launches": launches,
+        "launches": mt_cornell,
+        "launches_spheres_prepass": mt_spheres,
         "max_abs_err": max(err_a, err_b, err_c),
         "ms": ms_a,
         "plain_ms": plain_a,
         "ms_4096_tris": ms_c,
         "plain_ms_4096_tris": plain_c,
-    }]}))
+    }] + [dict(name=f"bvh_traverse/{v}", **bvh_src,
+               launches=b2_launches[v], **b2[v])
+          for v in ("closest_hit", "any_hit")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

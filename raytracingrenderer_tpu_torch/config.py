@@ -4,9 +4,11 @@ packages.
 
 Fields that belong to slices this package has not ported yet are kept
 (so configurations carry over) and `render.render` refuses them:
-`geom_grads`, `boundary_grads`, `wavefront=True` and any `integrator`
-other than "path".  `batch_rays` and `remat` have no effect here: the
-port renders one full frame per sample pass and has no backward yet.
+`geom_grads`, `boundary_grads` and any `integrator` other than "path".
+`wavefront` picks the integrator as in the JAX package (None: the
+wavefront one for BVH scenes of more than 4096 triangles).
+`batch_rays` and `remat` have no effect here: the port renders one full
+frame per sample pass and has no backward yet.
 """
 from __future__ import annotations
 
@@ -48,5 +50,7 @@ class RenderConfig:
     geom_grads: bool = False
     boundary_grads: bool = False
     boundary_samples: int = 4
+    # Compacting wavefront integrator: None = automatic (BVH scenes of
+    # more than 4096 triangles), True/False force it on or off.
     wavefront: Optional[bool] = None
     remat: bool = True

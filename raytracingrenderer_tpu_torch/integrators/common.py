@@ -100,11 +100,12 @@ def balance_heuristic(pdf_a, pdf_b):
 
 
 def compute_direct(scene: Scene, sh: Shading, active, r_pick, r1, r2,
-                   mis: bool, types=None, r3=None,
+                   mis: bool, types=None, r3=None, presorted: bool = False,
                    geom_grads: bool = False, power: bool = False):
     """One-light one-sample NEE; with `mis` the light-strategy term is
     balance-weighted against the BSDF pdf (computeDirectMIS light half).
     The BSDF-strategy half lives in the bounce loop (emission weighting).
+    `presorted` is handed to the shadow rays' `occluded`.
     """
     ls = lights_mod.sample_one(scene, sh.x, sh.sn, r_pick, r1, r2, r3,
                                geom_grads=geom_grads, power=power)
@@ -129,6 +130,6 @@ def compute_direct(scene: Scene, sh: Shading, active, r_pick, r1, r2,
     occ = occluded(
         scene, shadow_o,
         vwhere(worth, shadow_d, V3(0.0, 0.0, 1.0)),
-        torch.where(worth, max_t, -1.0))
+        torch.where(worth, max_t, -1.0), presorted=presorted)
     lit = worth & ~occ
     return vwhere(lit, contrib, 0.0)

@@ -44,15 +44,17 @@ def init_state(o: V3, d: V3) -> dict:
 
 
 def bounce_step(scene: Scene, state: dict, depth: int, key: rng.Key,
-                cfg: RenderConfig) -> dict:
-    """One bounce over the whole ray batch."""
+                cfg: RenderConfig, presorted: bool = False) -> dict:
+    """One bounce over the whole (possibly compacted) ray batch.  With
+    `presorted` the batch is already coherence-sorted (wavefront mode),
+    and the closest-hit dispatch skips its own sort and unsort."""
     o, d = state["o"], state["d"]
     ids = state["ids"]
     alive = state["alive"]
     beta = state["throughput"]
     radiance = state["radiance"]
 
-    hit = intersect.closest_hit(scene, o, d, alive)
+    hit = intersect.closest_hit(scene, o, d, alive, presorted=presorted)
     found = hit.valid & alive
     missed = alive & ~hit.valid
 
@@ -94,6 +96,8 @@ def bounce_step(scene: Scene, state: dict, depth: int, key: rng.Key,
     r_lu = rng.uniform_ids(key, depth, rng.LIGHT_POS_U, ids)
     r_lv = rng.uniform_ids(key, depth, rng.LIGHT_POS_V, ids)
     r_aux = rng.uniform_ids(key, depth, rng.LIGHT_AUX, ids)
+    # shadow rays are not presorted, even in wavefront mode: their key
+    # holds the direction toward the light, not the bounce direction
     direct = compute_direct(scene, sh, shade, r_pick, r_lu, r_lv, cfg.mis,
                             cfg.mat_types, r3=r_aux,
                             geom_grads=cfg.geom_grads,

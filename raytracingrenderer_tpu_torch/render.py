@@ -5,7 +5,10 @@ renders the full pixel grid as one flat ray batch on the scene's device;
 pass s uses the key spp_key(PRNGKey(cfg.seed), s), as in the JAX package,
 so a film resumes where it stopped and both packages draw the same
 random numbers.  The JAX package groups passes into power-of-two chunks
-for its compiler; here one loop runs them in order.
+for its compiler; here one loop runs them in order.  Scenes with a BVH
+and more than 4096 triangles (or any scene with cfg.wavefront=True)
+take the compacting wavefront integrator (integrators/wavefront.py),
+as in the JAX package.
 """
 from __future__ import annotations
 
@@ -39,13 +42,20 @@ def _check_supported(cfg: RenderConfig) -> None:
     later = [name for name, on in (
         ("geom_grads", cfg.geom_grads),
         ("boundary_grads", cfg.boundary_grads),
-        ("wavefront=True", cfg.wavefront is True),
         (f"integrator={cfg.integrator!r}", cfg.integrator != "path"))
         if on]
     if later:
         raise NotImplementedError(
             f"not ported yet: {', '.join(later)} (only the forward path "
             f"tracer is)")
+
+
+def _use_wavefront(scene: Scene, cfg: RenderConfig) -> bool:
+    """Auto policy for the wavefront integrator: BVH-scale scenes, where
+    per-bounce traversal dominates; cfg.wavefront overrides it."""
+    if cfg.wavefront is not None:
+        return cfg.wavefront
+    return scene.bvh is not None and scene.triangles.count > 4096
 
 
 def pixel_grid(height: int, width: int, device=None):
@@ -90,9 +100,13 @@ def render(scene: Scene, cfg: Optional[RenderConfig] = None,
         film = film_mod.new_film(cam.height, cam.width, scene.device)
     base = rng.PRNGKey(cfg.seed)
     start = int(film.spp)
+    sample = sample_image
+    if _use_wavefront(scene, cfg):
+        from .integrators.wavefront import sample_image_wavefront
+        sample = sample_image_wavefront
     with torch.no_grad():
         for s in range(start, start + spp):
-            img = sample_image(scene, rng.spp_key(base, s), cfg)
+            img = sample(scene, rng.spp_key(base, s), cfg)
             film = film_mod.add_sample_image(film, img)
             if on_sample is not None:
                 on_sample(s, film)

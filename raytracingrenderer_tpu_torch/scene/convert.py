@@ -12,8 +12,8 @@ import numpy as np
 import torch
 
 from ..core.vec import V3
-from .types import (Background, Camera, LightTable, MaterialTable, Scene,
-                    SceneBounds, TextureAtlas, Triangles)
+from .types import (BVH, Background, Camera, LightTable, MaterialTable,
+                    Scene, SceneBounds, TextureAtlas, Triangles)
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -33,13 +33,21 @@ def _fields(cls, src, device):
                   for f in cls._fields})
 
 
+def _bvh(b, device):
+    """The binary tree of a JAX BVH; its 4-wide and treelet fields are
+    not carried (their kernels are not ported)."""
+    if b is None:
+        return None
+    if not hasattr(b, "skip"):
+        raise NotImplementedError("sharded BVHs are not ported yet")
+    return BVH(*(_tensor(getattr(b, f), device) for f in
+                 ("lo", "hi", "right", "start", "count", "skip")),
+               leaf_max=int(b.leaf_max), depth=int(b.depth))
+
+
 def scene_from_numpy(tree, device="cpu") -> Scene:
     """JAX scene arrays (numpy leaves, same field names) -> Scene."""
     device = torch.device(device)
-    if tree.bvh is not None:
-        raise NotImplementedError(
-            "the BVH slice is not ported yet; load the JAX scene with "
-            "build_bvh=False")
     bg = tree.background
     if bg.envmap is not None:
         raise NotImplementedError("environment maps are not ported yet")
@@ -58,5 +66,5 @@ def scene_from_numpy(tree, device="cpu") -> Scene:
             origin=_value(cam.origin, device),
             a_film=_tensor(cam.a_film, device)),
         bounds=_fields(SceneBounds, tree.bounds, device),
-        bvh=None,
+        bvh=_bvh(tree.bvh, device),
         edge_mult=_value(tree.edge_mult, device))

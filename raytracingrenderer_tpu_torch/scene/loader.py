@@ -8,11 +8,15 @@ vertex normal 0, the emissive-material light table, scene bounds and the
 camera.  All of that runs in numpy exactly as the JAX loader runs it;
 only the final arrays become tensors, on `device`.
 
-This slice builds no BVH: the triangles keep file order and
-`Scene.bvh` is None, which the intersector brute-forces.  With
-`build_bvh=True` a scene of more than 64 triangles (where the JAX
-package would traverse a BVH) raises NotImplementedError until the BVH
-slice is ported.  Environment-map backgrounds raise likewise.
+With `build_bvh` (the default) a non-empty scene gets the JAX
+loader's BVH: the native binned-SAH builder (geometry/bvh_native.py)
+with 14-triangle leaves, 64 bins and all three axes swept, after which
+the triangles are reordered so that every leaf is a contiguous range
+and the light table's triangle ids are remapped.  Scenes of 64
+triangles or fewer still brute-force every ray (geometry/intersect.py),
+as in the JAX package, which builds their tree all the same.  The JAX
+loader's 4-wide collapse (`widen`) and sharded trees (`scene_shards`)
+are not ported; environment-map backgrounds raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -33,9 +37,11 @@ from .types import (BG_NONE, MAT_CONDUCTOR, MAT_DIELECTRIC, MAT_DIFFUSE,
                     Background, Camera, LightTable, MaterialTable, Scene,
                     SceneBounds, TextureAtlas, Triangles, v3_from_np)
 
-# Scenes above this size take the JAX package's BVH path
-# (raytracingrenderer_tpu/geometry/intersect.py closest_hit).
-BRUTE_FORCE_MAX_TRIS = 64
+# Leaf size and SAH quality of the loader's build, as the JAX loader's:
+# 14 triangles fill one 128-lane leaf row of the packet kernel's tables;
+# 64 bins swept on every axis.
+BVH_MAX_LEAF = 14
+BVH_BINS = 64
 
 
 def _get(props: Dict, key: str, default):
@@ -243,9 +249,12 @@ class _MaterialRows:
             coat_ext_ior=t(col("coat_ext_ior"), np.float32))
 
 
-def load_scene(scene_dir: str, device="cpu", build_bvh: bool = True
-               ) -> Scene:
+def load_scene(scene_dir: str, device="cpu", build_bvh: bool = True,
+               scene_shards: int = 0) -> Scene:
     """Load an RTBase-format scene directory onto `device`."""
+    if scene_shards:
+        raise NotImplementedError(
+            "sharded BVHs (parallel/scene_shard.py) are not ported yet")
     device = torch.device(device)
     with open(os.path.join(scene_dir, "scene.json")) as f:
         desc = json.load(f)
@@ -315,12 +324,6 @@ def load_scene(scene_dir: str, device="cpu", build_bvh: bool = True
     keep = area > 0.0  # cull zero-area triangles
     tp, tn, tuv, tmid = tp[keep], tn[keep], tuv[keep], tmid[keep]
     e1, e2, cr, area = e1[keep], e2[keep], cr[keep], area[keep]
-    if build_bvh and len(tp) > BRUTE_FORCE_MAX_TRIS:
-        raise NotImplementedError(
-            f"{len(tp)} triangles need the BVH slice (geometry/bvh.py, "
-            f"ops/bvh_kernel.py), which is not ported yet; "
-            f"build_bvh=False brute-forces every ray against every "
-            f"triangle")
     gn = cr / np.maximum(np.linalg.norm(cr, axis=1, keepdims=True), 1e-20)
     # geometric normal agrees with vertex normal 0 (RTBase
     # Triangle::gNormal): emission sidedness and shading key off it
@@ -347,18 +350,33 @@ def load_scene(scene_dir: str, device="cpu", build_bvh: bool = True
     def v3(a):
         return v3_from_np(a, device)
 
+    lights = LightTable(
+        tri=t(light_tri), le=v3(light_le), area=t(light_area),
+        power=t(lum * light_area, np.float32),
+        p0=v3(tp[light_tri, 0]), e1=v3(e1[light_tri]),
+        e2=v3(e2[light_tri]), gn=v3(gn[light_tri]))
+
+    bvh = None
+    if build_bvh and len(tp):
+        from ..geometry.bvh_native import build as bvh_build
+        bvh, order = bvh_build(tp, max_leaf=BVH_MAX_LEAF, bins=BVH_BINS,
+                               all_axes=True)
+        bvh = bvh.to(device)
+        # leaves index contiguous ranges of the reordered triangles; the
+        # light table's triangle ids follow them
+        inv = np.empty(len(order), np.int64)
+        inv[order] = np.arange(len(order))
+        lights = lights._replace(tri=t(inv[light_tri], np.int32))
+        tp, tn, tuv, tmid = tp[order], tn[order], tuv[order], tmid[order]
+        e1, e2, area, gn = e1[order], e2[order], area[order], gn[order]
+        light_id = light_id[order]
+
     triangles = Triangles(
         p0=v3(tp[:, 0]), e1=v3(e1), e2=v3(e2), gn=v3(gn),
         n0=v3(tn[:, 0]), n1=v3(tn[:, 1]), n2=v3(tn[:, 2]),
         uv0=t(tuv[:, 0]), uv1=t(tuv[:, 1]), uv2=t(tuv[:, 2]),
         area=t(area, np.float32), mat_id=t(tmid, np.int32),
         light_id=t(light_id))
-
-    lights = LightTable(
-        tri=t(light_tri), le=v3(light_le), area=t(light_area),
-        power=t(lum * light_area, np.float32),
-        p0=v3(tp[light_tri, 0]), e1=v3(e1[light_tri]),
-        e2=v3(e2[light_tri]), gn=v3(gn[light_tri]))
 
     # black background, power 0, not in the light list
     background = Background(BG_NONE, V3.of(0.0, 0.0, 0.0, device=device))
@@ -386,7 +404,7 @@ def load_scene(scene_dir: str, device="cpu", build_bvh: bool = True
     return Scene(triangles=triangles, materials=materials,
                  textures=tex.build_atlas(device), lights=lights,
                  background=background, camera=camera, bounds=bounds,
-                 bvh=None, edge_mult=_edge_multiplicity(triangles))
+                 bvh=bvh, edge_mult=_edge_multiplicity(triangles))
 
 
 def _edge_multiplicity(tris: Triangles) -> torch.Tensor:

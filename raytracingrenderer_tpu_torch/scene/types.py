@@ -127,6 +127,60 @@ class SceneBounds(NamedTuple):
     radius: torch.Tensor
 
 
+@dataclasses.dataclass(eq=False)
+class BVH:
+    """Flattened binary BVH in depth-first order.
+
+    Node i has bounds (lo, hi); a leaf's triangles are [start,
+    start+count) of the (reordered) triangle arrays; an inner node's
+    left child is i+1 and `right` holds its right child (-1 marks a
+    leaf).  `skip` is the DFS successor of node i's subtree (B for
+    "done"), which the stackless walk follows on a box miss.
+    `leaf_max` is the build's leaf-size cap and `depth` its depth
+    (root = 1): the packet kernel's fixed stack is only safe when
+    depth <= its MAX_STACK.  The JAX BVH's 4-wide fields (wsel, wcode,
+    waxis) stay None until the wide kernel is ported.
+
+    `cache` holds tables derived from the tree (the kernel's packed
+    rows, the proxy pre-pass's triangles), built once per scene; the
+    JAX package gets the same effect from jit hoisting them out of its
+    loops."""
+    lo: torch.Tensor       # (B, 3) f32
+    hi: torch.Tensor       # (B, 3) f32
+    right: torch.Tensor    # (B,) int32: right-child index, -1 for a leaf
+    start: torch.Tensor    # (B,) int32: first triangle (leaf)
+    count: torch.Tensor    # (B,) int32: triangle count (0 for inner)
+    skip: torch.Tensor     # (B,) int32: DFS successor after the subtree
+    leaf_max: int = 4
+    depth: int = 0
+    wsel: Optional[torch.Tensor] = None
+    wcode: Optional[torch.Tensor] = None
+    waxis: Optional[torch.Tensor] = None
+    cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def n_nodes(self) -> int:
+        return self.right.shape[0]
+
+    def to(self, device) -> "BVH":
+        return BVH(*(getattr(self, f).to(device) for f in
+                     ("lo", "hi", "right", "start", "count", "skip")),
+                   leaf_max=self.leaf_max, depth=self.depth)
+
+
+def tree_depth(right: np.ndarray) -> int:
+    """Max depth (root = 1) of the DFS-flattened binary BVH."""
+    right = np.asarray(right)
+    b = right.shape[0]
+    depth = np.ones(b, np.int32)
+    for i in range(b):
+        r = right[i]
+        if r >= 0:
+            depth[i + 1] = depth[i] + 1
+            depth[r] = depth[i] + 1
+    return int(depth.max()) if b else 0
+
+
 class Scene(NamedTuple):
     triangles: Triangles
     materials: MaterialTable
@@ -135,7 +189,7 @@ class Scene(NamedTuple):
     background: Background
     camera: Camera
     bounds: SceneBounds
-    bvh: Optional[object] = None     # the BVH slice is not ported yet
+    bvh: Optional[BVH] = None
     edge_mult: Optional[torch.Tensor] = None  # (3T,) shared-edge counts
 
     @property

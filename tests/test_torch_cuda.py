@@ -7,21 +7,26 @@ conftest switched off:
 
 The MT kernel is held against its plain torch version at the shapes the
 render gives it (36, 128 and 4096 triangles; a ray count that is not a
-multiple of the 256-thread block; 10% dead lanes): t within rtol/atol
-1e-4, triangle ids agreeing on >= 99.9% of rays, no dead lane hit.  The
-render on "cuda" is held against the render on "cpu" per pixel: >= 99%
-of pixels within rtol 1e-3 / atol 1e-5, means within 0.5%."""
+multiple of the 256-thread block; 10% dead lanes), and the BVH kernel
+against its plain version on the 5,156-triangle spheres scene
+(closest-hit and any-hit, 100,003 rays, 10% dead lanes): t within
+rtol/atol 1e-4, triangle ids and any-hit bits agreeing on >= 99.9% of
+rays, no dead lane hit.  Renders on "cuda" (the cornell box, and the
+spheres scene through the BVH and the wavefront integrator) are held
+against the same renders on "cpu" per pixel: >= 99% of pixels within
+rtol 1e-3 / atol 1e-5, means within 0.5%."""
 import numpy as np
 import pytest
 import torch
 
 from raytracingrenderer_tpu_torch.config import RenderConfig
 from raytracingrenderer_tpu_torch.core.vec import V3
+from raytracingrenderer_tpu_torch.geometry import intersect
 from raytracingrenderer_tpu_torch.imaging import film as film_mod
-from raytracingrenderer_tpu_torch.ops import mt_kernel
+from raytracingrenderer_tpu_torch.ops import bvh_kernel, mt_kernel
 from raytracingrenderer_tpu_torch.render import render
 from raytracingrenderer_tpu_torch.scene.loader import load_scene
-from torch_scenes import write_cornell
+from torch_scenes import write_cornell, write_spheres
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -42,6 +47,12 @@ def scene_dir(tmp_path_factory):
     return write_cornell(str(tmp_path_factory.mktemp("cornell")), 32, 32)
 
 
+@pytest.fixture(scope="module")
+def spheres_dir(tmp_path_factory):
+    return write_spheres(str(tmp_path_factory.mktemp("spheres")), 32, 32,
+                         subdiv=2)
+
+
 def _v3(a, dev):
     return V3(*(torch.from_numpy(np.ascontiguousarray(a[:, i])).to(dev)
                 for i in range(3)))
@@ -59,10 +70,8 @@ def _tris(n_tri, scene_dir, dev):
                          area=torch.ones(n_tri, device=dev))
 
 
-@pytest.mark.parametrize("n_tri", [36, 128, 4096])
-def test_mt_kernel_matches_plain(cuda, scene_dir, n_tri):
-    tris = _tris(n_tri, scene_dir, cuda)
-    g = np.random.default_rng(13)
+def _rays(dev, seed):
+    g = np.random.default_rng(seed)
     o = (g.uniform(-1, 1, (N_RAYS, 3)) * 0.5 + [0, 1, 0.5]).astype(
         np.float32)
     d = g.standard_normal((N_RAYS, 3)).astype(np.float32)
@@ -71,8 +80,27 @@ def test_mt_kernel_matches_plain(cuda, scene_dir, n_tri):
     t0 = np.where(dead, -1.0, 3.4e38).astype(np.float32)
     max_t = np.where(dead, -1.0, g.uniform(0.05, 2.5, N_RAYS)).astype(
         np.float32)
-    ov, dv = _v3(o, cuda), _v3(d, cuda)
-    tv, mv = torch.from_numpy(t0).to(cuda), torch.from_numpy(max_t).to(cuda)
+    return (_v3(o, dev), _v3(d, dev), torch.from_numpy(t0).to(dev),
+            torch.from_numpy(max_t).to(dev), dead)
+
+
+def _render(scene_dir, dev):
+    cfg = RenderConfig(mis=True, jitter=True, max_depth=4)
+    return film_mod.to_hdr(render(load_scene(scene_dir, dev), cfg,
+                                  spp=2)).cpu().numpy()
+
+
+def _agree(a, b):
+    assert np.isfinite(a).all()
+    close = np.isclose(a, b, rtol=1e-3, atol=1e-5).all(-1).mean()
+    assert close >= 0.99, close
+    assert abs(a.mean() - b.mean()) <= 0.005 * abs(b.mean())
+
+
+@pytest.mark.parametrize("n_tri", [36, 128, 4096])
+def test_mt_kernel_matches_plain(cuda, scene_dir, n_tri):
+    tris = _tris(n_tri, scene_dir, cuda)
+    ov, dv, tv, mv, dead = _rays(cuda, 13)
     before = mt_kernel.launches
     hk = mt_kernel.intersect(tris, ov, dv, tv)
     ak = mt_kernel.any_hit(tris, ov, dv, mv)
@@ -90,14 +118,42 @@ def test_mt_kernel_matches_plain(cuda, scene_dir, n_tri):
 
 
 def test_render_cuda_matches_cpu(cuda, scene_dir):
-    cfg = RenderConfig(mis=True, jitter=True, max_depth=4)
     before = mt_kernel.launches
-    a = film_mod.to_hdr(render(load_scene(scene_dir, cuda), cfg,
-                               spp=2)).cpu().numpy()
+    a = _render(scene_dir, cuda)
     assert mt_kernel.launches - before == 2 * 6 * 2   # spp x bounces x 2
-    b = film_mod.to_hdr(render(load_scene(scene_dir, "cpu"), cfg,
-                               spp=2)).numpy()
-    assert np.isfinite(a).all()
-    close = np.isclose(a, b, rtol=1e-3, atol=1e-5).all(-1).mean()
-    assert close >= 0.99, close
-    assert abs(a.mean() - b.mean()) <= 0.005 * abs(b.mean())
+    _agree(a, _render(scene_dir, "cpu"))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_bvh_kernel_matches_plain(cuda, spheres_dir, any_hit):
+    scene = load_scene(spheres_dir, cuda)
+    o, d, t0, max_t, dead = _rays(cuda, 17)
+    t_init = max_t if any_hit else t0
+    before = dict(bvh_kernel.launches)
+    hk = bvh_kernel.traverse_packet(scene.bvh, scene.triangles, o, d,
+                                    t_init, any_hit=any_hit)
+    torch.cuda.synchronize()
+    key = "any_hit" if any_hit else "closest_hit"
+    assert bvh_kernel.launches[key] == before[key] + 1
+    hp = bvh_kernel.traverse_plain(scene.bvh, scene.triangles, o, d,
+                                   t_init, any_hit=any_hit)
+    tk, tp = hk.tri.cpu().numpy(), hp.tri.cpu().numpy()
+    assert ((tk >= 0) == (tp >= 0)).mean() >= 0.999
+    assert not (tk[dead] >= 0).any()
+    assert 0.1 < (tk >= 0).mean()
+    if not any_hit:
+        assert (tk == tp).mean() >= 0.999
+        np.testing.assert_allclose(hk.t.cpu().numpy(), hp.t.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_spheres_render_cuda_matches_cpu(cuda, spheres_dir):
+    """The BVH leg on the card: both B2 variants and the B1 proxy
+    pre-pass launch, the stackless walk never runs."""
+    before = (dict(bvh_kernel.launches), mt_kernel.launches,
+              intersect.stackless_calls)
+    a = _render(spheres_dir, cuda)
+    assert all(bvh_kernel.launches[k] > before[0][k] for k in before[0])
+    assert mt_kernel.launches > before[1]
+    assert intersect.stackless_calls == before[2]
+    _agree(a, _render(spheres_dir, "cpu"))

@@ -1,6 +1,8 @@
 """The port's scene loading against the JAX package on the in-repo cornell
-box: every array of the port's `load_scene` equals the JAX
-`load_scene(build_bvh=False)` exactly (both run the same numpy), the
+box and the 5,156-triangle spheres scene: every array of the port's
+`load_scene` equals the JAX `load_scene` exactly, with and without a
+BVH (the same numpy and the same native builder; with a BVH the
+triangles are reordered and the light table remapped alike), the
 `scene_from_numpy` conversion is exact too, and `generate_rays` agrees
 within rtol 1e-6 (atol 1e-7)."""
 import json
@@ -19,7 +21,7 @@ from raytracingrenderer_tpu_torch.scene import camera as tcam
 from raytracingrenderer_tpu_torch.scene import types as tt
 from raytracingrenderer_tpu_torch.scene.convert import scene_from_numpy
 from raytracingrenderer_tpu_torch.scene.loader import load_scene as tload
-from torch_scenes import write_cornell, write_gem
+from torch_scenes import write_cornell, write_gem, write_spheres
 
 torch.set_num_threads(2)
 
@@ -32,6 +34,14 @@ def scene_dir(tmp_path_factory):
 @pytest.fixture(scope="module")
 def jscene(scene_dir):
     return jload(scene_dir, build_bvh=False)
+
+
+@pytest.fixture(scope="module")
+def jscene_bvh(scene_dir):
+    return jload(scene_dir, build_bvh=True)
+
+
+BVH_FIELDS = ("lo", "hi", "right", "start", "count", "skip")
 
 
 def _leaves(x, prefix=""):
@@ -68,20 +78,54 @@ def _assert_scene_equals(ts, js):
     for a, b in zip(ts.background.colour, jt.background.colour):
         np.testing.assert_array_equal(a.numpy(), b)
     np.testing.assert_array_equal(ts.edge_mult.numpy(), jt.edge_mult)
-    assert ts.bvh is None
+    if jt.bvh is None:
+        assert ts.bvh is None
+        return
+    # the binary tree; the JAX loader's 4-wide fields are not ported
+    for f in BVH_FIELDS:
+        got, want = getattr(ts.bvh, f).numpy(), np.asarray(getattr(jt.bvh, f))
+        assert got.dtype == want.dtype, f
+        np.testing.assert_array_equal(got, want, err_msg=f)
+    assert (ts.bvh.leaf_max, ts.bvh.depth) == (jt.bvh.leaf_max,
+                                               jt.bvh.depth)
+    assert ts.bvh.wsel is None
 
 
 @pytest.mark.parametrize("build_bvh", [True, False])
-def test_load_scene_matches_jax(scene_dir, jscene, build_bvh):
+def test_load_scene_matches_jax(scene_dir, jscene, jscene_bvh, build_bvh):
     ts = tload(scene_dir, "cpu", build_bvh=build_bvh)
-    _assert_scene_equals(ts, jscene)
+    _assert_scene_equals(ts, jscene_bvh if build_bvh else jscene)
     assert ts.triangles.count == 36 and ts.num_lights == 2
     assert ts.device == torch.device("cpu")
+    assert (ts.bvh is not None) == build_bvh
 
 
-def test_scene_from_numpy_is_exact(jscene):
-    ts = scene_from_numpy(jax.tree_util.tree_map(np.asarray, jscene))
-    _assert_scene_equals(ts, jscene)
+@pytest.mark.parametrize("build_bvh", [False, True])
+def test_scene_from_numpy_is_exact(jscene, jscene_bvh, build_bvh):
+    js = jscene_bvh if build_bvh else jscene
+    ts = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js))
+    _assert_scene_equals(ts, js)
+
+
+def test_spheres_scene_with_bvh_matches_jax(tmp_path):
+    """The 5,156-triangle spheres scene: the BVH, the reordered triangles
+    and the remapped light table equal the JAX loader's; the lights
+    still point at the emissive triangles."""
+    d = write_spheres(str(tmp_path / "spheres"), 32, 32, subdiv=2)
+    js = jload(d)
+    ts = tload(d, "cpu")
+    _assert_scene_equals(ts, js)
+    assert ts.triangles.count == 16 * 320 + 36 and ts.num_lights == 2
+    assert ts.bvh.leaf_max <= 14 and ts.bvh.depth > 5
+    flat = tload(d, "cpu", build_bvh=False)
+    assert not torch.equal(flat.triangles.p0.x, ts.triangles.p0.x)
+    tri = ts.lights.tri.long()
+    np.testing.assert_array_equal(ts.triangles.light_id[tri].numpy(),
+                                  np.arange(2))
+    np.testing.assert_array_equal(ts.triangles.p0.x[tri].numpy(),
+                                  ts.lights.p0.x.numpy())
+    assert sorted(ts.triangles.area.tolist()) == sorted(
+        flat.triangles.area.tolist())
 
 
 def test_cornell_facts(scene_dir):
@@ -124,8 +168,9 @@ def test_generate_rays(scene_dir, jscene):
 
 
 def test_refuses_later_slices(tmp_path, scene_dir):
-    """More than 64 triangles needs the BVH slice; envmaps are not
-    ported.  Both raise NotImplementedError instead of degrading."""
+    """A scene of more than 64 triangles loads with its BVH and equals
+    the JAX `load_scene`; envmaps and sharded trees are not ported and
+    raise NotImplementedError instead of degrading."""
     big = str(tmp_path / "big")
     write_cornell(big, 32, 32)
     quads = []
@@ -141,11 +186,14 @@ def test_refuses_later_slices(tmp_path, scene_dir):
                               "reflectance": "white.png"})
     with open(os.path.join(big, "scene.json"), "w") as f:
         json.dump(desc, f)
-    with pytest.raises(NotImplementedError, match="BVH"):
-        tload(big, "cpu")
+    ts = tload(big, "cpu")
+    assert ts.triangles.count == 76 and ts.bvh is not None
+    _assert_scene_equals(ts, jload(big))
     ts = tload(big, "cpu", build_bvh=False)
     assert ts.triangles.count == 76
     _assert_scene_equals(ts, jload(big, build_bvh=False))
+    with pytest.raises(NotImplementedError, match="shard"):
+        tload(big, "cpu", scene_shards=2)
 
     desc["envmap"] = "sky.hdr"
     with open(os.path.join(big, "scene.json"), "w") as f:

@@ -1,4 +1,6 @@
-"""In-repo cornell box, written as `.gem` + `scene.json` + constant PNGs.
+"""In-repo test scenes, written as `.gem` + `scene.json` + constant PNGs:
+the cornell box (`write_cornell`) and the cornell box with 16 icospheres
+(`write_spheres`, 5,156 to 327,716 triangles, for the BVH path).
 
 A numpy-only helper (no JAX, no torch) shared by the JAX package's loader,
 the PyTorch port's loader and `chip_smoke.py`, so that both packages read
@@ -112,12 +114,18 @@ def cornell_meshes():
     return meshes
 
 
-def write_gem(path, faces):
-    """One static mesh of the given (positions (6, 3), normal) quads:
-    44-byte vertices (position, normal, tangent, uv), u32 indices."""
+def write_gem(path, faces, vertex_normals=None):
+    """One static mesh of the given (positions (k, 3), normal) face groups
+    (three rows per triangle): 44-byte vertices (position, normal,
+    tangent, uv), u32 indices.  Each group's normal goes to all its
+    vertices, unless `vertex_normals` (one row per position row) is
+    given."""
     pos = np.concatenate([p for p, _ in faces]).astype(np.float32)
-    nrm = np.concatenate([np.repeat(n[None], len(p), 0)
-                          for p, n in faces]).astype(np.float32)
+    if vertex_normals is not None:
+        nrm = np.asarray(vertex_normals, np.float32)
+    else:
+        nrm = np.concatenate([np.repeat(n[None], len(p), 0)
+                              for p, n in faces]).astype(np.float32)
     verts = np.zeros((len(pos), 11), np.float32)
     verts[:, 0:3] = pos
     verts[:, 3:6] = nrm
@@ -164,4 +172,69 @@ def write_cornell(scene_dir, width=1024, height=1024):
             "instances": instances}
     with open(os.path.join(scene_dir, "scene.json"), "w") as f:
         json.dump(desc, f, indent=1)
+    return scene_dir
+
+
+# Sphere grid of write_spheres: 4 x 4 centres in x, z, one height.
+_SPHERE_XZ = (-0.6, -0.2, 0.2, 0.6)
+_SPHERE_Y = 1.45
+_SPHERE_R = 0.17
+
+
+def icosphere(subdiv):
+    """Unit icosphere: an icosahedron whose faces are split in four
+    `subdiv` times, new vertices pushed onto the sphere.  Returns
+    (vertices (V, 3) f64, faces (20 * 4**subdiv, 3) int64), faces wound
+    outward."""
+    p = (1.0 + 5.0 ** 0.5) / 2.0
+    v = np.array([[-1, p, 0], [1, p, 0], [-1, -p, 0], [1, -p, 0],
+                  [0, -1, p], [0, 1, p], [0, -1, -p], [0, 1, -p],
+                  [p, 0, -1], [p, 0, 1], [-p, 0, -1], [-p, 0, 1]], float)
+    f = np.array([[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10],
+                  [0, 10, 11], [1, 5, 9], [5, 11, 4], [11, 10, 2],
+                  [10, 7, 6], [7, 1, 8], [3, 9, 4], [3, 4, 2], [3, 2, 6],
+                  [3, 6, 8], [3, 8, 9], [4, 9, 5], [2, 4, 11], [6, 2, 10],
+                  [8, 6, 7], [9, 8, 1]], np.int64)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    for _ in range(subdiv):
+        # one new vertex per edge, shared by the two faces of the edge
+        edges = np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]])
+        key = np.sort(edges, axis=1)
+        uniq, inv = np.unique(key, axis=0, return_inverse=True)
+        mid = v[uniq[:, 0]] + v[uniq[:, 1]]
+        mid /= np.linalg.norm(mid, axis=1, keepdims=True)
+        m = len(v) + inv.reshape(3, -1)       # (3, F): a-b, b-c, c-a
+        v = np.concatenate([v, mid])
+        a, b, c = f[:, 0], f[:, 1], f[:, 2]
+        ab, bc, ca = m[0], m[1], m[2]
+        f = np.concatenate([np.stack([a, ab, ca], 1),
+                            np.stack([b, bc, ab], 1),
+                            np.stack([c, ca, bc], 1),
+                            np.stack([ab, bc, ca], 1)])
+    return v, f
+
+
+def write_spheres(scene_dir, width=1024, height=1024, subdiv=5):
+    """The cornell box plus 16 diffuse icospheres (20 * 4**subdiv
+    triangles each, per-vertex normals) in a 4 x 4 grid above its floor,
+    alternating the box's white and green reflectances.  subdiv=5 gives
+    327,716 triangles (about the bathroom's size), subdiv=2 gives 5,156.
+    Returns `scene_dir`."""
+    write_cornell(scene_dir, width, height)
+    v, f = icosphere(subdiv)
+    corners = v[f].reshape(-1, 3)             # three rows per triangle
+    with open(os.path.join(scene_dir, "scene.json")) as fh:
+        desc = json.load(fh)
+    for i in range(16):
+        cx, cz = _SPHERE_XZ[i % 4], _SPHERE_XZ[i // 4]
+        pos = corners * _SPHERE_R + [cx, _SPHERE_Y, cz]
+        name = f"sphere{i:02d}.gem"
+        write_gem(os.path.join(scene_dir, name), [(pos, None)],
+                  vertex_normals=corners)
+        desc["instances"].append({
+            "filename": name, "bsdf": "diffuse",
+            "reflectance": "white.png" if (i + i // 4) % 2 == 0
+            else "green.png"})
+    with open(os.path.join(scene_dir, "scene.json"), "w") as fh:
+        json.dump(desc, fh, indent=1)
     return scene_dir
