@@ -40,7 +40,28 @@ Phases (any failure exits non-zero):
   7. GPU against CPU: the cornell box and the 5,156-triangle spheres
      scene at 128x128, 2 spp, on "cuda" (kernels) and on "cpu" (plain
      versions), same keys: >= 99% of pixels within rtol 1e-3 /
-     atol 1e-5, image means within 0.5%.
+     atol 1e-5, image means within 0.5%;
+  8. the 4-wide BVH kernel (B3, `traverse_packet(..., wide=True)`, over
+     the 4-wide collapse the loader attaches; its time printed beside
+     the load) against its plain version on the spheres scene,
+     closest-hit and any-hit, bit for bit (max |dt| = 0, every id and
+     bit equal, no dead lane hit): (a) its path, the coherence-sorted
+     bounce and shadow rays of one 1024x1024 sample pass (kept in phase
+     4), walked with the wide counts set to 0 just before; (b) 2^20 + 77
+     random rays with 10% dead lanes; (c) 2^20 live random rays, which
+     time B3, B2 and the plain wide walk;
+  9. the treelet pair-test kernel (B4) against its plain version, bit
+     for bit (t and column), on the pairs of the first call of one
+     sample pass of the spheres render with `attach_treelets` applied
+     (the primary closest-hit call, 2^20 rays); both timed, and the share
+     of live rays that overflowed to B2 printed;
+ 10. main path 3, that render at 1024x1024, 8 spp through the treelet
+     route: B4, B1 (the proxy pre-pass) and both B2 variants (the
+     overflow fallback) must have launched and `treelet_calls` be
+     positive; timed beside phase 6's packet-route render, whose image
+     it must match as phase 6 holds its scan render;
+ 11. GPU against CPU for the treelet route: the 5,156-triangle scene at
+     128x128, 2 spp, with treelets attached, held as in phase 7.
 
 The line before the last is a JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.  JAX is never imported.
@@ -128,9 +149,9 @@ def build_all():
     from raytracingrenderer_tpu_torch.geometry import bvh_native
     from raytracingrenderer_tpu_torch.ops import build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         libs = [pool.submit(build.build, name)
-                for name in ("mt_kernel", "bvh_kernel")]
+                for name in ("mt_kernel", "bvh_kernel", "treelet_kernel")]
         native = pool.submit(bvh_native.library_path)
         paths = [f.result() for f in libs] + [native.result()]
     log(f"build: {', '.join(os.path.relpath(p, ROOT) for p in paths)} "
@@ -211,13 +232,15 @@ def time_once(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def compare(torch, what, t_init, k, p, any_hit, min_hit_frac=None):
+def compare(torch, what, t_init, k, p, any_hit, min_hit_frac=None,
+            exact=False):
     """A kernel's output against its plain version's on one batch: log
     the numbers and fail past the bars (t within rtol/atol 1e-4, ids or
     bits agreeing on >= 99.9% of rays, no hit on a dead lane, one whose
-    t_init < 0).  For closest-hit k and p are Hits and the error is
-    max |dt|; for any-hit they are the occluded bits and the error is
-    max |k - p| over them (0 or 1).  Returns (max_abs_err, mismatches)."""
+    t_init < 0; with `exact`, max |dt| = 0 and every id or bit equal).
+    For closest-hit k and p are Hits and the error is max |dt|; for
+    any-hit they are the occluded bits and the error is max |k - p| over
+    them (0 or 1).  Returns (max_abs_err, mismatches)."""
     n = t_init.shape[0]
     if any_hit:
         hits, mism = k, int((k != p).sum())
@@ -232,7 +255,8 @@ def compare(torch, what, t_init, k, p, any_hit, min_hit_frac=None):
         f"{t_ok}), {mism} {'bits' if any_hit else 'ids'} differ "
         f"({1 - mism / n:.6f} agree), dead-lane hits {dead_hits}, "
         f"hit fraction {frac:.3f}")
-    if not (t_ok and mism <= 0.001 * n and dead_hits == 0
+    if not (t_ok and mism <= (0 if exact else 0.001 * n) and dead_hits == 0
+            and (err == 0 or not exact)
             and (min_hit_frac is None or frac > min_hit_frac)):
         fail(f"kernel disagrees with its plain version ({what})")
     return err, mism
@@ -277,11 +301,12 @@ def capture_b2_inputs(torch, scene):
     real = bvh_kernel.traverse_packet
     kept = []
 
-    def keep(bvh, tris, o, d, t_init, any_hit=False, leaf16=None):
+    def keep(bvh, tris, o, d, t_init, any_hit=False, leaf16=None,
+             wide=None):
         if o.x.shape[0]:
             kept.append((any_hit, V3(*(c.clone() for c in o)),
                          V3(*(c.clone() for c in d)), t_init.clone()))
-        return real(bvh, tris, o, d, t_init, any_hit, leaf16)
+        return real(bvh, tris, o, d, t_init, any_hit, leaf16, wide)
 
     bvh_kernel.traverse_packet = keep
     try:
@@ -353,16 +378,163 @@ def check_bvh_kernel(torch, scene):
              "bvh_kernel variants")
     log(f"bvh_kernel: {len(batches)} launches of one sample pass checked "
         f"in {time.perf_counter() - t0:.2f} s")
+    return out, batches
+
+
+def check_wide_kernel(torch, scene, batches):
+    """B3 (`traverse_packet(..., wide=True)`) against its plain version
+    on the card at the spheres scene, bit for bit (max |dt| = 0, every id
+    and bit equal, no dead lane hit), per variant: (a) the path: the
+    coherence-sorted bounce rays (closest-hit) and shadow rays (any-hit)
+    of one 1024x1024 sample pass, as scripts/probe_wide.py feeds the wide
+    kernel, walked with the counts set to 0 just before; (b) 2^20 + 77
+    random rays with 10% dead lanes; (c) 2^20 live random rays, which
+    also time B3, B2 and the plain wide walk.  Returns per variant the
+    numbers of the kernels line."""
+    from raytracingrenderer_tpu_torch.ops import bvh_kernel
+    bvh, tris = scene.bvh, scene.triangles
+    out = {v: dict(max_abs_err=0.0, mismatches=0, checked_rays=0,
+                   checked_batches=0) for v in ("closest_hit", "any_hit")}
+
+    def kernel(o, d, t_init, any_hit, wide=True):
+        return bvh_kernel.traverse_packet(bvh, tris, o, d, t_init,
+                                          any_hit=any_hit, wide=wide)
+
+    def plain(o, d, t_init, any_hit):
+        return bvh_kernel.traverse_plain(bvh, tris, o, d, t_init,
+                                         any_hit=any_hit, wide=True)
+
+    def check(what, t_init, any_hit, k, p, min_hit_frac=None):
+        variant = "any_hit" if any_hit else "closest_hit"
+        if any_hit:
+            k, p = k.tri >= 0, p.tri >= 0
+        err, mism = compare(torch, f"bvh_kernel wide {variant} {what}",
+                            t_init, k, p, any_hit, min_hit_frac, exact=True)
+        r = out[variant]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["mismatches"] += mism
+        r["checked_rays"] += t_init.shape[0]
+        r["checked_batches"] += 1
+
+    # (a) the path: bounce rays (closest-hit launches after the primary
+    # one) and shadow rays (any-hit launches) of one sample pass
+    path = [b for i, b in enumerate(batches)
+            if b[0] or any(not a for a, *_ in batches[:i])]
+    for k in ("wide_closest_hit", "wide_any_hit"):
+        bvh_kernel.launches[k] = 0
+    t0 = time.perf_counter()
+    hits = [kernel(o, d, t_init, any_hit) for any_hit, o, d, t_init in path]
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    counts = {k: bvh_kernel.launches[k]
+              for k in ("wide_closest_hit", "wide_any_hit")}
+    log(f"bvh_kernel wide path: {len(path)} sorted bounce and shadow "
+        f"batches of one 1024x1024 pass (widths "
+        f"{[int(b[3].shape[0]) for b in path]}) in {path_s:.3f} s, "
+        f"launches {counts}")
+    if min(counts.values()) == 0:
+        fail("the wide path did not launch both B3 variants")
+    for i, ((any_hit, o, d, t_init), h) in enumerate(zip(path, hits)):
+        check(f"pass batch {i}", t_init, any_hit, h,
+              plain(o, d, t_init, any_hit))
+    # (b) random rays with dead lanes, a width that is no multiple
+    o, d, t_closest, t_any = make_rays(torch, N_BVH_CHECK, seed=6)
+    for t_init, any_hit in ((t_closest, False), (t_any, True)):
+        check("random with dead lanes", t_init, any_hit,
+              kernel(o, d, t_init, any_hit), plain(o, d, t_init, any_hit),
+              0.1)
+    # (c) live random rays: B3, B2 and the plain wide walk timed
+    o, d, t_closest, t_any = make_rays(torch, N_TIMED, seed=7,
+                                       dead_frac=0.0)
+    for t_init, any_hit in ((t_closest, False), (t_any, True)):
+        variant = "any_hit" if any_hit else "closest_hit"
+        ms = time_ms(torch, lambda: kernel(o, d, t_init, any_hit), 10)
+        b2_ms = time_ms(torch, lambda: kernel(o, d, t_init, any_hit,
+                                              wide=False), 10)
+        # B2 over the raw leaves B3 reads (any-hit defaults to the
+        # constant-form ones)
+        b2_raw_ms = time_ms(torch, lambda: bvh_kernel.traverse_packet(
+            bvh, tris, o, d, t_init, any_hit=any_hit, leaf16=False), 10)
+        p, plain_ms = time_once(torch, lambda: plain(o, d, t_init, any_hit))
+        check("random, live", t_init, any_hit, kernel(o, d, t_init, any_hit),
+              p, 0.1)
+        log(f"bvh_kernel wide {variant}: B3 {ms:.3f} ms, B2 {b2_ms:.3f} ms "
+            f"(raw leaves {b2_raw_ms:.3f} ms), plain wide {plain_ms:.3f} ms "
+            f"at {N_TIMED} rays ({tris.count} triangles)")
+        out[variant].update(launches=counts["wide_" + variant], ms=ms,
+                            plain_ms=plain_ms, b2_ms=b2_ms,
+                            b2_raw_leaves_ms=b2_raw_ms, rays=N_TIMED)
     return out
+
+
+def capture_treelet_call(torch, scene):
+    """One sample pass of the treelet render with the pair test and the
+    candidate stage wrapped, keeping the first call's pair-test inputs
+    and overflow flags: the primary closest-hit call at full width."""
+    from raytracingrenderer_tpu_torch.config import RenderConfig
+    from raytracingrenderer_tpu_torch.ops import treelet
+    from raytracingrenderer_tpu_torch.render import render
+    real_pairs, real_cands = treelet.pair_test, treelet.candidates
+    kept = {}
+
+    def keep_pairs(consts, feats, tid):
+        kept.setdefault("pairs", (consts, feats.clone(), tid.clone()))
+        return real_pairs(consts, feats, tid)
+
+    def keep_cands(bvh, o, d, t_seed):
+        slots, over = real_cands(bvh, o, d, t_seed)
+        kept.setdefault("overflow", (over.clone(), t_seed > 0.0))
+        return slots, over
+
+    treelet.pair_test, treelet.candidates = keep_pairs, keep_cands
+    try:
+        render(scene, RenderConfig(**BENCH_CFG), spp=1)
+    finally:
+        treelet.pair_test, treelet.candidates = real_pairs, real_cands
+    torch.cuda.synchronize()
+    return kept
+
+
+def check_pair_kernel(torch, scene):
+    """B4 against `pair_test_plain` on the pairs of one full-width
+    closest-hit call of the treelet route, bit for bit (t and col);
+    both timed.  Returns the numbers of the kernels line."""
+    from raytracingrenderer_tpu_torch.ops import treelet
+    kept = capture_treelet_call(torch, scene)
+    consts, feats, tid = kept["pairs"]
+    over, active = kept["overflow"]
+    n_rays = int(over.shape[0])
+    share = over[active].float().mean().item()
+    tk, ck = treelet.pair_test(consts, feats, tid)
+    tp, cp = treelet.pair_test_plain(consts, feats, tid)
+    hits = tp < treelet.INF
+    err = (tk - tp).abs().max().item()
+    mism = int((ck != cp).sum())
+    log(f"treelet_pair_test: {tid.shape[0]} pairs of {n_rays} rays "
+        f"({consts.shape[0] // 16} treelets), {hits.float().mean().item():.3f}"
+        f" of pairs hit, max_abs_err {err:.3e}, {mism} columns differ; "
+        f"{share:.4%} of the live rays overflowed to B2")
+    if not (torch.equal(tk, tp) and torch.equal(ck, cp)):
+        fail("the pair-test kernel disagrees with pair_test_plain")
+    ms = time_ms(torch, lambda: treelet.pair_test(consts, feats, tid), 20)
+    _, plain_ms = time_once(torch, lambda: treelet.pair_test_plain(
+        consts, feats, tid))
+    log(f"treelet_pair_test: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms at "
+        f"{tid.shape[0]} pairs")
+    return dict(max_abs_err=err, mismatches=mism, ms=ms, plain_ms=plain_ms,
+                pairs=int(tid.shape[0]), rays=n_rays,
+                overflow_share=share)
 
 
 def reset_counts():
     from raytracingrenderer_tpu_torch.geometry import intersect
-    from raytracingrenderer_tpu_torch.ops import bvh_kernel, mt_kernel
+    from raytracingrenderer_tpu_torch.ops import bvh_kernel, mt_kernel, treelet
     mt_kernel.launches = 0
+    treelet.launches = 0
     for k in bvh_kernel.launches:
         bvh_kernel.launches[k] = 0
     intersect.stackless_calls = 0
+    intersect.treelet_calls = 0
 
 
 def render_full(torch, scene, name, card, out_dir, **cfg_over):
@@ -414,15 +586,22 @@ def same_image(what, a, b):
         fail(f"{what}: the images disagree")
 
 
-def gpu_vs_cpu(name, scene_dir):
+def gpu_vs_cpu(name, scene_dir, treelets=False):
     from raytracingrenderer_tpu_torch.config import RenderConfig
+    from raytracingrenderer_tpu_torch.geometry import intersect
     from raytracingrenderer_tpu_torch.imaging import film as film_mod
+    from raytracingrenderer_tpu_torch.ops import treelet
     from raytracingrenderer_tpu_torch.render import render
     from raytracingrenderer_tpu_torch.scene.loader import load_scene
     imgs = {}
     for dev in ("cuda", "cpu"):
-        f = render(load_scene(scene_dir, device=dev),
-                   RenderConfig(**BENCH_CFG), spp=2)
+        scene = load_scene(scene_dir, device=dev)
+        if treelets:
+            scene = scene._replace(bvh=treelet.attach_treelets(scene.bvh))
+        calls = intersect.treelet_calls
+        f = render(scene, RenderConfig(**BENCH_CFG), spp=2)
+        if treelets and intersect.treelet_calls == calls:
+            fail(f"{name} on {dev} did not take the treelet route")
         imgs[dev] = film_mod.to_hdr(f).cpu().numpy()
     same_image(f"{name} 128x128 2 spp, cuda vs cpu", imgs["cuda"],
                imgs["cpu"])
@@ -448,7 +627,7 @@ def main() -> None:
 
     import numpy as np
     from raytracingrenderer_tpu_torch.geometry import intersect
-    from raytracingrenderer_tpu_torch.ops import bvh_kernel, mt_kernel
+    from raytracingrenderer_tpu_torch.ops import bvh_kernel, mt_kernel, treelet
     from raytracingrenderer_tpu_torch.scene.loader import load_scene
 
     # -- 1. card and host facts --------------------------------------------
@@ -488,6 +667,11 @@ def main() -> None:
     bvh_native.build(tp, max_leaf=loader.BVH_MAX_LEAF, bins=loader.BVH_BINS,
                      all_axes=True)
     build_s = time.perf_counter() - t3
+    t3 = time.perf_counter()
+    wide_rows = bvh_kernel.widen(bvh).wsel.shape[0]
+    widen_s = time.perf_counter() - t3
+    if bvh.wsel is None or not bvh_kernel.wide_ok(bvh):
+        fail("the loader did not attach the 4-wide fields")
     n_leaf = (bvh.n_nodes + 1) // 2
     tab_bytes = {leaf16: sum(
         t.numel() * t.element_size()
@@ -495,7 +679,9 @@ def main() -> None:
         for leaf16 in (False, True)}
     log(f"spheres scene: {spheres.triangles.count} triangles, written in "
         f"{t1 - t0:.2f} s, loaded with its BVH on cuda in {t2 - t1:.2f} s "
-        f"(native BVH build alone {build_s:.2f} s); BVH depth {bvh.depth}, {bvh.n_nodes} nodes ({n_leaf - 1} internal, "
+        f"(native BVH build alone {build_s:.2f} s, widen alone "
+        f"{widen_s:.3f} s, {wide_rows} wide rows); BVH depth {bvh.depth}, "
+        f"{bvh.n_nodes} nodes ({n_leaf - 1} internal, "
         f"{n_leaf} leaves), leaf_max {bvh.leaf_max}; packed tables "
         f"{tab_bytes[False]} B (raw leaves), {tab_bytes[True]} B "
         f"(constant-form leaves)")
@@ -512,7 +698,7 @@ def main() -> None:
         torch, "(c) random-4096", random_tris(torch, 4096, 3), timed=True)
 
     # -- 4. B2 against its plain version -----------------------------------
-    b2 = check_bvh_kernel(torch, spheres)
+    b2, b2_batches = check_bvh_kernel(torch, spheres)
 
     # -- 5. main path 1: cornell (brute force, B1) --------------------------
     render_full(torch, cornell, "cornell", card, out_dir)
@@ -529,7 +715,7 @@ def main() -> None:
     log(f"spheres launches: bvh_kernel {b2_launches}, mt_kernel (proxy "
         f"pre-pass) {mt_spheres}, stackless walks "
         f"{intersect.stackless_calls}")
-    if min(b2_launches.values()) == 0:
+    if min(b2_launches["closest_hit"], b2_launches["any_hit"]) == 0:
         fail("the spheres render did not launch both bvh_kernel variants")
     if mt_spheres == 0:
         fail("the spheres render never launched the proxy pre-pass")
@@ -546,8 +732,41 @@ def main() -> None:
     # -- 7. GPU (kernels) against CPU (plain versions) -----------------------
     gpu_vs_cpu("cornell", scenes.write_cornell(
         os.path.join(tmp, "cornell128"), 128, 128))
-    gpu_vs_cpu("spheres-5156", scenes.write_spheres(
-        os.path.join(tmp, "spheres128"), 128, 128, subdiv=2))
+    spheres128 = scenes.write_spheres(os.path.join(tmp, "spheres128"), 128,
+                                      128, subdiv=2)
+    gpu_vs_cpu("spheres-5156", spheres128)
+
+    # -- 8. B3 against its plain version -----------------------------------
+    b3 = check_wide_kernel(torch, spheres, b2_batches)
+    del b2_batches
+
+    # -- 9. B4 against its plain version -----------------------------------
+    t0 = time.perf_counter()
+    tspheres = spheres._replace(bvh=treelet.attach_treelets(spheres.bvh))
+    log(f"attach_treelets: {tspheres.bvh.tl_nodes.shape[0]} treelets in "
+        f"{tspheres.bvh.tc_nodes.shape[0]} groups, "
+        f"{time.perf_counter() - t0:.2f} s")
+    b4 = check_pair_kernel(torch, tspheres)
+
+    # -- 10. main path 3: spheres through the treelet route (B4, B1, B2) ----
+    tl_img, tl_s = render_full(torch, tspheres, "spheres-treelet", card,
+                               out_dir)
+    tl_launches = dict(pair_test=treelet.launches, mt=mt_kernel.launches,
+                       **{k: bvh_kernel.launches[k]
+                          for k in ("closest_hit", "any_hit")})
+    log(f"spheres-treelet launches: {tl_launches}, treelet calls "
+        f"{intersect.treelet_calls}, stackless walks "
+        f"{intersect.stackless_calls}")
+    if min(tl_launches.values()) == 0 or intersect.treelet_calls == 0:
+        fail("the treelet render did not launch B4, B1 and both B2 "
+             "variants (the fallback) through the treelet route")
+    log(f"spheres 8 spp: treelet route {tl_s:.3f} s, packet route (wavefront)"
+        f" {wave_s:.3f} s (treelet / packet {tl_s / wave_s:.3f}) [{card}]")
+    same_image("spheres 1024x1024 8 spp, treelet vs packet route", tl_img,
+               wave_img)
+
+    # -- 11. GPU against CPU for the treelet route ---------------------------
+    gpu_vs_cpu("spheres-5156 treelet", spheres128, treelets=True)
 
     bvh_src = dict(route="cuda",
                    source="raytracingrenderer_tpu_torch/csrc/bvh_kernel.cu",
@@ -564,9 +783,18 @@ def main() -> None:
         "plain_ms": plain_a,
         "ms_4096_tris": ms_c,
         "plain_ms_4096_tris": plain_c,
+        "launches_treelet_path": tl_launches["mt"],
     }] + [dict(name=f"bvh_traverse/{v}", **bvh_src,
-               launches=b2_launches[v], **b2[v])
-          for v in ("closest_hit", "any_hit")]}))
+               launches=b2_launches[v],
+               launches_treelet_path=tl_launches[v], **b2[v])
+          for v in ("closest_hit", "any_hit")]
+        + [dict(name=f"bvh_traverse_wide/{v}", **dict(
+            bvh_src, replaces="raytracingrenderer_tpu/ops/bvh_kernel.py:498"),
+            **b3[v]) for v in ("closest_hit", "any_hit")]
+        + [dict(name="treelet_pair_test", route="cuda",
+                source="raytracingrenderer_tpu_torch/csrc/treelet_kernel.cu",
+                replaces="raytracingrenderer_tpu/ops/treelet.py:269",
+                launches=tl_launches["pair_test"], **b4)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,41 +1,51 @@
-// Ordered binary-BVH traversal, closest-hit and any-hit, for Hopper (sm_90a).
+// Ordered BVH traversal, binary and 4-wide, closest-hit and any-hit, for
+// Hopper (sm_90a).
 //
-// Replaces the TPU kernel raytracingrenderer_tpu/ops/bvh_kernel.py::_kernel
-// (Pallas, launched by traverse_packet).  It computes what that kernel
-// computes, over the same packed tables (ops/bvh_kernel.py):
+// Replaces the TPU kernels raytracingrenderer_tpu/ops/bvh_kernel.py::_kernel
+// (binary) and ::_kernel_wide (4-wide), both Pallas, launched by
+// traverse_packet.  They compute what those kernels compute, over the same
+// packed tables (ops/bvh_kernel.py):
 //   nodes  (I, 16) f32: [llo lhi rlo rhi] lcode rcode axisbits 0, the codes
 //          f32 integers (internal child = its row, leaf child = -(row+1));
+//   wide   (W, 32) f32: lanes 6k..6k+5 child k's [lo hi], children sorted
+//          ascending along the row's axis (lane 28), codes in lanes 24..27;
+//          an empty slot is a point at +3e38, which the slab test misses;
 //   leaves raw (L, 128) f32: 14 x [p0 e1 e2] + start (lane 126) for
-//          closest-hit, or constant-form (2L, 128) f32 row pairs of
-//          14 x [N e1 e2 P1 P2 c0] + start (lane 120 of the odd row) for
-//          any-hit.
+//          closest-hit and for the wide walk, or constant-form (2L, 128)
+//          f32 row pairs of 14 x [N e1 e2 P1 P2 c0] + start (lane 120 of
+//          the odd row) for binary any-hit.
 // Per ray: the walk starts at the root's children with t_entry = 0; every
 // visit re-tests `t_entry < t_best`, so a subtree popped from the stack is
-// pruned by the ray's current best hit; an internal visit slab-tests both
+// pruned by the ray's current best hit; a binary visit slab-tests both
 // children, follows the near one and pushes the far one when both are hit;
-// a leaf tests its (up to) 14 triangles in slot order with a strict
+// a wide visit slab-tests up to 4 children, takes them far to near, pushes
+// every live one but the last and follows the last (the nearest); a leaf
+// tests its (up to) 14 triangles in slot order with a strict
 // `t < t_best`; any-hit stops at the first hit.  A stack of 64 entries
-// (>= tree depth, which the dispatch checks) and an iteration cap of
-// 4 * nodes + 64 bound the walk.  A miss keeps the seed; the wrapper maps
-// it back to the caller's t_init.
+// (>= tree depth for the binary walk, >= 3 * ceil(depth / 2) + 1 for the
+// wide one, which the wrapper checks) and an iteration cap of
+// 4 * binary nodes + 64 bound the walk.  A miss keeps the seed; the
+// wrapper maps it back to the caller's t_init.
 //
-// Design.  One ray per thread, 128 threads a block: the TPU kernel walks the
-// tree once per block of rays only because its vector unit has no per-lane
+// Design.  One ray per thread, 128 threads a block: the TPU kernels walk the
+// tree once per block of rays only because the vector unit has no per-lane
 // gather.  Here each thread keeps its own (code, t_entry) stack in local
-// memory and picks the near child by its own direction sign on the node's
-// split axis (the TPU kernel uses the block's summed direction; order only
-// decides ties between equal t in different leaves).  Node and leaf rows are
-// read straight from global memory through the read-only path (__ldg).
+// memory and orders children by its own direction sign on the node's axis
+// (the TPU kernels use the block's summed direction; order only decides
+// ties between equal t in different leaves).  Node and leaf rows are read
+// straight from global memory through the read-only path (__ldg).
 //
 // Bound.  Incoherent rays diverge at once: threads of a warp visit different
 // nodes, so every visit is a divergent, latency-bound gather of a 64-byte
-// node row or a 504-byte leaf row, with little arithmetic to hide it.  Making
-// it fast (wide nodes, a shared-memory top of the tree, ray sorting into
-// warps, treelets) is later work; this version is the simple correct one.
+// (binary) or 128-byte (wide) node row or a 504-byte leaf row, with little
+// arithmetic to hide it.  The wide walk makes half as many visits, each
+// reading twice the bytes.  Making it fast (a shared-memory top of the tree,
+// compressed nodes, ray sorting into warps) is later work; this version is
+// the simple correct one.
 //
-// Arithmetic follows the TPU kernel (bvh_kernel.py:78-217) operation by
-// operation, including 1/where(|d| < 1e-20, 1e-20, d).  Build with
-// --fmad=false, so that it rounds as the plain torch version does.
+// Arithmetic follows the TPU kernels (bvh_kernel.py:78-217, 515-587)
+// operation by operation, including 1/where(|d| < 1e-20, 1e-20, d).  Build
+// with --fmad=false, so that it rounds as the plain torch version does.
 
 #include <cuda_runtime.h>
 
@@ -249,6 +259,96 @@ bvh_traverse_kernel(const float* __restrict__ nodes,
   v_out[i] = b.v;
 }
 
+// 4-wide walk over raw leaves (the TPU's _kernel_wide, bvh_kernel.py:589-660).
+template <bool kAnyHit>
+__global__ void __launch_bounds__(kBlock)
+bvh_traverse_wide_kernel(const float* __restrict__ nodes,
+                         const float* __restrict__ leaves,
+                         const float* __restrict__ ox,
+                         const float* __restrict__ oy,
+                         const float* __restrict__ oz,
+                         const float* __restrict__ dx,
+                         const float* __restrict__ dy,
+                         const float* __restrict__ dz,
+                         const float* __restrict__ t0,
+                         float* __restrict__ t_out,
+                         int* __restrict__ tri_out, float* __restrict__ u_out,
+                         float* __restrict__ v_out, int n, int init_code,
+                         int max_iters) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i >= n) return;
+  Ray r;
+  r.ox = ox[i]; r.oy = oy[i]; r.oz = oz[i];
+  r.dx = dx[i]; r.dy = dy[i]; r.dz = dz[i];
+  r.ix = inv_dir(r.dx); r.iy = inv_dir(r.dy); r.iz = inv_dir(r.dz);
+  r.oix = r.ox * r.ix; r.oiy = r.oy * r.iy; r.oiz = r.oz * r.iz;
+  Best b{t0[i], -1, 0.0f, 0.0f};
+
+  int nstack[kMaxStack];
+  float tstack[kMaxStack];
+  int sp = 0;
+  bool have = true;
+  int code = init_code;
+  float te = 0.0f;
+  for (int it = 0; (have || sp > 0) && it < max_iters; ++it) {
+    if (!have) {  // refill from the stack
+      --sp;
+      code = nstack[sp];
+      te = tstack[sp];
+    }
+    const bool m = te < b.t;
+    float tes[4] = {kInf, kInf, kInf, kInf};
+    int cds[4] = {0, 0, 0, 0};
+    int axis = 0;
+    if (code < 0) {
+      if (m) {
+        leaf_raw<kAnyHit>(leaves + static_cast<size_t>(-code - 1) * 128, r,
+                          b);
+      }
+    } else if (m) {
+      const float* nd = nodes + static_cast<size_t>(code) * 32;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        tes[k] = slab(nd + 6 * k, r, b.t);
+        cds[k] = static_cast<int>(__ldg(nd + 24 + k));
+      }
+      axis = static_cast<int>(__ldg(nd + 28));
+    }
+    // children are stored ascending along `axis`: a ray going up the axis
+    // meets child 0 first, so it takes 3, 2, 1, 0 and follows the last
+    const float dsel = axis == 0 ? r.dx : (axis == 1 ? r.dy : r.dz);
+    const bool d_pos = dsel > 0.0f;
+    have = false;
+    int code_n = 0;
+    float te_n = kInf;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float te_k = d_pos ? tes[3 - j] : tes[j];
+      const int code_k = d_pos ? cds[3 - j] : cds[j];
+      if (te_k < kInf) {
+        if (have && sp < kMaxStack) {  // a nearer live child follows
+          nstack[sp] = code_n;
+          tstack[sp] = te_n;
+          ++sp;
+        }
+        code_n = code_k;
+        te_n = te_k;
+        have = true;
+      }
+    }
+    code = code_n;
+    te = te_n;
+    if (kAnyHit && b.t < 0.0f) {  // occluded: done
+      have = false;
+      sp = 0;
+    }
+  }
+  t_out[i] = b.t;
+  tri_out[i] = b.tri;
+  u_out[i] = b.u;
+  v_out[i] = b.v;
+}
+
 template <bool kAnyHit, bool kLeaf16>
 void launch(const float* nodes, const float* leaves, const float* ox,
             const float* oy, const float* oz, const float* dx, const float* dy,
@@ -285,6 +385,30 @@ extern "C" int bvh_traverse(const float* nodes, const float* leaves,
   } else {
     launch<false, false>(nodes, leaves, ox, oy, oz, dx, dy, dz, t0, t, tri, u,
                          v, n, init_code, max_iters, stream);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 4-wide walk over raw leaves; launches on `stream` and returns
+// cudaGetLastError() (0 = launched).
+extern "C" int bvh_traverse_wide(const float* nodes, const float* leaves,
+                                 const float* ox, const float* oy,
+                                 const float* oz, const float* dx,
+                                 const float* dy, const float* dz,
+                                 const float* t0, float* t, int* tri,
+                                 float* u, float* v, int n, int init_code,
+                                 int max_iters, int any_hit,
+                                 cudaStream_t stream) {
+  if (n <= 0) return 0;
+  const int grid = (n + kBlock - 1) / kBlock;
+  if (any_hit) {
+    bvh_traverse_wide_kernel<true><<<grid, kBlock, 0, stream>>>(
+        nodes, leaves, ox, oy, oz, dx, dy, dz, t0, t, tri, u, v, n, init_code,
+        max_iters);
+  } else {
+    bvh_traverse_wide_kernel<false><<<grid, kBlock, 0, stream>>>(
+        nodes, leaves, ox, oy, oz, dx, dy, dz, t0, t, tri, u, v, n, init_code,
+        max_iters);
   }
   return static_cast<int>(cudaGetLastError());
 }

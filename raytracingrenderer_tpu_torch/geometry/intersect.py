@@ -12,6 +12,12 @@ Counterpart of raytracingrenderer_tpu/geometry/intersect.py.
   first runs the proxy pre-pass, the MT kernel over the 128 largest
   triangles.  A tree too deep for the kernel's stack (`usable` false)
   takes `_traverse_stackless`, counted in `stackless_calls`.
+- A tree with a treelet cut (`ops/treelet.attach_treelets`, opt-in as in
+  the JAX package) takes the treelet route ahead of both, in
+  `closest_hit` and `occluded`: the proxy pre-pass bounds each ray's
+  search, the pair-test kernel tests the (ray, treelet) pairs and the
+  BVH kernel walks the overflowed rays (ops/treelet.py); counted in
+  `treelet_calls`.  `presorted` plays no part there.
 - Each wrapper launches its CUDA kernel for CUDA tensors and runs its
   plain torch version for CPU tensors, so both devices take the same
   route.  The JAX package's VMEM budget for the packet tables
@@ -44,6 +50,7 @@ BRUTE_FORCE_MAX_TRIS = 64   # at most this many: every ray vs every triangle
 _PREPASS_K = 128
 
 stackless_calls = 0   # walks that took _traverse_stackless (deep trees)
+treelet_calls = 0     # calls that took the treelet route
 
 
 class Hit(NamedTuple):
@@ -272,8 +279,8 @@ def closest_hit(scene, o: V3, d: V3, active=None,
     paying for the test (their search radius is negative).  `presorted`
     promises that the caller already sorted the batch by the coherence
     key (wavefront mode), which skips the sort and unsort here."""
-    global stackless_calls
-    from ..ops import bvh_kernel, mt_kernel
+    global stackless_calls, treelet_calls
+    from ..ops import bvh_kernel, mt_kernel, treelet
     o, d = _rays(o, d)
     n = o.x.shape[0]
     t_init = torch.full((n,), BIG_T, dtype=torch.float32, device=o.x.device)
@@ -283,6 +290,12 @@ def closest_hit(scene, o: V3, d: V3, active=None,
     with torch.no_grad():
         if not _use_bvh(scene):
             h = mt_kernel.intersect(tris, o, d, t_init)
+        elif treelet.has_treelets(scene.bvh):
+            # the proxy pre-pass's t is the candidate search's radius
+            treelet_calls += 1
+            pre = _proxy_prepass(scene, o, d, t_init)
+            h = treelet.closest_hit_treelet(scene.bvh, tris, o, d,
+                                            torch.minimum(pre.t, t_init))
         elif not bvh_kernel.usable(scene.bvh):
             stackless_calls += 1
             h = _traverse_stackless(scene.bvh, tris, o, d, t_init, False,
@@ -303,14 +316,20 @@ def occluded(scene, o: V3, d: V3, max_t: torch.Tensor,
     """Scene-level any-hit (RTBase Scene::visible, Scene.h:161-169).
     Lanes with max_t < 0 are inactive and never occluded.  `presorted`:
     the batch is already coherence-sorted, so it is walked as it is."""
-    global stackless_calls
-    from ..ops import bvh_kernel, mt_kernel
+    global stackless_calls, treelet_calls
+    from ..ops import bvh_kernel, mt_kernel, treelet
     o, d = _rays(o, d)
     max_t = max_t.detach().contiguous()
     tris = scene.triangles
     with torch.no_grad():
         if not _use_bvh(scene):
             return mt_kernel.any_hit(tris, o, d, max_t)
+        if treelet.has_treelets(scene.bvh):
+            treelet_calls += 1
+            pre_occ = _proxy_prepass(scene, o, d, max_t).tri >= 0
+            rem_t = torch.where(pre_occ, -1.0, max_t)
+            return treelet.any_hit_treelet(scene.bvh, tris, o, d,
+                                           rem_t) | pre_occ
         if not bvh_kernel.usable(scene.bvh):
             stackless_calls += 1
             return any_hit_bvh(scene.bvh, tris, o, d, max_t)

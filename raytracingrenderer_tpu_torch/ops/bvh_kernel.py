@@ -1,40 +1,49 @@
-"""Ordered binary-BVH traversal (closest-hit and any-hit): CUDA kernel
-wrapper, its packed tables and its plain torch version.
+"""Ordered BVH traversal (closest-hit and any-hit), binary and 4-wide:
+CUDA kernel wrappers, their packed tables and their plain torch
+versions.
 
 Counterpart of raytracingrenderer_tpu/ops/bvh_kernel.py, whose Pallas
-kernel `_kernel` (launched by `traverse_packet`) walks the tree once for
-a whole block of rays on the TPU.  Here the kernel is csrc/bvh_kernel.cu,
-written for Hopper: one ray per thread, each with its own stack.  It
-computes what the TPU kernel computes, over the same tables:
+kernels `_kernel` (binary) and `_kernel_wide` (4-wide), both launched by
+`traverse_packet`, walk the tree once for a whole block of rays on the
+TPU.  Here both kernels are in csrc/bvh_kernel.cu, written for Hopper:
+one ray per thread, each with its own stack.  They compute what the TPU
+kernels compute, over the same tables:
 
-- nodes (I, 16) f32, one row per internal node holding both children:
-  `[llo lhi rlo rhi] lcode rcode axisbits 0`, codes as f32 integers (an
-  internal child is its row, a leaf child -(leaf_row + 1));
+- binary nodes (I, 16) f32, one row per internal node holding both
+  children: `[llo lhi rlo rhi] lcode rcode axisbits 0`, codes as f32
+  integers (an internal child is its row, a leaf child -(leaf_row + 1));
+- wide nodes (W, 32) f32 (`pack_tables_wide`, from the `widen` collapse
+  that the loader attaches to every tree): lanes 6k..6k+5 hold child
+  k's `lo hi`, children sorted ascending along the row's axis (lane 28),
+  their codes in lanes 24..27; an empty slot is a point at +3e38;
 - leaves, raw (L, 128) f32 rows of 14 x [p0 e1 e2] + start + count for
-  closest-hit, or constant-form (2L, 128) f32 row pairs of 14 x
-  [N e1 e2 P1 P2 c0] with start/count at lanes 120/121 of the odd row
-  for any-hit (`pack_leaves16`);
+  closest-hit (and for both variants of the wide walk), or
+  constant-form (2L, 128) f32 row pairs of 14 x [N e1 e2 P1 P2 c0] with
+  start/count at lanes 120/121 of the odd row for binary any-hit
+  (`pack_leaves16`);
 - per ray: `t_entry < t_best` re-pruning of every popped subtree, the
-  near child first, leaves of up to 14 triangles tested densely,
-  any-hit stopping at the first hit, a 64-entry stack and an iteration
-  cap of 4 * nodes + 64.
+  near child first (the wide walk pushes every live child but the
+  nearest, far to near, and follows the nearest), leaves of up to 14
+  triangles tested densely, any-hit stopping at the first hit, a
+  64-entry stack and an iteration cap of 4 * nodes + 64.
 
 One departure, by design: the near child is chosen by the ray's own
 direction sign on the node's split axis, not by the sign of the ray
 block's summed direction, which only a packet walk needs.  Order
 decides nothing but ties between equal t in different leaves.
 
-`traverse_packet` launches the kernel for CUDA tensors and raises if it
+`traverse_packet` launches a kernel for CUDA tensors and raises if it
 cannot; for CPU tensors it runs `traverse_plain`, the plain torch
 version (a lockstep loop over the batch with per-ray stacks, the same
-near-child rule and arithmetic), which is also the kernel's reference
-on the card.  `launches` counts kernel launches per variant.
+child order and arithmetic), which is also the kernels' reference on
+the card.  `launches` counts kernel launches per variant.
 """
 from __future__ import annotations
 
 import ctypes
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from ..core.vec import V3
@@ -49,7 +58,8 @@ LANE_START = 126        # raw leaf row lane of the base triangle index
 LANE16_START = 120      # its lane in the odd constant-form row
 
 # kernel launches since import (or the last reset), per variant
-launches: Dict[str, int] = {"closest_hit": 0, "any_hit": 0}
+launches: Dict[str, int] = {"closest_hit": 0, "any_hit": 0,
+                             "wide_closest_hit": 0, "wide_any_hit": 0}
 _lib = None
 
 
@@ -184,14 +194,109 @@ def pack_tables(bvh: BVH, tris: Triangles, leaf16: bool = True
     return nodes.contiguous(), leaves
 
 
-def tables(bvh: BVH, tris: Triangles, leaf16: bool
+def widen(bvh: BVH) -> BVH:
+    """Attach the 4-wide collapse (wsel, wcode, waxis) to a binary BVH, as
+    the JAX package's `widen` does at load time (host code, numpy).
+
+    Each wide row is a binary internal node with its internal children
+    absorbed: its children are the node's grandchildren (or its leaf
+    children), at most 4.  Rows are numbered in preorder; a row's
+    children are sorted (stable) by centroid along the axis of largest
+    child-centroid spread.  Leaf codes are the leaf rows of `pack_leaves`
+    (-(row + 1)).  A single-leaf root gets one all-empty dummy row."""
+    right = bvh.right.cpu().numpy()
+    lo = bvh.lo.cpu().numpy()
+    hi = bvh.hi.cpu().numpy()
+    b = right.shape[0]
+    is_int = right >= 0
+    lid = np.cumsum(~is_int) - 1           # leaf row per binary node
+    if b == 0 or not is_int[0]:
+        return bvh.replace_wide(np.full((1, 4), -1, np.int32),
+                                np.zeros((1, 4), np.int32),
+                                np.zeros(1, np.int32))
+    # children of every internal node, in the JAX order (left's, then
+    # right's), empty slots (-1) moved to the back
+    ints = np.nonzero(is_int)[0]
+    cols = []
+    for c in (ints + 1, right[ints]):
+        c_int = is_int[c]
+        cols += [np.where(c_int, c + 1, c), np.where(c_int, right[c], -1)]
+    kids = np.stack(cols, axis=1)                          # (I, 4)
+    kids = np.take_along_axis(
+        kids, np.argsort(kids < 0, axis=1, kind="stable"), axis=1)
+    kids_of = dict(zip(ints.tolist(), kids.tolist()))
+
+    # preorder DFS assigns wide rows
+    order = []
+    stack = [0]
+    while stack:
+        i = stack.pop()
+        order.append(i)
+        stack.extend(c for c in reversed(kids_of[i])
+                     if c >= 0 and is_int[c])
+    order = np.asarray(order)
+    w = order.shape[0]
+    wid = np.full(b, -1, np.int64)
+    wid[order] = np.arange(w)
+
+    cs = kids[np.searchsorted(ints, order)]                 # (W, 4)
+    valid = cs >= 0
+    sel = np.maximum(cs, 0)
+    cen = (lo[sel] + hi[sel]) * 0.5                          # (W, 4, 3)
+    spread = (np.where(valid[..., None], cen, -np.inf).max(1)
+              - np.where(valid[..., None], cen, np.inf).min(1))
+    axis = np.argmax(spread, axis=1)
+    key = np.where(valid, np.take_along_axis(
+        cen, axis[:, None, None], axis=2)[..., 0], np.inf)
+    cs = np.take_along_axis(cs, np.argsort(key, axis=1, kind="stable"),
+                            axis=1)
+    valid = cs >= 0
+    sel = np.maximum(cs, 0)
+    wcode = np.where(valid, np.where(is_int[sel], wid[sel], -(lid[sel] + 1)),
+                     0)
+    return bvh.replace_wide(cs, wcode, axis)
+
+
+def pack_tables_wide(bvh: BVH, tris: Triangles
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(wide nodes (W, 32) f32, raw leaves (L, 128) f32).  Row layout:
+    lanes 6k..6k+5 child k's [lo hi], lanes 24..27 the child codes (f32
+    integers), lane 28 the sort axis.  An empty slot is a point at
+    +3e38, not an inverted box: the slab test normalizes lo/hi with
+    min/max, so an inverted box would test as always hit, while the far
+    point gives slab t's that are of mixed sign (a miss) or all beyond
+    every clamped seed (1e30)."""
+    if bvh.wsel is None:
+        raise ValueError("the BVH has no 4-wide fields: call widen() first")
+    if bvh.leaf_max > SLOTS:
+        raise ValueError(
+            f"BVH leaf_max {bvh.leaf_max} exceeds the kernel's {SLOTS} "
+            f"slots per leaf row; rebuild with max_leaf <= {SLOTS}")
+    wsel = bvh.wsel.long()
+    valid = (wsel >= 0)[..., None]
+    sel = torch.clamp(wsel, min=0)
+    clo = torch.where(valid, bvh.lo[sel], 3.0e38)            # (W, 4, 3)
+    chi = torch.where(valid, bvh.hi[sel], 3.0e38)
+    w = wsel.shape[0]
+    nodes = torch.cat([
+        torch.cat([clo, chi], dim=-1).reshape(w, 24).float(),
+        bvh.wcode.float(), bvh.waxis.float()[:, None],
+        torch.zeros((w, 3), dtype=torch.float32, device=wsel.device)],
+        dim=1)
+    return nodes.contiguous(), pack_leaves(bvh, tris)
+
+
+def tables(bvh: BVH, tris: Triangles, leaf16: bool, wide: bool = False
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`pack_tables`, built once per (tree, triangles, leaf form) and
-    kept in the tree's cache."""
-    key = ("packet", leaf16, id(tris.p0.x))
+    """`pack_tables` (or `pack_tables_wide`), built once per (tree,
+    triangles, leaf form) and kept in the tree's cache."""
+    key = ("wide",) if wide else ("packet", leaf16)
+    key += (id(tris.p0.x),)
     hit = bvh.cache.get(key)
     if hit is None or hit[0] is not tris.p0.x:
-        hit = (tris.p0.x, pack_tables(bvh, tris, leaf16=leaf16))
+        packed = (pack_tables_wide(bvh, tris) if wide
+                  else pack_tables(bvh, tris, leaf16=leaf16))
+        hit = (tris.p0.x, packed)
         bvh.cache[key] = hit
     return hit[1]
 
@@ -207,8 +312,8 @@ def max_iters(bvh: BVH) -> int:
 
 
 def wide_ok(bvh: BVH) -> bool:
-    """Stack bound of the 4-wide walk (not ported yet: the 4-wide fields
-    stay None, so this is False for every tree the port builds)."""
+    """The 4-wide walk's stack bound: a visit pushes at most 3 entries, so
+    the stack holds at most 3 * wide depth + 1."""
     return (bvh.wsel is not None
             and 3 * ((bvh.depth + 1) // 2) + 1 <= MAX_STACK)
 
@@ -305,60 +410,128 @@ def _leaf16(rows, ray, g, t_b, any_hit):
     return hit_any, j, t_o, u_o, v_o
 
 
-def _walk(nodes, leaves, o: V3, d: V3, t0, init_code: int, iters: int,
-          any_hit: bool, leaf16: bool):
-    """Lockstep walk of every ray over the packed tables, one node visit
-    per ray per step -> raw (t, tri, u, v) as the kernel writes them."""
-    n = o.x.shape[0]
-    dev = o.x.device
-    ray = (o.x, o.y, o.z, d.x, d.y, d.z)
+def _inv_dir(o: V3, d: V3):
+    """(ix, iy, iz, o.x*ix, o.y*iy, o.z*iz) of the slab test, with
+    1/where(|d| < 1e-20, 1e-20, d) as the kernels compute it."""
     ix = 1.0 / torch.where(torch.abs(d.x) < 1e-20, 1e-20, d.x)
     iy = 1.0 / torch.where(torch.abs(d.y) < 1e-20, 1e-20, d.y)
     iz = 1.0 / torch.where(torch.abs(d.z) < 1e-20, 1e-20, d.z)
-    oix, oiy, oiz = o.x * ix, o.y * iy, o.z * iz
+    return ix, iy, iz, o.x * ix, o.y * iy, o.z * iz
+
+
+def _slab(rows, base, inv, t_b):
+    """Entry t of the child boxes [lo hi] at lanes base..base+5 of
+    gathered node rows against their rays (`inv` and t_b gathered
+    alike), INF where missed or not before t_b."""
+    ix, iy, iz, oix, oiy, oiz = inv
+    t0x = rows[:, base + 0] * ix - oix
+    t1x = rows[:, base + 3] * ix - oix
+    t0y = rows[:, base + 1] * iy - oiy
+    t1y = rows[:, base + 4] * iy - oiy
+    t0z = rows[:, base + 2] * iz - oiz
+    t1z = rows[:, base + 5] * iz - oiz
+    tmin = torch.maximum(torch.maximum(torch.minimum(t0x, t1x),
+                                       torch.minimum(t0y, t1y)),
+                         torch.minimum(t0z, t1z))
+    tmax = torch.minimum(torch.minimum(torch.maximum(t0x, t1x),
+                                       torch.maximum(t0y, t1y)),
+                         torch.maximum(t0z, t1z))
+    te_c = torch.clamp(tmin, min=0.0)
+    return torch.where((tmax >= te_c) & (te_c < t_b), te_c, INF)
+
+
+class _State:
+    """Per-ray walk state of the lockstep plain walks: best hit, current
+    (code, t_entry), stack of (code, t_entry) and its pointer."""
+
+    def __init__(self, t0, init_code: int):
+        n = t0.shape[0]
+        dev = t0.device
+        self.t_b = t0.clone()
+        self.tri_b = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        self.u_b = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.v_b = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.code = torch.full((n,), init_code, dtype=torch.int64,
+                               device=dev)
+        self.te = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.sp = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.have = torch.ones(n, dtype=torch.bool, device=dev)
+        self.tstack = torch.zeros((n, MAX_STACK), dtype=torch.float32,
+                                  device=dev)
+        self.nstack = torch.zeros((n, MAX_STACK), dtype=torch.int64,
+                                  device=dev)
+        self.lanes = torch.arange(n, device=dev)
+
+    def pop(self):
+        """Refill from the stack where the walk ran out of a subtree ->
+        (live, m): lanes still walking, and those whose current entry
+        survives `t_entry < t_best`; None when every lane is done."""
+        live = self.have | (self.sp > 0)
+        if not bool(live.any()):
+            return None
+        pop = live & ~self.have
+        slot = torch.clamp(self.sp - 1, min=0)
+        self.code = torch.where(pop, self.nstack[self.lanes, slot],
+                                self.code)
+        self.te = torch.where(pop, self.tstack[self.lanes, slot], self.te)
+        self.sp = torch.where(pop, slot, self.sp)
+        return live & (self.te < self.t_b)
+
+    def push(self, where, code, te):
+        """Push (code, te) on the lanes `where` (bounded by the stack)."""
+        where = where & (self.sp < MAX_STACK)
+        idx = torch.nonzero(where)[:, 0]
+        if idx.numel():
+            self.nstack[idx, self.sp[idx]] = code[idx]
+            self.tstack[idx, self.sp[idx]] = te[idx]
+        self.sp = self.sp + where.long()
+
+    def record(self, idx, hit, base, j, t_h, u_h, v_h, any_hit: bool):
+        """Keep the leaf test's hits of the rays idx."""
+        hi = idx[hit]
+        self.tri_b[hi] = (base + j.int())[hit]
+        if any_hit:
+            self.t_b[hi] = -1.0
+        else:
+            self.t_b[hi] = t_h[hit]
+            self.u_b[hi] = u_h[hit]
+            self.v_b[hi] = v_h[hit]
+
+    def finish_visit(self, any_hit: bool):
+        if any_hit:   # an occluded ray is done
+            done = self.t_b < 0.0
+            self.have = self.have & ~done
+            self.sp = torch.where(done, 0, self.sp)
+
+    def out(self):
+        return self.t_b, self.tri_b, self.u_b, self.v_b
+
+
+def _d_pos(d: V3, axis):
+    """The ray's direction sign on each lane's axis (0, 1, 2)."""
+    return torch.where(axis == 0, d.x > 0.0,
+                       torch.where(axis == 1, d.y > 0.0, d.z > 0.0))
+
+
+def _walk(nodes, leaves, o: V3, d: V3, t0, init_code: int, iters: int,
+          any_hit: bool, leaf16: bool):
+    """Lockstep walk of every ray over the packed binary tables, one node
+    visit per ray per step -> raw (t, tri, u, v) as the kernel writes
+    them."""
+    n = o.x.shape[0]
+    dev = o.x.device
+    ray = (o.x, o.y, o.z, d.x, d.y, d.z)
+    inv = _inv_dir(o, d)
     g = (o.y * d.z - o.z * d.y, o.z * d.x - o.x * d.z,
          o.x * d.y - o.y * d.x)
-    t_b = t0.clone()
-    tri_b = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    u_b = torch.zeros(n, dtype=torch.float32, device=dev)
-    v_b = torch.zeros(n, dtype=torch.float32, device=dev)
-    code = torch.full((n,), init_code, dtype=torch.int64, device=dev)
-    te = torch.zeros(n, dtype=torch.float32, device=dev)
-    sp = torch.zeros(n, dtype=torch.int64, device=dev)
-    have = torch.ones(n, dtype=torch.bool, device=dev)
-    tstack = torch.zeros((n, MAX_STACK), dtype=torch.float32, device=dev)
-    nstack = torch.zeros((n, MAX_STACK), dtype=torch.int64, device=dev)
-    lanes = torch.arange(n, device=dev)
+    st = _State(t0, init_code)
     inf = torch.full((n,), INF, dtype=torch.float32, device=dev)
 
-    def slab(rows, base, idx):
-        t0x = rows[:, base + 0] * ix[idx] - oix[idx]
-        t1x = rows[:, base + 3] * ix[idx] - oix[idx]
-        t0y = rows[:, base + 1] * iy[idx] - oiy[idx]
-        t1y = rows[:, base + 4] * iy[idx] - oiy[idx]
-        t0z = rows[:, base + 2] * iz[idx] - oiz[idx]
-        t1z = rows[:, base + 5] * iz[idx] - oiz[idx]
-        tmin = torch.maximum(torch.maximum(torch.minimum(t0x, t1x),
-                                           torch.minimum(t0y, t1y)),
-                             torch.minimum(t0z, t1z))
-        tmax = torch.minimum(torch.minimum(torch.maximum(t0x, t1x),
-                                           torch.maximum(t0y, t1y)),
-                             torch.maximum(t0z, t1z))
-        te_c = torch.clamp(tmin, min=0.0)
-        ok = (tmax >= te_c) & (te_c < t_b[idx])
-        return torch.where(ok, te_c, INF)
-
     for _ in range(iters):
-        live = have | (sp > 0)
-        if not bool(live.any()):
+        m = st.pop()
+        if m is None:
             break
-        # refill from the stack where the walk ran out of a subtree
-        pop = live & ~have
-        slot = torch.clamp(sp - 1, min=0)
-        code = torch.where(pop, nstack[lanes, slot], code)
-        te = torch.where(pop, tstack[lanes, slot], te)
-        sp = torch.where(pop, slot, sp)
-        m = live & (te < t_b)
+        code, t_b = st.code, st.t_b
         is_leaf = code < 0
 
         # ---- leaf: every slot of one leaf row ---------------------------
@@ -375,14 +548,7 @@ def _walk(nodes, leaves, o: V3, d: V3, t0, init_code: int, iters: int,
                 rows = leaves[row]
                 hit, j, t_h, u_h, v_h = _leaf9(rows, rr, t_b[idx], any_hit)
                 base = rows[:, LANE_START].int()
-            hi = idx[hit]
-            tri_b[hi] = (base + j.int())[hit]
-            if any_hit:
-                t_b[hi] = -1.0
-            else:
-                t_b[hi] = t_h[hit]
-                u_b[hi] = u_h[hit]
-                v_b[hi] = v_h[hit]
+            st.record(idx, hit, base, j, t_h, u_h, v_h, any_hit)
 
         # ---- internal: both children from one row, near child first -----
         tel, ter = inf.clone(), inf.clone()
@@ -392,16 +558,14 @@ def _walk(nodes, leaves, o: V3, d: V3, t0, init_code: int, iters: int,
         idx = torch.nonzero(m & ~is_leaf)[:, 0]
         if idx.numel():
             rows = nodes[code[idx]]
-            tel[idx] = slab(rows, 0, idx)
-            ter[idx] = slab(rows, 6, idx)
+            inv_i = tuple(c[idx] for c in inv)
+            tel[idx] = _slab(rows, 0, inv_i, t_b[idx])
+            ter[idx] = _slab(rows, 6, inv_i, t_b[idx])
             lcode[idx] = rows[:, 12].long()
             rcode[idx] = rows[:, 13].long()
             ab[idx] = rows[:, 14].long()
-        axis = ab & 3
         l_low = (ab & 4) > 0
-        d_pos = torch.where(axis == 0, d.x > 0.0,
-                            torch.where(axis == 1, d.y > 0.0, d.z > 0.0))
-        left_near = d_pos == l_low
+        left_near = _d_pos(d, ab & 3) == l_low
         code_f = torch.where(left_near, lcode, rcode)
         code_s = torch.where(left_near, rcode, lcode)
         te_f = torch.where(left_near, tel, ter)
@@ -409,20 +573,69 @@ def _walk(nodes, leaves, o: V3, d: V3, t0, init_code: int, iters: int,
         any_f = te_f < INF
         any_s = te_s < INF
         # fork: push the far child, follow the near one
-        fork = any_f & any_s & (sp < MAX_STACK)
-        push = torch.nonzero(fork)[:, 0]
-        if push.numel():
-            nstack[push, sp[push]] = code_s[push]
-            tstack[push, sp[push]] = te_s[push]
-        sp = sp + fork.long()
-        have = any_f | any_s
-        code = torch.where(any_f, code_f, code_s)
-        te = torch.where(any_f, te_f, te_s)
-        if any_hit:
-            done = t_b < 0.0
-            have = have & ~done
-            sp = torch.where(done, 0, sp)
-    return t_b, tri_b, u_b, v_b
+        st.push(any_f & any_s, code_s, te_s)
+        st.have = any_f | any_s
+        st.code = torch.where(any_f, code_f, code_s)
+        st.te = torch.where(any_f, te_f, te_s)
+        st.finish_visit(any_hit)
+    return st.out()
+
+
+def _walk_wide(nodes, leaves, o: V3, d: V3, t0, init_code: int, iters: int,
+               any_hit: bool):
+    """The 4-wide lockstep walk (the TPU's `_kernel_wide`, per ray): one
+    visit slab-tests up to 4 children; they are taken far to near along
+    the row's axis by the ray's direction sign, every live child but the
+    last is pushed and the last (the nearest) followed.  Raw leaves."""
+    n = o.x.shape[0]
+    dev = o.x.device
+    ray = (o.x, o.y, o.z, d.x, d.y, d.z)
+    inv = _inv_dir(o, d)
+    st = _State(t0, init_code)
+    inf = torch.full((n,), INF, dtype=torch.float32, device=dev)
+
+    for _ in range(iters):
+        m = st.pop()
+        if m is None:
+            break
+        code, t_b = st.code, st.t_b
+        is_leaf = code < 0
+
+        idx = torch.nonzero(m & is_leaf)[:, 0]
+        if idx.numel():
+            rows = leaves[-code[idx] - 1]
+            hit, j, t_h, u_h, v_h = _leaf9(
+                rows, tuple(c[idx] for c in ray), t_b[idx], any_hit)
+            st.record(idx, hit, rows[:, LANE_START].int(), j, t_h, u_h, v_h,
+                      any_hit)
+
+        tes = [inf.clone() for _ in range(4)]
+        cds = [torch.zeros(n, dtype=torch.int64, device=dev)
+               for _ in range(4)]
+        axis = torch.zeros(n, dtype=torch.int64, device=dev)
+        idx = torch.nonzero(m & ~is_leaf)[:, 0]
+        if idx.numel():
+            rows = nodes[code[idx]]
+            inv_i = tuple(c[idx] for c in inv)
+            for k in range(4):
+                tes[k][idx] = _slab(rows, 6 * k, inv_i, t_b[idx])
+                cds[k][idx] = rows[:, 24 + k].long()
+            axis[idx] = rows[:, 28].long()
+        d_pos = _d_pos(d, axis)
+        have = torch.zeros(n, dtype=torch.bool, device=dev)
+        code_n = torch.zeros(n, dtype=torch.int64, device=dev)
+        te_n = inf
+        for j in range(4):
+            te_k = torch.where(d_pos, tes[3 - j], tes[j])
+            code_k = torch.where(d_pos, cds[3 - j], cds[j])
+            alive = te_k < INF
+            st.push(alive & have, code_n, te_n)
+            code_n = torch.where(alive, code_k, code_n)
+            te_n = torch.where(alive, te_k, te_n)
+            have = have | alive
+        st.have, st.code, st.te = have, code_n, te_n
+        st.finish_visit(any_hit)
+    return st.out()
 
 
 def _seed(t_init: torch.Tensor, n: int) -> torch.Tensor:
@@ -438,15 +651,34 @@ def _finish(t, tri, u, v, t_init, n) -> Hit:
     return Hit(t, tri, u, v)
 
 
+def _variant(bvh: BVH, any_hit: bool, leaf16, wide) -> Tuple[bool, bool]:
+    """(wide, leaf16) of a call.  wide=None keeps the JAX package's rule:
+    the 4-wide walk only for trees too deep for the binary stack that
+    still fit the wide one (no tree passes both: `wide_ok` needs depth
+    <= 42), so the binary walk is the default and wide=True reaches the
+    4-wide one.  The wide walk always reads raw leaves."""
+    if wide is None:
+        wide = bvh.depth > MAX_STACK and wide_ok(bvh)
+    if wide:
+        if not wide_ok(bvh):
+            raise ValueError(
+                "the 4-wide walk needs the BVH's wide fields (widen()) and "
+                f"3 * ceil(depth / 2) + 1 <= {MAX_STACK} (depth "
+                f"{bvh.depth})")
+        return True, False
+    return False, any_hit if leaf16 is None else leaf16
+
+
 def traverse_plain(bvh: BVH, tris: Triangles, o: V3, d: V3, t_init,
-                   any_hit: bool = False, leaf16: bool = None) -> Hit:
+                   any_hit: bool = False, leaf16: bool = None,
+                   wide: bool = None) -> Hit:
     """The plain torch version of `traverse_packet`, on any device."""
-    if leaf16 is None:
-        leaf16 = any_hit
+    wide, leaf16 = _variant(bvh, any_hit, leaf16, wide)
     n = o.x.shape[0]
-    nodes, leaves = tables(bvh, tris, leaf16)
-    t, tri, u, v = _walk(nodes, leaves, o, d, _seed(t_init, n),
-                         _init_code(bvh), max_iters(bvh), any_hit, leaf16)
+    nodes, leaves = tables(bvh, tris, leaf16, wide)
+    args = (nodes, leaves, o, d, _seed(t_init, n), _init_code(bvh),
+            max_iters(bvh), any_hit)
+    t, tri, u, v = _walk_wide(*args) if wide else _walk(*args, leaf16)
     return _finish(t, tri, u, v, t_init, n)
 
 
@@ -459,14 +691,18 @@ def _library():
         lib.bvh_traverse.argtypes = ([ptr, ptr] + [ptr] * 7 + [ptr] * 4
                                      + [ctypes.c_int] * 5 + [ptr])
         lib.bvh_traverse.restype = ctypes.c_int
+        lib.bvh_traverse_wide.argtypes = ([ptr, ptr] + [ptr] * 7 + [ptr] * 4
+                                          + [ctypes.c_int] * 4 + [ptr])
+        lib.bvh_traverse_wide.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _check(nodes, leaves, leaf16: bool, arrays, n: int) -> None:
-    if nodes.dim() != 2 or nodes.shape[1] != 16:
-        raise ValueError(f"node rows must be (I, 16), got "
-                         f"{tuple(nodes.shape)}")
+def _check(nodes, leaves, leaf16: bool, wide: bool, arrays, n: int) -> None:
+    width = 32 if wide else 16
+    if nodes.dim() != 2 or nodes.shape[1] != width:
+        raise ValueError(f"node rows must be ({'W' if wide else 'I'}, "
+                         f"{width}), got {tuple(nodes.shape)}")
     if leaves.dim() != 2 or leaves.shape[1] != 128 or (
             leaf16 and leaves.shape[0] % 2):
         raise ValueError(f"leaf rows must be ({'2L' if leaf16 else 'L'}, "
@@ -487,24 +723,24 @@ def _check(nodes, leaves, leaf16: bool, arrays, n: int) -> None:
 
 
 def traverse_packet(bvh: BVH, tris: Triangles, o: V3, d: V3, t_init,
-                    any_hit: bool = False, leaf16: bool = None) -> Hit:
+                    any_hit: bool = False, leaf16: bool = None,
+                    wide: bool = None) -> Hit:
     """Traversal of the whole ray batch.  t_init seeds each ray's search
     radius: BIG_T for closest-hit, the segment length for any-hit
     (occluded iff a triangle id is recorded); a negative seed marks a
     dead lane, which never hits.  `leaf16` picks the constant-form leaf
     table (default for any-hit) over the raw one (default for
-    closest-hit).  CUDA tensors launch the kernel; CPU tensors take
-    `traverse_plain`."""
-    if leaf16 is None:
-        leaf16 = any_hit
+    closest-hit); `wide` the 4-wide walk (see `_variant`).  CUDA tensors
+    launch a kernel; CPU tensors take `traverse_plain`."""
+    wide, leaf16 = _variant(bvh, any_hit, leaf16, wide)
     n = o.x.shape[0]
-    nodes, leaves = tables(bvh, tris, leaf16)
-    _check(nodes, leaves, leaf16,
+    nodes, leaves = tables(bvh, tris, leaf16, wide)
+    _check(nodes, leaves, leaf16, wide,
            (("o.x", o.x), ("o.y", o.y), ("o.z", o.z), ("d.x", d.x),
             ("d.y", d.y), ("d.z", d.z), ("t_init", t_init)), n)
     dev = nodes.device
     if dev.type == "cpu":
-        return traverse_plain(bvh, tris, o, d, t_init, any_hit, leaf16)
+        return traverse_plain(bvh, tris, o, d, t_init, any_hit, leaf16, wide)
     if dev.type != "cuda":
         raise ValueError(f"no BVH kernel for device {dev}")
     t = torch.empty(n, dtype=torch.float32, device=dev)
@@ -515,19 +751,23 @@ def traverse_packet(bvh: BVH, tris: Triangles, o: V3, d: V3, t_init,
         return Hit(t, tri, u, v)
     t0 = _seed(t_init, n)
     lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bvh_traverse(
-            nodes.data_ptr(), leaves.data_ptr(),
+    ptrs = (nodes.data_ptr(), leaves.data_ptr(),
             o.x.data_ptr(), o.y.data_ptr(), o.z.data_ptr(),
             d.x.data_ptr(), d.y.data_ptr(), d.z.data_ptr(), t0.data_ptr(),
             t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-            n, _init_code(bvh), max_iters(bvh), int(any_hit), int(leaf16),
-            stream)
+            n, _init_code(bvh), max_iters(bvh), int(any_hit))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if wide:
+            err = lib.bvh_traverse_wide(*ptrs, stream)
+        else:
+            err = lib.bvh_traverse(*ptrs, int(leaf16), stream)
+    name = ("wide_" if wide else "") + ("any_hit" if any_hit
+                                         else "closest_hit")
     if err != 0:
-        raise RuntimeError(f"bvh_traverse launch failed with CUDA error "
-                           f"{err}")
-    launches["any_hit" if any_hit else "closest_hit"] += 1
+        raise RuntimeError(f"bvh_traverse ({name}) launch failed with CUDA "
+                           f"error {err}")
+    launches[name] += 1
     return _finish(t, tri, u, v, t_init, n)
 
 

@@ -12,8 +12,9 @@ import numpy as np
 import torch
 
 from ..core.vec import V3
-from .types import (BVH, Background, Camera, LightTable, MaterialTable,
-                    Scene, SceneBounds, TextureAtlas, Triangles)
+from .types import (BVH_ARRAYS, BVH, Background, Camera, LightTable,
+                    MaterialTable, Scene, SceneBounds, TextureAtlas,
+                    Triangles)
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -34,14 +35,14 @@ def _fields(cls, src, device):
 
 
 def _bvh(b, device):
-    """The binary tree of a JAX BVH; its 4-wide and treelet fields are
-    not carried (their kernels are not ported)."""
+    """A JAX BVH: the binary tree, and its 4-wide and treelet fields
+    where it has them."""
     if b is None:
         return None
     if not hasattr(b, "skip"):
         raise NotImplementedError("sharded BVHs are not ported yet")
-    return BVH(*(_tensor(getattr(b, f), device) for f in
-                 ("lo", "hi", "right", "start", "count", "skip")),
+    return BVH(**{f: _value(getattr(b, f, None), device)
+                  for f in BVH_ARRAYS},
                leaf_max=int(b.leaf_max), depth=int(b.depth))
 
 

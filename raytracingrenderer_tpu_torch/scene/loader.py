@@ -12,11 +12,12 @@ With `build_bvh` (the default) a non-empty scene gets the JAX
 loader's BVH: the native binned-SAH builder (geometry/bvh_native.py)
 with 14-triangle leaves, 64 bins and all three axes swept, after which
 the triangles are reordered so that every leaf is a contiguous range
-and the light table's triangle ids are remapped.  Scenes of 64
-triangles or fewer still brute-force every ray (geometry/intersect.py),
-as in the JAX package, which builds their tree all the same.  The JAX
-loader's 4-wide collapse (`widen`) and sharded trees (`scene_shards`)
-are not ported; environment-map backgrounds raise NotImplementedError.
+and the light table's triangle ids are remapped; the tree carries the
+4-wide collapse (`ops/bvh_kernel.widen`) as the JAX loader's does.
+Scenes of 64 triangles or fewer still brute-force every ray
+(geometry/intersect.py), as in the JAX package, which builds their tree
+all the same.  The JAX loader's sharded trees (`scene_shards`) are not
+ported; environment-map backgrounds raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -359,9 +360,11 @@ def load_scene(scene_dir: str, device="cpu", build_bvh: bool = True,
     bvh = None
     if build_bvh and len(tp):
         from ..geometry.bvh_native import build as bvh_build
+        from ..ops.bvh_kernel import widen
         bvh, order = bvh_build(tp, max_leaf=BVH_MAX_LEAF, bins=BVH_BINS,
                                all_axes=True)
-        bvh = bvh.to(device)
+        # the 4-wide collapse, as the JAX loader attaches it
+        bvh = widen(bvh).to(device)
         # leaves index contiguous ranges of the reordered triangles; the
         # light table's triangle ids follow them
         inv = np.empty(len(order), np.int64)

@@ -138,13 +138,20 @@ class BVH:
     "done"), which the stackless walk follows on a box miss.
     `leaf_max` is the build's leaf-size cap and `depth` its depth
     (root = 1): the packet kernel's fixed stack is only safe when
-    depth <= its MAX_STACK.  The JAX BVH's 4-wide fields (wsel, wcode,
-    waxis) stay None until the wide kernel is ported.
+    depth <= its MAX_STACK.
+
+    Optional, as in the JAX BVH: the 4-wide collapse of
+    `ops/bvh_kernel.widen` (wsel (W, 4) binary node per child slot, -1
+    empty; wcode (W, 4) wide row of an internal child or -(leaf_row+1);
+    waxis (W,) sort axis), and the treelet cut of
+    `ops/treelet.attach_treelets` (tl_nodes/tl_start/tl_count (K,): node,
+    first triangle and triangle count of each treelet; tc_nodes/tc_start/
+    tc_count (K2,): node and tl_* range of each coarse group).
 
     `cache` holds tables derived from the tree (the kernel's packed
     rows, the proxy pre-pass's triangles), built once per scene; the
     JAX package gets the same effect from jit hoisting them out of its
-    loops."""
+    loops.  Every copy (`to`, `replace_*`) starts with an empty one."""
     lo: torch.Tensor       # (B, 3) f32
     hi: torch.Tensor       # (B, 3) f32
     right: torch.Tensor    # (B,) int32: right-child index, -1 for a leaf
@@ -156,16 +163,50 @@ class BVH:
     wsel: Optional[torch.Tensor] = None
     wcode: Optional[torch.Tensor] = None
     waxis: Optional[torch.Tensor] = None
+    tl_nodes: Optional[torch.Tensor] = None
+    tl_start: Optional[torch.Tensor] = None
+    tl_count: Optional[torch.Tensor] = None
+    tc_nodes: Optional[torch.Tensor] = None
+    tc_start: Optional[torch.Tensor] = None
+    tc_count: Optional[torch.Tensor] = None
     cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def n_nodes(self) -> int:
         return self.right.shape[0]
 
+    def _copy(self, **arrays) -> "BVH":
+        fields = {f.name: getattr(self, f.name)
+                  for f in dataclasses.fields(self) if f.name != "cache"}
+        fields.update(arrays)
+        return BVH(**fields)
+
     def to(self, device) -> "BVH":
-        return BVH(*(getattr(self, f).to(device) for f in
-                     ("lo", "hi", "right", "start", "count", "skip")),
-                   leaf_max=self.leaf_max, depth=self.depth)
+        return self._copy(**{
+            f: a.to(device) for f, a in
+            ((f, getattr(self, f)) for f in BVH_ARRAYS) if a is not None})
+
+    def replace_wide(self, wsel, wcode, waxis) -> "BVH":
+        dev = self.right.device
+        return self._copy(wsel=_int32(wsel, dev), wcode=_int32(wcode, dev),
+                          waxis=_int32(waxis, dev))
+
+    def replace_treelets(self, tl_nodes, tl_start, tl_count,
+                         tc_nodes, tc_start, tc_count) -> "BVH":
+        dev = self.right.device
+        return self._copy(
+            tl_nodes=_int32(tl_nodes, dev), tl_start=_int32(tl_start, dev),
+            tl_count=_int32(tl_count, dev), tc_nodes=_int32(tc_nodes, dev),
+            tc_start=_int32(tc_start, dev), tc_count=_int32(tc_count, dev))
+
+
+BVH_ARRAYS = ("lo", "hi", "right", "start", "count", "skip",
+               "wsel", "wcode", "waxis", "tl_nodes", "tl_start", "tl_count",
+               "tc_nodes", "tc_start", "tc_count")
+
+
+def _int32(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.int32)).to(device)
 
 
 def tree_depth(right: np.ndarray) -> int:

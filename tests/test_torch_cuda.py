@@ -11,10 +11,13 @@ multiple of the 256-thread block; 10% dead lanes), and the BVH kernel
 against its plain version on the 5,156-triangle spheres scene
 (closest-hit and any-hit, 100,003 rays, 10% dead lanes): t within
 rtol/atol 1e-4, triangle ids and any-hit bits agreeing on >= 99.9% of
-rays, no dead lane hit.  Renders on "cuda" (the cornell box, and the
-spheres scene through the BVH and the wavefront integrator) are held
-against the same renders on "cpu" per pixel: >= 99% of pixels within
-rtol 1e-3 / atol 1e-5, means within 0.5%."""
+rays, no dead lane hit.  The 4-wide BVH kernel (same rays) and the
+treelet pair-test kernel (the pairs of the treelet route on the same
+rays) are held to their plain versions bit for bit.  Renders on "cuda"
+(the cornell box, and the spheres scene through the BVH and the
+wavefront integrator, by the packet route and by the treelet route) are
+held against the same renders on "cpu" per pixel: >= 99% of pixels
+within rtol 1e-3 / atol 1e-5, means within 0.5%."""
 import numpy as np
 import pytest
 import torch
@@ -23,7 +26,7 @@ from raytracingrenderer_tpu_torch.config import RenderConfig
 from raytracingrenderer_tpu_torch.core.vec import V3
 from raytracingrenderer_tpu_torch.geometry import intersect
 from raytracingrenderer_tpu_torch.imaging import film as film_mod
-from raytracingrenderer_tpu_torch.ops import bvh_kernel, mt_kernel
+from raytracingrenderer_tpu_torch.ops import bvh_kernel, mt_kernel, treelet
 from raytracingrenderer_tpu_torch.render import render
 from raytracingrenderer_tpu_torch.scene.loader import load_scene
 from torch_scenes import write_cornell, write_spheres
@@ -84,10 +87,12 @@ def _rays(dev, seed):
             torch.from_numpy(max_t).to(dev), dead)
 
 
-def _render(scene_dir, dev):
+def _render(scene_dir, dev, treelets=False):
     cfg = RenderConfig(mis=True, jitter=True, max_depth=4)
-    return film_mod.to_hdr(render(load_scene(scene_dir, dev), cfg,
-                                  spp=2)).cpu().numpy()
+    scene = load_scene(scene_dir, dev)
+    if treelets:
+        scene = scene._replace(bvh=treelet.attach_treelets(scene.bvh))
+    return film_mod.to_hdr(render(scene, cfg, spp=2)).cpu().numpy()
 
 
 def _agree(a, b):
@@ -153,7 +158,61 @@ def test_spheres_render_cuda_matches_cpu(cuda, spheres_dir):
     before = (dict(bvh_kernel.launches), mt_kernel.launches,
               intersect.stackless_calls)
     a = _render(spheres_dir, cuda)
-    assert all(bvh_kernel.launches[k] > before[0][k] for k in before[0])
+    assert all(bvh_kernel.launches[k] > before[0][k]
+               for k in ("closest_hit", "any_hit"))
     assert mt_kernel.launches > before[1]
     assert intersect.stackless_calls == before[2]
     _agree(a, _render(spheres_dir, "cpu"))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_wide_kernel_matches_plain(cuda, spheres_dir, any_hit):
+    scene = load_scene(spheres_dir, cuda)
+    o, d, t0, max_t, dead = _rays(cuda, 19)
+    t_init = max_t if any_hit else t0
+    key = "wide_any_hit" if any_hit else "wide_closest_hit"
+    before = bvh_kernel.launches[key]
+    hk = bvh_kernel.traverse_packet(scene.bvh, scene.triangles, o, d,
+                                    t_init, any_hit=any_hit, wide=True)
+    torch.cuda.synchronize()
+    assert bvh_kernel.launches[key] == before + 1
+    hp = bvh_kernel.traverse_plain(scene.bvh, scene.triangles, o, d,
+                                   t_init, any_hit=any_hit, wide=True)
+    assert torch.equal(hk.tri, hp.tri)
+    assert torch.equal(hk.t, hp.t)
+    assert not (hk.tri.cpu().numpy()[dead] >= 0).any()
+    assert 0.1 < (hk.tri >= 0).float().mean().item()
+
+
+def test_pair_kernel_matches_plain(cuda, spheres_dir):
+    scene = load_scene(spheres_dir, cuda)
+    bvh = treelet.attach_treelets(scene.bvh)
+    o, d, t0, _, _ = _rays(cuda, 23)
+    slots, _ = treelet.candidates(bvh, o, d, torch.clamp(t0, max=1e30))
+    tid, pidx = torch.sort(torch.where(slots >= 0, slots,
+                                       treelet.SENTINEL).reshape(-1),
+                           stable=True)
+    n_pairs = int((slots >= 0).sum())
+    tid = tid[:n_pairs].int().contiguous()
+    feats = treelet._feats(o, d, torch.clamp(t0, max=1e30))[
+        pidx[:n_pairs] // treelet.M_SLOTS].contiguous()
+    consts = treelet.pack_constants(bvh, scene.triangles)
+    before = treelet.launches
+    tk, ck = treelet.pair_test(consts, feats, tid)
+    torch.cuda.synchronize()
+    assert treelet.launches == before + 1
+    tp, cp = treelet.pair_test_plain(consts, feats, tid)
+    assert torch.equal(tk, tp) and torch.equal(ck, cp)
+    assert 0.05 < (tk < treelet.INF).float().mean().item() < 0.95
+
+
+def test_treelet_render_cuda_matches_cpu(cuda, spheres_dir):
+    """The treelet route on the card: B4, B1 (proxy pre-pass) and B2
+    (the overflow fallback) launch, and the image matches the CPU's."""
+    before = (treelet.launches, mt_kernel.launches,
+              bvh_kernel.launches["closest_hit"], intersect.treelet_calls)
+    a = _render(spheres_dir, cuda, treelets=True)
+    after = (treelet.launches, mt_kernel.launches,
+             bvh_kernel.launches["closest_hit"], intersect.treelet_calls)
+    assert all(x > y for x, y in zip(after, before))
+    _agree(a, _render(spheres_dir, "cpu", treelets=True))

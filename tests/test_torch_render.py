@@ -140,7 +140,7 @@ def test_spheres_render_matches_jax(spheres_dir, spheres):
     before = intersect.stackless_calls
     got = film_mod.to_hdr(render(spheres, cfg, spp=SPP)).numpy()
     assert intersect.stackless_calls == before
-    assert bvh_kernel.launches == {"closest_hit": 0, "any_hit": 0}
+    assert not any(bvh_kernel.launches.values())
     assert mt_kernel.launches == 0
     want = np.asarray(jfilm.to_hdr(jrender(jload(spheres_dir),
                                            JConfig(**SPHERES), spp=SPP)))

@@ -81,14 +81,13 @@ def _assert_scene_equals(ts, js):
     if jt.bvh is None:
         assert ts.bvh is None
         return
-    # the binary tree; the JAX loader's 4-wide fields are not ported
-    for f in BVH_FIELDS:
+    # the binary tree and the JAX loader's 4-wide collapse
+    for f in BVH_FIELDS + ("wsel", "wcode", "waxis"):
         got, want = getattr(ts.bvh, f).numpy(), np.asarray(getattr(jt.bvh, f))
         assert got.dtype == want.dtype, f
         np.testing.assert_array_equal(got, want, err_msg=f)
     assert (ts.bvh.leaf_max, ts.bvh.depth) == (jt.bvh.leaf_max,
                                                jt.bvh.depth)
-    assert ts.bvh.wsel is None
 
 
 @pytest.mark.parametrize("build_bvh", [True, False])
