@@ -61,7 +61,24 @@ Phases (any failure exits non-zero):
      positive; timed beside phase 6's packet-route render, whose image
      it must match as phase 6 holds its scan render;
  11. GPU against CPU for the treelet route: the 5,156-triangle scene at
-     128x128, 2 spp, with treelets attached, held as in phase 7.
+     128x128, 2 spp, with treelets attached, held as in phase 7;
+ 12. main path 4, the matrix-unit probes (csrc/visit_kernel.cu): the
+     entry points `python -m raytracingrenderer_tpu_torch.probes.probe_mxu`
+     (and probe_mxu2, probe_mxu3) run in this process with the visit
+     counts set to 0 just before, and every kernel must have launched;
+     then each visit run of the probes at its full size against its
+     plain version (fp32: bit for bit; TF32: within
+     visit.TF32_KERNEL_BOUND of the sum of the products' magnitudes),
+     both timed; the dot (P1b) in both precisions against its plain
+     version and float64, timed beside torch.matmul with TF32 off and on
+     (a yardstick the port never calls); the relayout loop, which must
+     equal x + n_iter exactly.
+
+Each kernel's line carries its bound: the least time the card could
+take for the same work, the larger of its operations over the peak rate
+for their type and its bytes (each input read once, each output written
+once) over the memory rate, from this run's inputs (peaks: the H100 SXM
+data sheet at 700 W).
 
 The line before the last is a JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.  JAX is never imported.
@@ -85,6 +102,21 @@ N_CHECK = (1 << 20) + 77          # not a multiple of the 256-thread block
 N_BVH_CHECK = (1 << 20) + 77      # B2: the render's primary width + a tail
 BENCH_CFG = dict(mis=True, jitter=True, max_depth=4)
 SPP = 8
+PEAK_FP32 = 67e12       # FLOP/s, FP32 outside the tensor cores
+PEAK_TF32 = 495e12      # FLOP/s, dense TF32 on the tensor cores
+PEAK_BYTES = 3.35e12    # B/s of device memory
+# FP32 operations (a compare, a select or a division counts one) of:
+MT_PAIR_OPS = 53        # one (ray, triangle) test of B1 (mt_kernel.cu)
+SLAB_OPS = 26           # one ray/box slab test (bvh_kernel._slab)
+NODE_OPS = 2 * SLAB_OPS + 6       # a binary node visit: two boxes, order
+WIDE_OPS = 4 * SLAB_OPS + 12      # a 4-wide node visit: four boxes, order
+LEAF9_OPS = 57          # one raw-form triangle test (bvh_kernel._leaf9)
+LEAF16_OPS = 49         # one constant-form any-hit test (bvh_kernel._leaf16)
+LEAF_SLOTS = 14         # triangles a leaf row, all tested
+PAIR_EPI_OPS = 16       # B4 per (pair, column) after its contraction
+PAIR_OPS = 33 + PAIR_EPI_OPS  # with the 33 of the contraction
+MT_EPI_OPS = 15         # the visit epilogue per triangle (visit_kernel.cu)
+RAY_BYTES = 44          # o, d, t_init in; t, tri, u, v out
 
 
 def fail(msg: str) -> None:
@@ -149,9 +181,10 @@ def build_all():
     from raytracingrenderer_tpu_torch.geometry import bvh_native
     from raytracingrenderer_tpu_torch.ops import build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         libs = [pool.submit(build.build, name)
-                for name in ("mt_kernel", "bvh_kernel", "treelet_kernel")]
+                for name in ("mt_kernel", "bvh_kernel", "treelet_kernel",
+                             "visit_kernel")]
         native = pool.submit(bvh_native.library_path)
         paths = [f.result() for f in libs] + [native.result()]
     log(f"build: {', '.join(os.path.relpath(p, ROOT) for p in paths)} "
@@ -220,6 +253,24 @@ def time_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters=50):
+    """Device time per call of fn: the profiler's self device time total
+    (each kernel counted once) over `iters` calls after a warm-up, or
+    None where the profiler records no device time.  For calls whose
+    back-to-back time is set by the host's launch path."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "self_device_time_total", 0) or 0
+                   for e in prof.key_averages())
+    return total_us / iters / 1e3 if total_us else None
+
+
 def time_once(torch, fn):
     """One call of fn timed with CUDA events -> (its result, ms)."""
     torch.cuda.synchronize()
@@ -230,6 +281,20 @@ def time_once(torch, fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def bound(ms, ops=0.0, nbytes=0.0, tf32_ops=0.0):
+    """The least time the card could take for the work: the larger of the
+    FP32 operations over PEAK_FP32 (beside the TF32 ones over PEAK_TF32,
+    which run on the tensor cores at the same time) and the bytes over
+    PEAK_BYTES -> the kernels line's bound keys, with the share of the
+    bound that the measured `ms` reached."""
+    t_ops = max(ops / PEAK_FP32, tf32_ops / PEAK_TF32) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    b = max(t_ops, t_bytes)
+    return dict(bound_ms=b,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_share=b / ms if ms else None)
 
 
 def compare(torch, what, t_init, k, p, any_hit, min_hit_frac=None,
@@ -263,7 +328,8 @@ def compare(torch, what, t_init, k, p, any_hit, min_hit_frac=None,
 
 
 def check_mt_kernel(torch, name, tris, timed: bool):
-    """B1 vs plain on the card; returns (max_abs_err, ms, plain_ms)."""
+    """B1 vs plain on the card; returns (max_abs_err, ms, plain_ms, the
+    bound keys at the timed width)."""
     from raytracingrenderer_tpu_torch.ops import mt_kernel
     o, d, t_closest, t_any = make_rays(torch, N_CHECK, seed=0)
     what = f"mt_kernel {name}, {tris.count} triangles"
@@ -276,16 +342,20 @@ def check_mt_kernel(torch, name, tris, timed: bool):
             mt_kernel.intersect_plain(tris, o, d, t_any).tri >= 0,
             any_hit=True)
     ms = plain_ms = None
+    b = {}
     if timed:
         o, d, t_closest, _ = make_rays(torch, N_TIMED, seed=1, dead_frac=0.0)
         ms = time_ms(torch, lambda: mt_kernel.intersect(
             tris, o, d, t_closest), 20)
         plain_ms = time_ms(torch, lambda: mt_kernel.intersect_plain(
             tris, o, d, t_closest), 3)
+        b = bound(ms, N_TIMED * tris.count * MT_PAIR_OPS,
+                  N_TIMED * RAY_BYTES + tris.count * 36)
         log(f"mt_kernel {name}: closest-hit at {N_TIMED} rays x "
             f"{tris.count} triangles: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms")
-    return err, ms, plain_ms
+            f"{plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}), share {b['bound_share']:.4f}")
+    return err, ms, plain_ms, b
 
 
 def capture_b2_inputs(torch, scene):
@@ -360,13 +430,25 @@ def check_bvh_kernel(torch, scene):
     for t_init, any_hit in ((t_closest, False), (t_any, True)):
         variant = "any_hit" if any_hit else "closest_hit"
         ms = time_ms(torch, lambda: kernel(o, d, t_init, any_hit), 10)
+        before = dict(bvh_kernel.plain_visits)
         p, plain_ms = time_once(torch, lambda: plain(o, d, t_init, any_hit))
+        visits = {k: bvh_kernel.plain_visits[k] - before[k]
+                  for k in before}
         check("random, live", t_init, any_hit, kernel(o, d, t_init, any_hit),
               p, 0.1)
-        log(f"bvh_kernel {variant}: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms at {N_TIMED} rays ({tris.count} triangles)")
+        ops = (visits["internal"] * NODE_OPS + visits["leaf"] * LEAF_SLOTS
+               * (LEAF16_OPS if any_hit else LEAF9_OPS))
+        nbytes = N_TIMED * RAY_BYTES + sum(
+            t.numel() * t.element_size()
+            for t in bvh_kernel.tables(bvh, tris, any_hit))
         out[variant].update(ms=ms, plain_ms=plain_ms, rays=N_TIMED,
-                            plain_rays=N_TIMED)
+                            plain_rays=N_TIMED, node_visits=visits,
+                            **bound(ms, ops, nbytes))
+        log(f"bvh_kernel {variant}: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms at {N_TIMED} rays ({tris.count} triangles); "
+            f"visits {visits}, bound {out[variant]['bound_ms']:.4f} ms "
+            f"({out[variant]['bound_by']}), share "
+            f"{out[variant]['bound_share']:.4f}")
     # (c) what the render gives the kernel
     t0 = time.perf_counter()
     batches = capture_b2_inputs(torch, scene)
@@ -455,15 +537,27 @@ def check_wide_kernel(torch, scene, batches):
         # constant-form ones)
         b2_raw_ms = time_ms(torch, lambda: bvh_kernel.traverse_packet(
             bvh, tris, o, d, t_init, any_hit=any_hit, leaf16=False), 10)
+        before = dict(bvh_kernel.plain_visits)
         p, plain_ms = time_once(torch, lambda: plain(o, d, t_init, any_hit))
+        visits = {k: bvh_kernel.plain_visits[k] - before[k]
+                  for k in before}
         check("random, live", t_init, any_hit, kernel(o, d, t_init, any_hit),
               p, 0.1)
-        log(f"bvh_kernel wide {variant}: B3 {ms:.3f} ms, B2 {b2_ms:.3f} ms "
-            f"(raw leaves {b2_raw_ms:.3f} ms), plain wide {plain_ms:.3f} ms "
-            f"at {N_TIMED} rays ({tris.count} triangles)")
+        ops = (visits["internal"] * WIDE_OPS
+               + visits["leaf"] * LEAF_SLOTS * LEAF9_OPS)
+        nbytes = N_TIMED * RAY_BYTES + sum(
+            t.numel() * t.element_size()
+            for t in bvh_kernel.tables(bvh, tris, False, wide=True))
         out[variant].update(launches=counts["wide_" + variant], ms=ms,
                             plain_ms=plain_ms, b2_ms=b2_ms,
-                            b2_raw_leaves_ms=b2_raw_ms, rays=N_TIMED)
+                            b2_raw_leaves_ms=b2_raw_ms, rays=N_TIMED,
+                            node_visits=visits, **bound(ms, ops, nbytes))
+        log(f"bvh_kernel wide {variant}: B3 {ms:.3f} ms, B2 {b2_ms:.3f} ms "
+            f"(raw leaves {b2_raw_ms:.3f} ms), plain wide {plain_ms:.3f} ms "
+            f"at {N_TIMED} rays ({tris.count} triangles); visits {visits}, "
+            f"bound {out[variant]['bound_ms']:.4f} ms "
+            f"({out[variant]['bound_by']}), share "
+            f"{out[variant]['bound_share']:.4f}")
     return out
 
 
@@ -519,11 +613,221 @@ def check_pair_kernel(torch, scene):
     ms = time_ms(torch, lambda: treelet.pair_test(consts, feats, tid), 20)
     _, plain_ms = time_once(torch, lambda: treelet.pair_test_plain(
         consts, feats, tid))
+    pairs = int(tid.shape[0])
+    nbytes = (consts.numel() * 4 + pairs * (feats.shape[1] * 4 + 4 + 8))
+    b = bound(ms, pairs * treelet.T_LEAF * PAIR_OPS, nbytes)
+    # the same pairs with the four 16-deep contractions on the tensor
+    # cores in TF32 (dense, 2 * 16 * 4 * T_LEAF a pair, as the TPU kernel
+    # runs them) and the rest on the FP32 pipes
+    b_tf32 = bound(ms, pairs * treelet.T_LEAF * PAIR_EPI_OPS, nbytes,
+                   tf32_ops=pairs * 2 * 16 * 4 * treelet.T_LEAF)
     log(f"treelet_pair_test: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms at "
-        f"{tid.shape[0]} pairs")
+        f"{pairs} pairs; bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+        f"FP32), share {b['bound_share']:.4f}; with TF32 contractions "
+        f"{b_tf32['bound_ms']:.4f} ms ({b_tf32['bound_by']})")
     return dict(max_abs_err=err, mismatches=mism, ms=ms, plain_ms=plain_ms,
-                pairs=int(tid.shape[0]), rays=n_rays,
-                overflow_share=share)
+                pairs=pairs, rays=n_rays, overflow_share=share,
+                library_ms=None, **b, tf32_bound_ms=b_tf32["bound_ms"])
+
+
+def visit_bound(cfg, ms):
+    """Bound keys of one visit run from its shapes: per ray and visit
+    (batched: per step) the contraction's 2 * 16 multiply-adds a column
+    and one min a column (fp32 on the CUDA cores; in TF32 the
+    multiply-adds go to the tensor cores), the epilogue's ops a triangle;
+    bytes: the distinct tiles visited, the features, the rows written."""
+    from raytracingrenderer_tpu_torch.ops import visit
+    from raytracingrenderer_tpu_torch.probes import R
+    tt, blocks = cfg["tt"], cfg["blocks"]
+    steps = visit.tile_steps(cfg["n_visits"], cfg["n_tiles"], cfg["tile"])
+    width = len(steps[0]) * tt if steps else 0
+    cols = visit.ROWS if cfg["reduce"] == "first8" else width
+    ray_steps = blocks * R * len(steps)
+    mac = ray_steps * 2 * 16 * cols
+    other = ray_steps * (cols if cfg["reduce"] != "mt"
+                         else width // 4 * MT_EPI_OPS)
+    rows = visit.ROWS if cfg["reduce"] == "first8" else 1
+    nbytes = (len({j for st in steps for j in st}) * 16 * tt
+              + blocks * 16 * R + blocks * R * (rows + 1)) * 4
+    if cfg["precision"] == "default":
+        return bound(ms, other, nbytes, tf32_ops=mac)
+    return bound(ms, mac + other, nbytes)
+
+
+def check_probes(torch, card):
+    """Phase 12: the probes' entry points with the visit counts set to 0
+    just before (main path 4), then every kernel of visit_kernel.cu
+    against its plain version at the probes' sizes, timed.  Returns the
+    kernels line's entries."""
+    import numpy as np
+    from raytracingrenderer_tpu_torch.ops import visit
+    from raytracingrenderer_tpu_torch.probes import (flops, inputs,
+                                                     probe_mxu, probe_mxu2,
+                                                     probe_mxu3, visit_args)
+    src = dict(route="cuda",
+               source="raytracingrenderer_tpu_torch/csrc/visit_kernel.cu")
+    mods = (probe_mxu, probe_mxu2, probe_mxu3)
+    for k in visit.launches:
+        visit.launches[k] = 0
+    t0 = time.perf_counter()
+    for mod in mods:
+        log(f"-- {mod.__name__} (python -m {mod.__name__})")
+        mod.main()
+    counts = dict(visit.launches)
+    log(f"probes: the three entry points ran in "
+        f"{time.perf_counter() - t0:.2f} s; launches {counts}")
+    if min(counts.values()) == 0:
+        fail("the probes did not launch every kernel of visit_kernel.cu")
+
+    replaces = {
+        ("dynamic", "min", "ray", "highest"):
+            "scripts/probe_mxu2.py:58 (k_full; probe_mxu.py:51 visit_kernel "
+            "at HIGHEST, probe_mxu3.py:29)",
+        ("dynamic", "min", "ray", "default"):
+            "scripts/probe_mxu.py:51 (visit_kernel at DEFAULT)",
+        ("dynamic", "mt", "ray", "highest"):
+            "scripts/probe_mxu.py:51 (visit_kernel, epilogue=True)",
+        ("static", "min", "ray", "highest"): "scripts/probe_mxu2.py:75",
+        ("dynamic", "first8", "ray", "highest"): "scripts/probe_mxu2.py:91",
+        ("dynamic", "min", "lane", "highest"): "scripts/probe_mxu2.py:107",
+        ("batched8", "min", "ray", "highest"): "scripts/probe_mxu2.py:126",
+    }
+    entries, seen = {}, set()
+    for mod in mods:
+        for cfg in mod.CONFIGS:
+            variant = (cfg["tile"], cfg["reduce"], cfg["layout"],
+                       cfg["precision"])
+            key = (variant, cfg["tt"], cfg["n_visits"], cfg["n_tiles"],
+                   cfg["blocks"])
+            if key in seen:
+                continue
+            seen.add(key)
+            kw = visit_args(cfg)
+            tab, feats = inputs(cfg["n_tiles"], cfg["tt"], cfg["blocks"],
+                                "cuda")
+            tk, ok = visit.visit(tab, feats, **kw)
+            (tp, op), plain_ms = time_once(
+                torch, lambda: visit.visit_plain(tab, feats, **kw))
+            err = (tk - tp).abs().max().item()
+            what = (f"visit/{visit.variant_name(*variant)} TT={cfg['tt']} "
+                    f"V={cfg['n_visits']} tiles={cfg['n_tiles']} "
+                    f"blocks={cfg['blocks']}")
+            if not torch.equal(ok, op):
+                fail(f"{what}: the feature sums differ from the plain "
+                     f"version's")
+            if cfg["precision"] == "highest":
+                ratio = None
+                if not torch.equal(tk, tp):
+                    fail(f"{what}: max |dt| {err:.3e} against the plain "
+                         f"version (bit for bit expected)")
+            else:
+                scale = visit.visit_tf32_scale(
+                    tab, feats, n_visits=cfg["n_visits"],
+                    n_tiles=cfg["n_tiles"], tile=cfg["tile"],
+                    layout=cfg["layout"])
+                ratio = ((tk - tp).abs() / scale).max().item()
+                if ratio > visit.TF32_KERNEL_BOUND:
+                    fail(f"{what}: |dt| reaches {ratio:.3e} of sum |a b|, "
+                         f"above the bound {visit.TF32_KERNEL_BOUND:.3e}")
+            ms = time_ms(torch, lambda: visit.visit(tab, feats, **kw), 20)
+            b = visit_bound(cfg, ms)
+            log(f"{what}: kernel {ms:.4f} ms ({flops(cfg) / ms / 1e9:.2f} "
+                f"TFLOP/s by the scripts' count), plain {plain_ms:.3f} ms, "
+                f"max_abs_err {err:.3e}"
+                + ("" if ratio is None else
+                   f" ({ratio:.3e} of sum |a b|, bound "
+                   f"{visit.TF32_KERNEL_BOUND:.3e})")
+                + f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}), share "
+                f"{b['bound_share']:.4f} [{card}]")
+            size = dict(tt=cfg["tt"], n_visits=cfg["n_visits"],
+                        n_tiles=cfg["n_tiles"], blocks=cfg["blocks"], ms=ms,
+                        plain_ms=plain_ms, max_abs_err=err,
+                        tf32_err_ratio=ratio, **b)
+            name = "visit/" + visit.variant_name(*variant)
+            if name not in entries:
+                entries[name] = dict(
+                    name=name, **src, replaces=replaces[variant],
+                    launches=counts[name], max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, library_ms=None, **b, sizes=[])
+            e = entries[name]
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            e["sizes"].append(size)
+            del tab, feats, tk, ok, tp, op
+
+    # the dot (P1b) in both precisions; torch.matmul as the yardstick
+    a, b_in = probe_mxu.precision_inputs("cuda")
+    ref = a.double().cpu().numpy().T @ b_in.double().cpu().numpy()
+    tt, r = a.shape[1], b_in.shape[1]
+    saved = torch.backends.cuda.matmul.allow_tf32
+    for prec in ("highest", "default"):
+        k = visit.dot(a, b_in, prec)
+        p, plain_ms = time_once(torch, lambda: visit.dot_plain(a, b_in, prec))
+        err = (k - p).abs().max().item()
+        ratio = None
+        if prec == "highest":
+            if not torch.equal(k, p):
+                fail(f"dot/highest: max |d| {err:.3e} against the plain "
+                     f"version (bit for bit expected)")
+        else:
+            ratio = ((k - p).abs() / visit.tf32_scale(a, b_in)).max().item()
+            if ratio > visit.TF32_KERNEL_BOUND:
+                fail(f"dot/default: |d| reaches {ratio:.3e} of sum |a b|")
+        rel = np.abs(k.cpu().numpy() - ref) / np.maximum(np.abs(ref), 1e-3)
+        ms = time_ms(torch, lambda: visit.dot(a, b_in, prec), 200)
+        dev_ms = device_ms(torch, lambda: visit.dot(a, b_in, prec))
+        try:
+            torch.backends.cuda.matmul.allow_tf32 = prec == "default"
+            lib_ms = time_ms(torch, lambda: torch.matmul(a.t(), b_in), 200)
+            lib_dev_ms = device_ms(torch, lambda: torch.matmul(a.t(), b_in))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+        nbytes = (16 * tt + 16 * r + tt * r) * 4
+        mac = 2 * 16 * tt * r
+        bd = bound(ms, 0, nbytes, tf32_ops=mac) if prec == "default" \
+            else bound(ms, mac, nbytes)
+        log(f"dot/{prec}: kernel {ms:.4f} ms (device {dev_ms} ms), plain "
+            f"{plain_ms:.4f} ms, torch.matmul (allow_tf32="
+            f"{prec == 'default'}) {lib_ms:.4f} ms (device {lib_dev_ms} ms);"
+            f" max |kernel - plain| {err:.3e}; against float64 median "
+            f"{np.median(rel):.2e}, max {rel.max():.2e}; bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), share "
+            f"{bd['bound_share']:.4f} [{card}]")
+        entries[f"dot/{prec}"] = dict(
+            name=f"dot/{prec}", **src,
+            replaces="scripts/probe_mxu.py:133 (inner k, call :139)",
+            launches=counts[f"dot/{prec}"], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, **bd,
+            device_ms=dev_ms, library_device_ms=lib_dev_ms,
+            tf32_err_ratio=ratio, rel_err_f64_median=float(np.median(rel)),
+            rel_err_f64_max=float(rel.max()))
+
+    # the relayout loop (P1c): x + n_iter exactly
+    x = torch.zeros((probe_mxu.RELAYOUT_BLOCKS * 32, 128), device="cuda")
+    per = {}
+    for n_iter in (1, 65):
+        k = visit.relayout_loop(x, n_iter)
+        p, plain_ms = time_once(torch,
+                                lambda: visit.relayout_loop_plain(x, n_iter))
+        if not (torch.equal(k, x + n_iter) and torch.equal(k, p)):
+            fail(f"relayout n_iter={n_iter}: not x + n_iter")
+        ms = time_ms(torch, lambda: visit.relayout_loop(x, n_iter), 200)
+        dev_ms = device_ms(torch, lambda: visit.relayout_loop(x, n_iter))
+        per[n_iter] = (ms, plain_ms,
+                       bound(ms, n_iter * x.numel(), 2 * x.numel() * 4),
+                       dev_ms)
+        log(f"relayout n_iter={n_iter}: kernel {ms:.4f} ms (device "
+            f"{dev_ms} ms), plain "
+            f"{plain_ms:.4f} ms, exact; bound {per[n_iter][2]['bound_ms']:.5f}"
+            f" ms ({per[n_iter][2]['bound_by']}) [{card}]")
+    ms, plain_ms, bd, dev_ms = per[65]
+    entries["relayout"] = dict(
+        name="relayout", **src,
+        replaces="scripts/probe_mxu.py:153 (inner k, call :168)",
+        launches=counts["relayout"], max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, library_ms=None, **bd, device_ms=dev_ms,
+        n_iter=65, ms_n_iter_1=per[1][0], plain_ms_n_iter_1=per[1][1],
+        device_ms_n_iter_1=per[1][3])
+    return list(entries.values())
 
 
 def reset_counts():
@@ -690,11 +994,11 @@ def main() -> None:
              f"kernel's stack")
 
     # -- 3. B1 against its plain version -----------------------------------
-    err_a, ms_a, plain_a = check_mt_kernel(torch, "(a) cornell",
-                                           cornell.triangles, timed=True)
-    err_b, _, _ = check_mt_kernel(torch, "(b) random-128",
-                                  random_tris(torch, 128, 2), timed=False)
-    err_c, ms_c, plain_c = check_mt_kernel(
+    err_a, ms_a, plain_a, bound_a = check_mt_kernel(
+        torch, "(a) cornell", cornell.triangles, timed=True)
+    err_b, _, _, _ = check_mt_kernel(torch, "(b) random-128",
+                                     random_tris(torch, 128, 2), timed=False)
+    err_c, ms_c, plain_c, bound_c = check_mt_kernel(
         torch, "(c) random-4096", random_tris(torch, 4096, 3), timed=True)
 
     # -- 4. B2 against its plain version -----------------------------------
@@ -768,6 +1072,9 @@ def main() -> None:
     # -- 11. GPU against CPU for the treelet route ---------------------------
     gpu_vs_cpu("spheres-5156 treelet", spheres128, treelets=True)
 
+    # -- 12. main path 4: the matrix-unit probes (visit_kernel.cu) ----------
+    probes = check_probes(torch, card)
+
     bvh_src = dict(route="cuda",
                    source="raytracingrenderer_tpu_torch/csrc/bvh_kernel.cu",
                    replaces="raytracingrenderer_tpu/ops/bvh_kernel.py:65")
@@ -781,20 +1088,26 @@ def main() -> None:
         "max_abs_err": max(err_a, err_b, err_c),
         "ms": ms_a,
         "plain_ms": plain_a,
+        "library_ms": None,
+        **bound_a,
         "ms_4096_tris": ms_c,
         "plain_ms_4096_tris": plain_c,
+        "bound_ms_4096_tris": bound_c["bound_ms"],
+        "bound_share_4096_tris": bound_c["bound_share"],
         "launches_treelet_path": tl_launches["mt"],
     }] + [dict(name=f"bvh_traverse/{v}", **bvh_src,
                launches=b2_launches[v],
-               launches_treelet_path=tl_launches[v], **b2[v])
+               launches_treelet_path=tl_launches[v], library_ms=None,
+               **b2[v])
           for v in ("closest_hit", "any_hit")]
         + [dict(name=f"bvh_traverse_wide/{v}", **dict(
             bvh_src, replaces="raytracingrenderer_tpu/ops/bvh_kernel.py:498"),
-            **b3[v]) for v in ("closest_hit", "any_hit")]
+            library_ms=None, **b3[v]) for v in ("closest_hit", "any_hit")]
         + [dict(name="treelet_pair_test", route="cuda",
                 source="raytracingrenderer_tpu_torch/csrc/treelet_kernel.cu",
                 replaces="raytracingrenderer_tpu/ops/treelet.py:269",
-                launches=tl_launches["pair_test"], **b4)]}))
+                launches=tl_launches["pair_test"], **b4)]
+        + probes}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

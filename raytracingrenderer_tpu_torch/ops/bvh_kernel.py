@@ -36,7 +36,8 @@ decides nothing but ties between equal t in different leaves.
 cannot; for CPU tensors it runs `traverse_plain`, the plain torch
 version (a lockstep loop over the batch with per-ray stacks, the same
 child order and arithmetic), which is also the kernels' reference on
-the card.  `launches` counts kernel launches per variant.
+the card.  `launches` counts kernel launches per variant;
+`plain_visits` counts the node visits of the plain walks.
 """
 from __future__ import annotations
 
@@ -60,6 +61,10 @@ LANE16_START = 120      # its lane in the odd constant-form row
 # kernel launches since import (or the last reset), per variant
 launches: Dict[str, int] = {"closest_hit": 0, "any_hit": 0,
                              "wide_closest_hit": 0, "wide_any_hit": 0}
+# node visits of the plain walks since import (or the last reset): rows of
+# internal nodes and of leaves; each walk runs in lockstep with its kernel,
+# so on the same rays these are the kernel's visits too
+plain_visits: Dict[str, int] = {"internal": 0, "leaf": 0}
 _lib = None
 
 
@@ -536,6 +541,7 @@ def _walk(nodes, leaves, o: V3, d: V3, t0, init_code: int, iters: int,
 
         # ---- leaf: every slot of one leaf row ---------------------------
         idx = torch.nonzero(m & is_leaf)[:, 0]
+        plain_visits["leaf"] += idx.numel()
         if idx.numel():
             row = -code[idx] - 1
             rr = tuple(c[idx] for c in ray)
@@ -556,6 +562,7 @@ def _walk(nodes, leaves, o: V3, d: V3, t0, init_code: int, iters: int,
         rcode = torch.zeros_like(lcode)
         ab = torch.zeros_like(lcode)
         idx = torch.nonzero(m & ~is_leaf)[:, 0]
+        plain_visits["internal"] += idx.numel()
         if idx.numel():
             rows = nodes[code[idx]]
             inv_i = tuple(c[idx] for c in inv)
@@ -602,6 +609,7 @@ def _walk_wide(nodes, leaves, o: V3, d: V3, t0, init_code: int, iters: int,
         is_leaf = code < 0
 
         idx = torch.nonzero(m & is_leaf)[:, 0]
+        plain_visits["leaf"] += idx.numel()
         if idx.numel():
             rows = leaves[-code[idx] - 1]
             hit, j, t_h, u_h, v_h = _leaf9(
@@ -614,6 +622,7 @@ def _walk_wide(nodes, leaves, o: V3, d: V3, t0, init_code: int, iters: int,
                for _ in range(4)]
         axis = torch.zeros(n, dtype=torch.int64, device=dev)
         idx = torch.nonzero(m & ~is_leaf)[:, 0]
+        plain_visits["internal"] += idx.numel()
         if idx.numel():
             rows = nodes[code[idx]]
             inv_i = tuple(c[idx] for c in inv)

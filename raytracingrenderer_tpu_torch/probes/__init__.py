@@ -1,0 +1,92 @@
+"""The matrix-unit probes on the card: counterparts of
+scripts/probe_mxu.py, scripts/probe_mxu2.py and scripts/probe_mxu3.py,
+which timed the K = 16 contraction under B4's pair test on the TPU.
+Each drives the kernels of csrc/visit_kernel.cu (through ops/visit.py)
+with the scripts' inputs, sizes and sequence of runs, and prints the
+scripts' lines with the card's name and power limit:
+
+    python -m raytracingrenderer_tpu_torch.probes.probe_mxu
+    python -m raytracingrenderer_tpu_torch.probes.probe_mxu2
+    python -m raytracingrenderer_tpu_torch.probes.probe_mxu3
+
+They run on "cuda" and exit non-zero without a card.  Times are CUDA
+events over repeated launches after a warm-up; the TFLOP/s keep the
+scripts' count, visits * 2 * 16 * TT * R.
+
+Each module lists its visit runs in CONFIGS (dicts of `visit`'s
+arguments, sizes included), which chip_smoke.py also reads.
+"""
+from __future__ import annotations
+
+import subprocess
+import sys
+from typing import Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+R = 4096            # rays per block, as the scripts' R
+
+
+def require_cuda() -> torch.device:
+    """The card, or exit with status 1: the probes measure the card and
+    have no CPU fall-back."""
+    if not torch.cuda.is_available():
+        print("the probes need an NVIDIA GPU: torch.cuda.is_available() is "
+              "false", file=sys.stderr, flush=True)
+        sys.exit(1)
+    return torch.device("cuda")
+
+
+def card() -> str:
+    """nvidia-smi's "name, power.limit" of device 0."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if out.returncode != 0 or not out.stdout.strip():
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0].strip()
+
+
+def timed_ms(fn: Callable, reps: int = 20):
+    """fn() once to warm up, then `reps` calls between two CUDA events
+    -> (ms per call, the last result)."""
+    out = fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def inputs(n_tiles: int, tt: int, blocks: int, device
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scripts' table (seed 0, (n_tiles * 16, tt)) and features
+    (seed 1, (blocks * 16, R)), standard normal f32."""
+    tab = np.random.default_rng(0).normal(size=(n_tiles * 16, tt))
+    feats = np.random.default_rng(1).normal(size=(blocks * 16, R))
+    return (torch.from_numpy(tab.astype(np.float32)).to(device),
+            torch.from_numpy(feats.astype(np.float32)).to(device))
+
+
+def visit_args(cfg: Dict) -> Dict:
+    """`visit`'s keyword arguments of a CONFIGS entry."""
+    return {k: cfg[k] for k in ("n_visits", "n_tiles", "tile", "reduce",
+                                "layout", "precision")}
+
+
+def config(tt: int, n_visits: int, n_tiles: int, blocks: int = 8,
+           tile: str = "dynamic", reduce: str = "min", layout: str = "ray",
+           precision: str = "highest", **extra) -> Dict:
+    return dict(tt=tt, n_visits=n_visits, n_tiles=n_tiles, blocks=blocks,
+                tile=tile, reduce=reduce, layout=layout,
+                precision=precision, **extra)
+
+
+def flops(cfg: Dict) -> int:
+    """The scripts' FLOP count of a run: visits * 2 * 16 * TT * R."""
+    return cfg["blocks"] * cfg["n_visits"] * 2 * 16 * cfg["tt"] * R

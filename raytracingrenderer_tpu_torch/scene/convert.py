@@ -14,7 +14,7 @@ import torch
 from ..core.vec import V3
 from .types import (BVH_ARRAYS, BVH, Background, Camera, LightTable,
                     MaterialTable, Scene, SceneBounds, TextureAtlas,
-                    Triangles)
+                    Triangles, scene_device)
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -46,9 +46,11 @@ def _bvh(b, device):
                leaf_max=int(b.leaf_max), depth=int(b.depth))
 
 
-def scene_from_numpy(tree, device="cpu") -> Scene:
-    """JAX scene arrays (numpy leaves, same field names) -> Scene."""
-    device = torch.device(device)
+def scene_from_numpy(tree, device="cuda") -> Scene:
+    """JAX scene arrays (numpy leaves, same field names) -> Scene on
+    `device` (the card unless the caller names another; "cuda" without a
+    card raises)."""
+    device = scene_device(device)
     bg = tree.background
     if bg.envmap is not None:
         raise NotImplementedError("environment maps are not ported yet")

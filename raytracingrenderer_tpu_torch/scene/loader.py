@@ -36,7 +36,8 @@ from .gem import load_gem
 from .types import (BG_NONE, MAT_CONDUCTOR, MAT_DIELECTRIC, MAT_DIFFUSE,
                     MAT_GLASS, MAT_MIRROR, MAT_OREN_NAYAR, MAT_PLASTIC,
                     Background, Camera, LightTable, MaterialTable, Scene,
-                    SceneBounds, TextureAtlas, Triangles, v3_from_np)
+                    SceneBounds, TextureAtlas, Triangles, scene_device,
+                    v3_from_np)
 
 # Leaf size and SAH quality of the loader's build, as the JAX loader's:
 # 14 triangles fill one 128-lane leaf row of the packet kernel's tables;
@@ -250,13 +251,14 @@ class _MaterialRows:
             coat_ext_ior=t(col("coat_ext_ior"), np.float32))
 
 
-def load_scene(scene_dir: str, device="cpu", build_bvh: bool = True,
+def load_scene(scene_dir: str, device="cuda", build_bvh: bool = True,
                scene_shards: int = 0) -> Scene:
-    """Load an RTBase-format scene directory onto `device`."""
+    """Load an RTBase-format scene directory onto `device` (the card
+    unless the caller names another; "cuda" without a card raises)."""
     if scene_shards:
         raise NotImplementedError(
             "sharded BVHs (parallel/scene_shard.py) are not ported yet")
-    device = torch.device(device)
+    device = scene_device(device)
     with open(os.path.join(scene_dir, "scene.json")) as f:
         desc = json.load(f)
 

@@ -242,6 +242,18 @@ class Scene(NamedTuple):
         return self.triangles.area.device
 
 
+def scene_device(device) -> torch.device:
+    """`device` as a torch.device for a scene's tensors.  A CUDA device
+    where torch.cuda.is_available() is false raises: a scene asked for
+    on the card never quietly lands on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested, but torch.cuda.is_available() "
+            f"is false; pass device='cpu' to load onto the CPU")
+    return device
+
+
 def v3_from_np(a: np.ndarray, device=None) -> V3:
     a = np.asarray(a, np.float32)
     return V3(*(torch.from_numpy(np.ascontiguousarray(a[..., i])).to(device)

@@ -17,7 +17,11 @@ rays) are held to their plain versions bit for bit.  Renders on "cuda"
 (the cornell box, and the spheres scene through the BVH and the
 wavefront integrator, by the packet route and by the treelet route) are
 held against the same renders on "cpu" per pixel: >= 99% of pixels
-within rtol 1e-3 / atol 1e-5, means within 0.5%."""
+within rtol 1e-3 / atol 1e-5, means within 0.5%.  Every kernel of the
+matrix-unit probes (ops/visit.py) is held to its plain version: the
+fp32 visits, the fp32 dot and the relayout bit for bit, the TF32 visit
+and dot within visit.TF32_KERNEL_BOUND of the sum of the products'
+magnitudes; a refused launch raises and leaves no error behind."""
 import numpy as np
 import pytest
 import torch
@@ -26,7 +30,8 @@ from raytracingrenderer_tpu_torch.config import RenderConfig
 from raytracingrenderer_tpu_torch.core.vec import V3
 from raytracingrenderer_tpu_torch.geometry import intersect
 from raytracingrenderer_tpu_torch.imaging import film as film_mod
-from raytracingrenderer_tpu_torch.ops import bvh_kernel, mt_kernel, treelet
+from raytracingrenderer_tpu_torch.ops import (bvh_kernel, mt_kernel, treelet,
+                                             visit)
 from raytracingrenderer_tpu_torch.render import render
 from raytracingrenderer_tpu_torch.scene.loader import load_scene
 from torch_scenes import write_cornell, write_spheres
@@ -216,3 +221,85 @@ def test_treelet_render_cuda_matches_cpu(cuda, spheres_dir):
              bvh_kernel.launches["closest_hit"], intersect.treelet_calls)
     assert all(x > y for x, y in zip(after, before))
     _agree(a, _render(spheres_dir, "cpu", treelets=True))
+
+
+def _visit_inputs(dev, n_tiles, tt, blocks, seed):
+    g = np.random.default_rng(seed)
+    tab = g.normal(size=(n_tiles * 16, tt)).astype(np.float32)
+    feats = g.normal(size=(blocks * 16, 4096)).astype(np.float32)
+    return torch.from_numpy(tab).to(dev), torch.from_numpy(feats).to(dev)
+
+
+@pytest.mark.parametrize("variant", visit.VARIANTS,
+                         ids=[visit.variant_name(*v) for v in visit.VARIANTS])
+def test_visit_kernel_matches_plain(cuda, variant):
+    tile, reduce, layout, precision = variant
+    kw = dict(n_visits=16, n_tiles=16, tile=tile, reduce=reduce,
+              layout=layout, precision=precision)
+    tab, feats = _visit_inputs(cuda, 16, 128, 2, 29)
+    name = "visit/" + visit.variant_name(*variant)
+    before = visit.launches[name]
+    tk, ok = visit.visit(tab, feats, **kw)
+    torch.cuda.synchronize()
+    assert visit.launches[name] == before + 1
+    tp, op = visit.visit_plain(tab, feats, **kw)
+    assert tk.shape == tp.shape == (2, 8, 4096)
+    assert torch.equal(ok, op)
+    if precision == "highest":
+        assert torch.equal(tk, tp)
+    else:
+        scale = visit.visit_tf32_scale(tab, feats, n_visits=16, n_tiles=16)
+        assert ((tk - tp).abs() <= visit.TF32_KERNEL_BOUND * scale).all()
+        assert not torch.equal(tk, visit.visit_plain(
+            tab, feats, **dict(kw, precision="highest"))[0])
+    assert (tk < 3e38).float().mean().item() > 0.5
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_dot_kernel_matches_plain(cuda, precision):
+    g = np.random.default_rng(31)
+    a = torch.from_numpy((g.normal(size=(16, 128)) * 100).astype(
+        np.float32)).to(cuda)
+    b = torch.from_numpy((g.normal(size=(16, 4096)) * 100).astype(
+        np.float32)).to(cuda)
+    before = visit.launches["dot/" + precision]
+    k = visit.dot(a, b, precision)
+    torch.cuda.synchronize()
+    assert visit.launches["dot/" + precision] == before + 1
+    p = visit.dot_plain(a, b, precision)
+    if precision == "highest":
+        assert torch.equal(k, p)
+    else:
+        assert ((k - p).abs() <= visit.TF32_KERNEL_BOUND
+                * visit.tf32_scale(a, b)).all()
+
+
+def test_relayout_kernel_is_exact(cuda):
+    x = torch.from_numpy(np.random.default_rng(37).normal(
+        size=(64 * 32, 128)).astype(np.float32)).to(cuda)
+    before = visit.launches["relayout"]
+    for n_iter in (1, 65):
+        assert torch.equal(visit.relayout_loop(x, n_iter),
+                           visit.relayout_loop_plain(x, n_iter))
+    assert visit.launches["relayout"] == before + 2
+
+
+def test_refused_launch_raises(cuda):
+    """A launch the card refuses (the batched variant at TT = 512 asks for
+    256 KB of shared memory; an unknown variant id) raises, and the next
+    launch is unaffected."""
+    tab, feats = _visit_inputs(cuda, 8, 512, 1, 41)
+    t = torch.empty((1, 1, 4096), device=cuda)
+    o = torch.empty_like(t)
+    for variant_id in (visit.VARIANTS.index(
+            ("batched8", "min", "ray", "highest")), 99):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            visit._call("visit_run", cuda, variant_id, tab.data_ptr(),
+                        feats.data_ptr(), t.data_ptr(), o.data_ptr(), 1, 4096,
+                        512, 8, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        visit.visit(tab, feats, n_visits=8, n_tiles=8, tile="batched8")
+    tk, _ = visit.visit(tab, feats, n_visits=8, n_tiles=8)
+    torch.cuda.synchronize()
+    assert torch.equal(tk, visit.visit_plain(tab, feats, n_visits=8,
+                                             n_tiles=8)[0])

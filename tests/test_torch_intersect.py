@@ -30,7 +30,8 @@ torch.set_num_threads(2)
 def scenes(tmp_path_factory):
     d = write_cornell(str(tmp_path_factory.mktemp("cornell")), 32, 32)
     js = jload(d, build_bvh=False)
-    return js, scene_from_numpy(jax.tree_util.tree_map(np.asarray, js))
+    return js, scene_from_numpy(jax.tree_util.tree_map(np.asarray, js),
+                                "cpu")
 
 
 def _rays(n, seed, dead_frac=0.0):

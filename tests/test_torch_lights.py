@@ -27,7 +27,8 @@ RTOL, ATOL = 1e-5, 1e-6
 def scenes(tmp_path_factory):
     d = write_cornell(str(tmp_path_factory.mktemp("cornell")), 32, 32)
     js = jload(d, build_bvh=False)
-    return js, scene_from_numpy(jax.tree_util.tree_map(np.asarray, js))
+    return js, scene_from_numpy(jax.tree_util.tree_map(np.asarray, js),
+                                "cpu")
 
 
 def _with_const_background(js):
@@ -68,7 +69,7 @@ def test_sample_one(scenes, power, background):
     js, ts = scenes
     if background:
         js = _with_const_background(js)
-        ts = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js))
+        ts = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js), "cpu")
     x, sn, r = _shading_points(seed=1 + 2 * power + background)
     (jx, tx), (jn, tn) = _pair(x), _pair(sn)
     want = jl.sample_one(js, jx, jn, *(jnp.asarray(v) for v in r[:3]),
@@ -110,7 +111,7 @@ def test_background_helpers(scenes):
     assert not tl.background_enabled(ts)
     _close(tl.eval_background(ts, d), V3.zeros_like(d.x))
     js_c = _with_const_background(js)
-    ts_c = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js_c))
+    ts_c = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js_c), "cpu")
     jd = JV3(*(jnp.asarray(c.numpy()) for c in d))
     assert tl.background_enabled(ts_c)
     _close(tl.eval_background(ts_c, d), jl.eval_background(js_c, jd))

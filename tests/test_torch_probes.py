@@ -1,0 +1,325 @@
+"""The matrix-unit probes (ops/visit.py, probes/) against the JAX probe
+kernels of scripts/probe_mxu.py, probe_mxu2.py and probe_mxu3.py, run
+through `pl.pallas_call(..., interpret=True)` with the scripts' specs
+(the scripts are loaded as they are; their inline kernels, closures in
+probe_mxu.py, are restated here with their lines cited).
+
+Inputs come from numpy seeds; R = 4096 as in the scripts, whose kernels
+broadcast to it.  Tolerances:
+  - fp32 ("highest") visits and feature sums: rtol 1e-5 / atol 1e-5.
+    The port sums K left to right without FMAs; XLA's CPU dot has its
+    own order and FMAs, a few ulp of values of order 10.
+  - the fp32 dot (inputs x 100): per output 32 u * sum_k |a_k b_k|
+    (u = 2^-24), twice the error bound of either side's 16-term sum.
+  - relayout: exact.
+  - TF32 ("default"): XLA on the CPU ignores DEFAULT, so JAX is no
+    reference; the plain version is held to float64 within the TF32
+    bound, (2^-10 + 2^-19) * sum_k |a_k b_k| per output (two operands
+    rounded by at most 2^-11 each, then a 16-term fp32 sum).
+The MT epilogue of probe_mxu.py cannot run in JAX (its shape fault is
+asserted); the port's epilogue is held to a numpy oracle of what it
+intends."""
+import functools
+import importlib.util
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from raytracingrenderer_tpu_torch.ops import visit
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+R = 4096
+HI = jax.lax.Precision.HIGHEST
+U = 2.0 ** -24
+
+
+def _script(name):
+    spec = importlib.util.spec_from_file_location(
+        f"_{name}", os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+P1, P2, P3 = (_script(n) for n in ("probe_mxu", "probe_mxu2", "probe_mxu3"))
+
+
+def _inputs(n_tiles, tt, blocks):
+    tab = np.random.default_rng(0).normal(size=(n_tiles * 16, tt))
+    feats = np.random.default_rng(1).normal(size=(blocks * 16, R))
+    return tab.astype(np.float32), feats.astype(np.float32)
+
+
+def _specs():
+    """The scripts' block specs: the table whole in VMEM, (16, R)
+    feature blocks, (8, R) output blocks."""
+    fblk = pl.BlockSpec((16, R), lambda i: (i, 0), memory_space=pltpu.VMEM)
+    oblk = pl.BlockSpec((8, R), lambda i: (i, 0), memory_space=pltpu.VMEM)
+    return [pl.BlockSpec(memory_space=pltpu.VMEM), fblk], oblk
+
+
+def _jax_p1(tab, feats, blocks, n_visits, n_tiles, epilogue=False):
+    """probe_mxu.bench_matmul's pallas_call (:106-116), interpreted."""
+    in_specs, oblk = _specs()
+    fn = pl.pallas_call(
+        functools.partial(P1.visit_kernel, n_visits=n_visits,
+                          n_tiles=n_tiles, epilogue=epilogue, precision=HI),
+        grid=(blocks,), in_specs=in_specs, out_specs=(oblk, oblk),
+        out_shape=(jax.ShapeDtypeStruct((blocks * 8, R), jnp.float32),) * 2,
+        compiler_params=pltpu.CompilerParams(
+            vmem_limit_bytes=100 * 1024 * 1024),
+        interpret=True)
+    return tuple(np.asarray(x) for x in fn(tab, feats))
+
+
+def _jax_k(kernel, tab, feats, blocks, n_visits, n_tiles):
+    """probe_mxu2.run's / probe_mxu3.run's pallas_call (:40-49 / :52-61),
+    interpreted."""
+    in_specs, oblk = _specs()
+    fn = pl.pallas_call(
+        functools.partial(kernel, n_visits=n_visits, n_tiles=n_tiles,
+                          tt=tab.shape[1]),
+        grid=(blocks,), in_specs=in_specs, out_specs=oblk,
+        out_shape=jax.ShapeDtypeStruct((blocks * 8, R), jnp.float32),
+        compiler_params=pltpu.CompilerParams(
+            vmem_limit_bytes=100 * 1024 * 1024),
+        interpret=True)
+    return np.asarray(fn(tab, feats))
+
+
+def _port(tab, feats, **kw):
+    t, o = visit.visit(torch.from_numpy(tab), torch.from_numpy(feats), **kw)
+    return t.reshape(-1, R).numpy(), o.reshape(-1, R).numpy()
+
+
+# (case, JAX kernel or "p1", port options, tt, blocks, n_visits, n_tiles)
+VISIT_CASES = [
+    ("p1a", "p1", {}, 128, 2, 16, 16),
+    ("p2_full", P2.k_full, {}, 128, 1, 16, 8),
+    ("p2_full_tt512", P2.k_full, {}, 512, 1, 8, 8),
+    ("p2_static", P2.k_static_tile, dict(tile="static"), 128, 1, 16, 8),
+    ("p2_no_reduce", P2.k_no_reduce, dict(reduce="first8"), 128, 2, 8, 8),
+    ("p2_rays_major", P2.k_rays_major, dict(layout="lane"), 128, 1, 16, 8),
+    ("p2_batched8", P2.k_batched8, dict(tile="batched8"), 128, 1, 16, 16),
+    ("p3_full", P3.k_full, {}, 128, 2, 16, 16),
+]
+
+
+@pytest.mark.parametrize("case", VISIT_CASES, ids=[c[0] for c in VISIT_CASES])
+def test_visit_matches_jax(case):
+    _, kernel, opts, tt, blocks, n_visits, n_tiles = case
+    tab, feats = _inputs(n_tiles, tt, blocks)
+    before = dict(visit.launches)
+    t, _ = _port(tab, feats, n_visits=n_visits, n_tiles=n_tiles, **opts)
+    assert visit.launches == before          # the CPU runs the plain version
+    if kernel == "p1":
+        ref, _ = _jax_p1(tab, feats, blocks, n_visits, n_tiles)
+    else:
+        ref = _jax_k(kernel, tab, feats, blocks, n_visits, n_tiles)
+    assert t.shape == ref.shape == (blocks * 8, R)
+    assert (t < 3e38).all()
+    np.testing.assert_allclose(t, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("blocks", [1, 2])
+def test_feature_sum_matches_jax(blocks):
+    """visit_kernel's second output, the sum of the 16 features."""
+    tab, feats = _inputs(8, 128, blocks)
+    _, o = _port(tab, feats, n_visits=4, n_tiles=8)
+    _, ref = _jax_p1(tab, feats, blocks, 4, 8)
+    np.testing.assert_allclose(o, ref, rtol=1e-5, atol=1e-5)
+
+
+def _jax_dot(a, b, prec):
+    """probe_mxu.precision_check's kernel (:133-136) and call (:139-144)."""
+    def k(a_ref, b_ref, o_ref, *, prec):
+        o_ref[...] = jax.lax.dot_general(
+            a_ref[...], b_ref[...], (((0,), (0,)), ((), ())),
+            preferred_element_type=jnp.float32, precision=prec)
+
+    return np.asarray(pl.pallas_call(
+        functools.partial(k, prec=prec),
+        out_shape=jax.ShapeDtypeStruct((a.shape[1], R), jnp.float32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        interpret=True)(jnp.asarray(a), jnp.asarray(b)))
+
+
+def _precision_inputs():
+    rng = np.random.default_rng(2)
+    a = (rng.normal(size=(16, 128)) * 100).astype(np.float32)
+    b = (rng.normal(size=(16, R)) * 100).astype(np.float32)
+    return a, b
+
+
+def test_dot_highest_matches_jax():
+    a, b = _precision_inputs()
+    got = visit.dot(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    ref = _jax_dot(a, b, HI)
+    scale = np.abs(a.astype(np.float64)).T @ np.abs(b.astype(np.float64))
+    assert got.shape == (128, R)
+    assert (np.abs(got - ref) <= 32 * U * scale).all()
+
+
+@pytest.mark.parametrize("n_iter", [1, 65])
+def test_relayout_matches_jax(n_iter):
+    """probe_mxu.bench_relayout's kernel (:153-161) and call (:165-172),
+    on 4 blocks of random values: exact."""
+    def k(x_ref, o_ref, *, n_iter):
+        x = x_ref[...]
+
+        def body(i, acc):
+            wide = acc.reshape(1, 32 * 128)
+            wide = wide + 1.0
+            return wide.reshape(32, 128)
+
+        o_ref[...] = jax.lax.fori_loop(0, n_iter, body, x)
+
+    blocks = 4
+    x = np.random.default_rng(3).normal(size=(blocks * 32, 128)).astype(
+        np.float32)
+    blk = pl.BlockSpec((32, 128), lambda i: (i, 0), memory_space=pltpu.VMEM)
+    ref = np.asarray(pl.pallas_call(
+        functools.partial(k, n_iter=n_iter), grid=(blocks,),
+        in_specs=[blk], out_specs=blk,
+        out_shape=jax.ShapeDtypeStruct((blocks * 32, 128), jnp.float32),
+        interpret=True)(x))
+    got = visit.relayout_loop(torch.from_numpy(x), n_iter).numpy()
+    np.testing.assert_array_equal(got, ref)
+    zeros = torch.zeros((blocks * 32, 128))
+    assert torch.equal(visit.relayout_loop(zeros, n_iter), zeros + n_iter)
+
+
+TF32_BOUND = 2.0 ** -10 + 2.0 ** -19
+
+
+@pytest.mark.parametrize("what", ["dot", "visit"])
+def test_tf32_plain_within_bound_of_float64(what):
+    """precision="default" against float64: within the TF32 bound, and
+    coarser than "highest" (the operands were rounded)."""
+    if what == "dot":
+        a, b = _precision_inputs()
+        ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+        lo, hi = (visit.dot_plain(ta, tb, p).numpy()
+                  for p in ("default", "highest"))
+        a64, b64 = a.astype(np.float64), b.astype(np.float64)
+        exact = a64.T @ b64
+        scale = np.abs(a64).T @ np.abs(b64)
+    else:
+        n_tiles, n_visits = 8, 8
+        tab, feats = _inputs(n_tiles, 128, 1)
+        kw = dict(n_visits=n_visits, n_tiles=n_tiles)
+        lo = _port(tab, feats, precision="default", **kw)[0][0]
+        hi = _port(tab, feats, **kw)[0][0]
+        t64, f64 = tab.astype(np.float64), feats.astype(np.float64)
+        prods = [t64[(i * 7 % n_tiles) * 16:][:16].T @ f64
+                 for i in range(n_visits)]
+        exact = np.min([p.min(axis=0) for p in prods], axis=0)
+        scale = np.max([(np.abs(t64[(i * 7 % n_tiles) * 16:][:16]).T
+                         @ np.abs(f64)).max(axis=0)
+                        for i in range(n_visits)], axis=0)
+    err_lo, err_hi = np.abs(lo - exact), np.abs(hi - exact)
+    assert (err_lo <= TF32_BOUND * scale).all()
+    assert err_lo.max() > 10 * err_hi.max()
+
+
+def test_tf32_round_is_nearest_ties_away():
+    half_ulp = 2.0 ** -11          # half of TF32's ulp at 1
+    x = torch.tensor([1.0 + half_ulp, -(1.0 + half_ulp),
+                      1.0 + half_ulp - 2.0 ** -23, 1.5, -0.0,
+                      float("inf")], dtype=torch.float32)
+    want = torch.tensor([1.0 + 2 * half_ulp, -(1.0 + 2 * half_ulp), 1.0,
+                         1.5, -0.0, float("inf")])
+    got = visit.tf32_round(x)
+    assert torch.equal(got, want)
+    g = torch.from_numpy(np.random.default_rng(4).normal(size=1000)
+                         .astype(np.float32))
+    r = visit.tf32_round(g)
+    assert (r.view(torch.int32) & 0x1FFF == 0).all()
+    assert ((r - g).abs() <= 2.0 ** -11 * g.abs()).all()
+
+
+def test_jax_epilogue_raises_at_trace():
+    """probe_mxu.py:76-78 compares `st` (TT/4, R) with `t_b * ad`, t_b
+    the (8, R) accumulator: the shapes do not broadcast."""
+    tab, feats = _inputs(8, 128, 1)
+    with pytest.raises(TypeError, match="incompatible shapes"):
+        _jax_p1(tab, feats, 1, 4, 8, epilogue=True)
+
+
+def _mt_oracle(tab, feats, n_visits, n_tiles):
+    """numpy float32 statement of the epilogue's intent: per ray a best
+    t; each visit tests the tile's 32 triangles ([det|tdet|udet|vdet]
+    quarters of its 128 columns, each a left-to-right sum of 16
+    products) against the best as it stood before the visit, and keeps
+    the least hit t."""
+    blocks = feats.shape[0] // 16
+    out = np.empty((blocks, R), np.float32)
+    for b in range(blocks):
+        f = feats[b * 16:(b + 1) * 16]
+        best = np.full(R, np.float32(3e38), np.float32)
+        for i in range(n_visits):
+            tile = tab[((i * 7) % n_tiles) * 16:][:16]
+            cols = tile[0][:, None] * f[0][None, :]
+            for k in range(1, 16):
+                cols = cols + tile[k][:, None] * f[k][None, :]
+            det, tdet, udet, vdet = cols[0:32], cols[32:64], cols[64:96], \
+                cols[96:128]
+            sgn = np.where(det < 0, np.float32(-1), np.float32(1))
+            ad, st, su, sv = det * sgn, tdet * sgn, udet * sgn, vdet * sgn
+            with np.errstate(over="ignore", divide="ignore",
+                             invalid="ignore"):
+                hit = ((ad >= np.float32(1e-12)) & (su >= 0) & (sv >= 0)
+                       & (su + sv <= ad) & (st > 0) & (st < best * ad))
+                cand = np.where(hit, st / np.where(hit, ad, np.float32(1)),
+                                np.float32(3e38))
+            best = np.minimum(best, cand.min(axis=0))
+        out[b] = best
+    return out
+
+
+def test_mt_epilogue_matches_oracle():
+    n_tiles, n_visits, blocks = 8, 8, 2
+    tab, feats = _inputs(n_tiles, 128, blocks)
+    t, _ = _port(tab, feats, n_visits=n_visits, n_tiles=n_tiles,
+                 reduce="mt")
+    want = _mt_oracle(tab, feats, n_visits, n_tiles)
+    np.testing.assert_array_equal(t.reshape(blocks, 8, R)[:, 3], want)
+    assert (want < 3e38).mean() > 0.5
+
+
+def test_visit_refuses_what_no_kernel_runs():
+    tab, feats = (torch.from_numpy(a) for a in _inputs(8, 128, 1))
+    with pytest.raises(ValueError, match="no visit kernel"):
+        visit.visit(tab, feats, n_visits=4, n_tiles=8, reduce="first8",
+                    precision="default")
+    with pytest.raises(ValueError, match="lane"):
+        visit.visit(torch.zeros(8 * 16, 256), feats, n_visits=4, n_tiles=8,
+                    layout="lane")
+    with pytest.raises(ValueError, match="multiple"):
+        visit.visit(tab, feats[:, :100].contiguous(), n_visits=4, n_tiles=8)
+    with pytest.raises(TypeError):
+        visit.dot(tab[:16].double(), feats[:16])
+
+
+@pytest.mark.parametrize("probe", ["probe_mxu", "probe_mxu2", "probe_mxu3"])
+def test_probe_exits_nonzero_without_card(probe):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the probe would run")
+    out = subprocess.run(
+        [sys.executable, "-m", f"raytracingrenderer_tpu_torch.probes.{probe}"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "cuda.is_available" in out.stderr
+    assert "TFLOP/s" not in out.stdout

@@ -5,6 +5,7 @@ BVH (the same numpy and the same native builder; with a BVH the
 triangles are reordered and the light table remapped alike), the
 `scene_from_numpy` conversion is exact too, and `generate_rays` agrees
 within rtol 1e-6 (atol 1e-7)."""
+import inspect
 import json
 import os
 
@@ -102,8 +103,21 @@ def test_load_scene_matches_jax(scene_dir, jscene, jscene_bvh, build_bvh):
 @pytest.mark.parametrize("build_bvh", [False, True])
 def test_scene_from_numpy_is_exact(jscene, jscene_bvh, build_bvh):
     js = jscene_bvh if build_bvh else jscene
-    ts = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js))
+    ts = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js), "cpu")
     _assert_scene_equals(ts, js)
+
+
+@pytest.mark.parametrize("fn", [tload, scene_from_numpy],
+                         ids=["load_scene", "scene_from_numpy"])
+def test_scene_entry_points_default_to_the_card(fn, tmp_path):
+    """The port's scene entry points put a scene on "cuda" unless the
+    caller names another device; without a card that request raises
+    rather than falling back to the CPU."""
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        arg = str(tmp_path / "none") if fn is tload else None
+        with pytest.raises(RuntimeError, match="cuda.is_available"):
+            fn(arg)
 
 
 def test_spheres_scene_with_bvh_matches_jax(tmp_path):

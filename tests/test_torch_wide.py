@@ -86,7 +86,7 @@ def _assert_wide_equal(tb, jb):
 def test_widen_matches_jax(scenes, route):
     js, ts = scenes
     if route == "convert":
-        ts = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js))
+        ts = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js), "cpu")
     _assert_wide_equal(ts.bvh, js.bvh)
     w = ts.bvh.wsel.shape[0]
     assert ts.bvh.wcode.shape == (w, 4) and ts.bvh.waxis.shape == (w,)
@@ -245,7 +245,7 @@ def test_bvh_to_keeps_every_field(scenes):
     js, ts = scenes
     tl = jtl.attach_treelets(js.bvh)
     full = scene_from_numpy(jax.tree_util.tree_map(
-        np.asarray, js._replace(bvh=tl))).bvh
+        np.asarray, js._replace(bvh=tl)), "cpu").bvh
     for f in BVH_ARRAYS:
         assert getattr(full, f) is not None, f
         np.testing.assert_array_equal(getattr(full, f).numpy(),
