@@ -19,13 +19,20 @@ Phases (any failure exits non-zero):
      times at 1,048,576 rays;
   4. the BVH kernel (B2) against its plain torch version on the spheres
      scene (the cornell box plus 16 icospheres, 327,716 triangles),
-     closest-hit and any-hit, with the same bars: (a) 2^20 + 77 rays from
+     closest-hit and any-hit: (a) 2^20 + 77 rays from
      inside the box with 10% dead lanes (hit fraction above 0.1);
      (b) 2^20 live rays, which also time the kernel and the plain
      version; (c) the inputs of every B2 launch of one sample pass of the
      1024x1024 spheres render (coherence-sorted rays, any-hit seeds
      negated where the proxy pre-pass resolved them), kept by wrapping
-     the wrapper for that pass;
+     the wrapper for that pass, then timed as a pass (`render_pass_ms`:
+     the sum over the pass's launches, the main path's shapes); all bit
+     for bit (max |dt| = 0, every id, u, v and bit equal), any-hit over
+     both leaf forms; the bound counts a triangle test a filled slot
+     the plain walk needed (an any-hit ray's up to its first hit; the
+     count of earlier runs, 14 a leaf visit, beside it); beside the bound
+     the walk's traffic, node rows and tested slots, and its time at the
+     device-memory rate (`traffic_ms`); the host's microseconds a call;
   5. main path 1, the in-repo cornell box (36 triangles, brute force):
      1024x1024, RenderConfig(mis=True, jitter=True, max_depth=4), 8 spp,
      loaded and rendered on "cuda"; the MT kernel must have launched; a
@@ -34,7 +41,9 @@ Phases (any failure exits non-zero):
      chosen automatically): the same render; both B2 variants and B1
      (the any-hit proxy pre-pass) must have launched and no walk may
      have taken the stackless fall-back; a finite image with a sane
-     mean, written as .hdr.  Then the same render through the scan
+     mean, written as .hdr; one more sample pass under torch.profiler
+     (the device's busy time and idle share, B2's and B1's time in it).
+     Then the same render through the scan
      integrator (wavefront=False), timed beside it: its image must agree
      with the wavefront's on >= 99% of pixels (rtol 1e-3 / atol 1e-5);
   7. GPU against CPU: the cornell box and the 5,156-triangle spheres
@@ -71,8 +80,9 @@ Phases (any failure exits non-zero):
      visit.TF32_KERNEL_BOUND of the sum of the products' magnitudes),
      both timed; the dot (P1b) in both precisions against its plain
      version and float64, timed beside torch.matmul with TF32 off and on
-     (a yardstick the port never calls); the relayout loop, which must
-     equal x + n_iter exactly.
+     (a yardstick the port never calls), a call and on the device, with
+     the host's microseconds a call by stage; the relayout loop, which
+     must equal x + n_iter exactly.
 
 Each kernel's line carries its bound: the least time the card could
 take for the same work, the larger of its operations over the peak rate
@@ -112,7 +122,8 @@ NODE_OPS = 2 * SLAB_OPS + 6       # a binary node visit: two boxes, order
 WIDE_OPS = 4 * SLAB_OPS + 12      # a 4-wide node visit: four boxes, order
 LEAF9_OPS = 57          # one raw-form triangle test (bvh_kernel._leaf9)
 LEAF16_OPS = 49         # one constant-form any-hit test (bvh_kernel._leaf16)
-LEAF_SLOTS = 14         # triangles a leaf row, all tested
+LEAF_SLOTS = 14         # triangles a leaf row can hold; the kernels test
+                        # only the filled ones (`plain_visits["slots"]`)
 PAIR_EPI_OPS = 16       # B4 per (pair, column) after its contraction
 PAIR_OPS = 33 + PAIR_EPI_OPS  # with the 33 of the contraction
 MT_EPI_OPS = 15         # the visit epilogue per triangle (visit_kernel.cu)
@@ -253,11 +264,22 @@ def time_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def device_rows(prof):
+    """[(name, self device microseconds, count)] of the profile's device
+    rows: the kernels and copies themselves.  A host operator's row
+    carries its kernels' time again as its own self device time, so the
+    host rows are left out and each kernel counts once."""
+    from torch.autograd import DeviceType
+    return [(e.key, getattr(e, "self_device_time_total", 0) or 0, e.count)
+            for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU]
+
+
 def device_ms(torch, fn, iters=50):
-    """Device time per call of fn: the profiler's self device time total
-    (each kernel counted once) over `iters` calls after a warm-up, or
-    None where the profiler records no device time.  For calls whose
-    back-to-back time is set by the host's launch path."""
+    """Device time per call of fn: the self device time of the profile's
+    device rows (each kernel counted once) over `iters` calls after a
+    warm-up, or None where the profiler records no device time.  For
+    calls whose back-to-back time is set by the host's launch path."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -266,8 +288,7 @@ def device_ms(torch, fn, iters=50):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0) or 0
-                   for e in prof.key_averages())
+    total_us = sum(us for _, us, _ in device_rows(prof))
     return total_us / iters / 1e3 if total_us else None
 
 
@@ -302,7 +323,8 @@ def compare(torch, what, t_init, k, p, any_hit, min_hit_frac=None,
     """A kernel's output against its plain version's on one batch: log
     the numbers and fail past the bars (t within rtol/atol 1e-4, ids or
     bits agreeing on >= 99.9% of rays, no hit on a dead lane, one whose
-    t_init < 0; with `exact`, max |dt| = 0 and every id or bit equal).
+    t_init < 0; with `exact`, max |dt| = 0 and every id, u, v or bit
+    equal).
     For closest-hit k and p are Hits and the error is max |dt|; for
     any-hit they are the occluded bits and the error is max |k - p| over
     them (0 or 1).  Returns (max_abs_err, mismatches)."""
@@ -314,6 +336,8 @@ def compare(torch, what, t_init, k, p, any_hit, min_hit_frac=None,
         hits, mism = k.tri >= 0, int((k.tri != p.tri).sum())
         err = (k.t - p.t).abs().max().item()
         t_ok = torch.allclose(k.t, p.t, rtol=1e-4, atol=1e-4)
+        if exact:
+            t_ok = t_ok and torch.equal(k.u, p.u) and torch.equal(k.v, p.v)
     dead_hits = int(hits[t_init < 0].sum())
     frac = hits.float().mean().item()
     log(f"{what}: {n} rays, max_abs_err {err:.3e} (t allclose 1e-4: "
@@ -388,30 +412,36 @@ def capture_b2_inputs(torch, scene):
 
 
 def check_bvh_kernel(torch, scene):
-    """B2 vs plain on the card at the spheres scene, per variant: (a) a
-    random batch with dead lanes, (b) a live random batch, which also
-    times the kernel and the plain version, (c) every launch of one
-    sample pass of the render.  Returns per variant the numbers of the
-    kernels line."""
+    """B2 vs plain on the card at the spheres scene, bit for bit (max
+    |dt| = 0, every id, u, v and bit equal, no dead lane hit), per
+    variant: (a) a random batch with dead lanes, (b) a live random batch,
+    which also times the kernel and the plain version, (c) every launch
+    of one sample pass of the render, then timed as a pass (the sum over
+    its launches: the main path's shapes).  Any-hit is also timed over
+    raw leaves (`leaf16=False`; the default is the constant form).
+    Beside the bound, the walk's traffic: node rows and tested slots,
+    and the time it would take at the device-memory rate; and the host's
+    microseconds a call of the wrapper.  Returns per variant
+    the numbers of the kernels line."""
     from raytracingrenderer_tpu_torch.ops import bvh_kernel
     bvh, tris = scene.bvh, scene.triangles
     out = {v: dict(max_abs_err=0.0, mismatches=0, checked_rays=0,
                    checked_batches=0) for v in ("closest_hit", "any_hit")}
 
-    def kernel(o, d, t_init, any_hit):
+    def kernel(o, d, t_init, any_hit, leaf16=None):
         return bvh_kernel.traverse_packet(bvh, tris, o, d, t_init,
-                                          any_hit=any_hit)
+                                          any_hit=any_hit, leaf16=leaf16)
 
-    def plain(o, d, t_init, any_hit):
+    def plain(o, d, t_init, any_hit, leaf16=None):
         return bvh_kernel.traverse_plain(bvh, tris, o, d, t_init,
-                                         any_hit=any_hit)
+                                         any_hit=any_hit, leaf16=leaf16)
 
     def check(what, t_init, any_hit, k, p, min_hit_frac=None):
         variant = "any_hit" if any_hit else "closest_hit"
         if any_hit:
             k, p = k.tri >= 0, p.tri >= 0
         err, mism = compare(torch, f"bvh_kernel {variant} {what}", t_init,
-                            k, p, any_hit, min_hit_frac)
+                            k, p, any_hit, min_hit_frac, exact=True)
         r = out[variant]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["mismatches"] += mism
@@ -424,6 +454,9 @@ def check_bvh_kernel(torch, scene):
         check("random with dead lanes", t_init, any_hit,
               kernel(o, d, t_init, any_hit), plain(o, d, t_init, any_hit),
               0.1)
+    check("random with dead lanes, raw leaves", t_any, True,
+          kernel(o, d, t_any, True, False), plain(o, d, t_any, True, False),
+          0.1)
     # (b) live random rays: kernel and plain timed at the same width
     o, d, t_closest, t_any = make_rays(torch, N_TIMED, seed=5,
                                        dead_frac=0.0)
@@ -436,19 +469,57 @@ def check_bvh_kernel(torch, scene):
                   for k in before}
         check("random, live", t_init, any_hit, kernel(o, d, t_init, any_hit),
               p, 0.1)
-        ops = (visits["internal"] * NODE_OPS + visits["leaf"] * LEAF_SLOTS
-               * (LEAF16_OPS if any_hit else LEAF9_OPS))
-        nbytes = N_TIMED * RAY_BYTES + sum(
-            t.numel() * t.element_size()
-            for t in bvh_kernel.tables(bvh, tris, any_hit))
+        # the work the function needs: a node visit a node row, a triangle
+        # test a filled slot (an any-hit ray's up to its first hit)
+        leaf_ops = LEAF16_OPS if any_hit else LEAF9_OPS
+        ops = visits["internal"] * NODE_OPS + visits["slots"] * leaf_ops
+        # the count of earlier revisions, every leaf visit as 14 tests, kept
+        # beside it so that the share reads against the earlier ones
+        ops14 = (visits["internal"] * NODE_OPS
+                 + visits["leaf"] * LEAF_SLOTS * leaf_ops)
+        nodes, leaves = bvh_kernel.tables(bvh, tris, any_hit)
+        table_bytes = sum(t.numel() * t.element_size()
+                          for t in (nodes, leaves))
+        nbytes = N_TIMED * RAY_BYTES + table_bytes
+        # what the walk reads: a node row a node visit; a leaf visit the 16
+        # bytes that hold the row's count, then 36 bytes (64 in the constant
+        # form) a slot tested; and the rays
+        slot_bytes = 64 if any_hit else 36
+        traffic = (visits["internal"] * nodes.shape[1] * 4
+                   + visits["leaf"] * 16 + visits["slots"] * slot_bytes
+                   + N_TIMED * RAY_BYTES)
+        b14 = bound(ms, ops14, nbytes)
         out[variant].update(ms=ms, plain_ms=plain_ms, rays=N_TIMED,
                             plain_rays=N_TIMED, node_visits=visits,
+                            table_bytes=table_bytes, traffic_bytes=traffic,
+                            traffic_ms=traffic / PEAK_BYTES * 1e3,
+                            bound_ms_14_slots=b14["bound_ms"],
+                            bound_share_14_slots=b14["bound_share"],
                             **bound(ms, ops, nbytes))
         log(f"bvh_kernel {variant}: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms at {N_TIMED} rays ({tris.count} triangles); "
             f"visits {visits}, bound {out[variant]['bound_ms']:.4f} ms "
             f"({out[variant]['bound_by']}), share "
-            f"{out[variant]['bound_share']:.4f}")
+            f"{out[variant]['bound_share']:.4f} (counting 14 tests a leaf "
+            f"visit, as earlier runs did: {b14['bound_ms']:.4f} ms, "
+            f"{b14['bound_share']:.4f}); tables {table_bytes} B, traffic "
+            f"(node rows and tested slots) {traffic} B, "
+            f"{out[variant]['traffic_ms']:.4f} ms at the memory rate")
+    raw_ms = time_ms(torch, lambda: kernel(o, d, t_any, True, False), 10)
+    out["any_hit"]["ms_raw_leaves"] = raw_ms
+    # the host's cost of a call of the wrapper (seeds, outputs, pointers,
+    # the launch): a batch so narrow that the device never sets the pace
+    so, sd, st, _ = make_rays(torch, 1024, seed=8, dead_frac=0.0)
+    kernel(so, sd, st, False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(500):
+        kernel(so, sd, st, False)
+    host_us = (time.perf_counter_ns() - t0) / 500 / 1e3
+    torch.cuda.synchronize()
+    out["closest_hit"]["host_us_call"] = host_us
+    log(f"bvh_kernel: the host spends {host_us:.1f} us a call of "
+        f"traverse_packet (500 calls of 1024 rays)")
     # (c) what the render gives the kernel
     t0 = time.perf_counter()
     batches = capture_b2_inputs(torch, scene)
@@ -460,6 +531,29 @@ def check_bvh_kernel(torch, scene):
              "bvh_kernel variants")
     log(f"bvh_kernel: {len(batches)} launches of one sample pass checked "
         f"in {time.perf_counter() - t0:.2f} s")
+
+    def pass_ms(any_hit, leaf16=None):
+        mine = [b for b in batches if b[0] == any_hit]
+        return time_ms(torch, lambda: [kernel(o, d, t_init, any_hit, leaf16)
+                                       for _, o, d, t_init in mine], 10)
+
+    for any_hit, variant in ((False, "closest_hit"), (True, "any_hit")):
+        out[variant]["render_pass_ms"] = pass_ms(any_hit)
+        out[variant]["render_pass_widths"] = [
+            int(b[3].shape[0]) for b in batches if b[0] == any_hit]
+    for _, o, d, t_init in (b for b in batches if b[0]):
+        check("render launch, raw leaves", t_init, True,
+              kernel(o, d, t_init, True, False),
+              plain(o, d, t_init, True, False))
+    out["any_hit"]["render_pass_ms_raw_leaves"] = pass_ms(True, False)
+    log(f"bvh_kernel over the launches of one 1024x1024 sample pass: "
+        f"closest-hit {out['closest_hit']['render_pass_ms']:.3f} ms (widths "
+        f"{out['closest_hit']['render_pass_widths']}), any-hit "
+        f"{out['any_hit']['render_pass_ms']:.3f} ms (widths "
+        f"{out['any_hit']['render_pass_widths']}); any-hit over raw leaves "
+        f"{out['any_hit']['render_pass_ms_raw_leaves']:.3f} ms a pass, "
+        f"{raw_ms:.3f} ms at {N_TIMED} random rays (constant form "
+        f"{out['any_hit']['ms']:.3f} ms)")
     return out, batches
 
 
@@ -543,21 +637,27 @@ def check_wide_kernel(torch, scene, batches):
                   for k in before}
         check("random, live", t_init, any_hit, kernel(o, d, t_init, any_hit),
               p, 0.1)
-        ops = (visits["internal"] * WIDE_OPS
-               + visits["leaf"] * LEAF_SLOTS * LEAF9_OPS)
+        ops = visits["internal"] * WIDE_OPS + visits["slots"] * LEAF9_OPS
+        ops14 = (visits["internal"] * WIDE_OPS
+                 + visits["leaf"] * LEAF_SLOTS * LEAF9_OPS)
         nbytes = N_TIMED * RAY_BYTES + sum(
             t.numel() * t.element_size()
             for t in bvh_kernel.tables(bvh, tris, False, wide=True))
+        b14 = bound(ms, ops14, nbytes)
         out[variant].update(launches=counts["wide_" + variant], ms=ms,
                             plain_ms=plain_ms, b2_ms=b2_ms,
                             b2_raw_leaves_ms=b2_raw_ms, rays=N_TIMED,
-                            node_visits=visits, **bound(ms, ops, nbytes))
+                            node_visits=visits,
+                            bound_ms_14_slots=b14["bound_ms"],
+                            bound_share_14_slots=b14["bound_share"],
+                            **bound(ms, ops, nbytes))
         log(f"bvh_kernel wide {variant}: B3 {ms:.3f} ms, B2 {b2_ms:.3f} ms "
             f"(raw leaves {b2_raw_ms:.3f} ms), plain wide {plain_ms:.3f} ms "
             f"at {N_TIMED} rays ({tris.count} triangles); visits {visits}, "
             f"bound {out[variant]['bound_ms']:.4f} ms "
             f"({out[variant]['bound_by']}), share "
-            f"{out[variant]['bound_share']:.4f}")
+            f"{out[variant]['bound_share']:.4f} (counting 14 tests a leaf "
+            f"visit: {b14['bound_ms']:.4f} ms, {b14['bound_share']:.4f})")
     return out
 
 
@@ -781,6 +881,7 @@ def check_probes(torch, card):
             lib_dev_ms = device_ms(torch, lambda: torch.matmul(a.t(), b_in))
         finally:
             torch.backends.cuda.matmul.allow_tf32 = saved
+        host_us = dot_host_split(torch, a, b_in, prec)
         nbytes = (16 * tt + 16 * r + tt * r) * 4
         mac = 2 * 16 * tt * r
         bd = bound(ms, 0, nbytes, tf32_ops=mac) if prec == "default" \
@@ -791,14 +892,15 @@ def check_probes(torch, card):
             f" max |kernel - plain| {err:.3e}; against float64 median "
             f"{np.median(rel):.2e}, max {rel.max():.2e}; bound "
             f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), share "
-            f"{bd['bound_share']:.4f} [{card}]")
+            f"{bd['bound_share']:.4f}; host us a call "
+            f"{ {k: round(v, 2) for k, v in host_us.items()} } [{card}]")
         entries[f"dot/{prec}"] = dict(
             name=f"dot/{prec}", **src,
             replaces="scripts/probe_mxu.py:133 (inner k, call :139)",
             launches=counts[f"dot/{prec}"], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, library_ms=lib_ms, **bd,
             device_ms=dev_ms, library_device_ms=lib_dev_ms,
-            tf32_err_ratio=ratio, rel_err_f64_median=float(np.median(rel)),
+            host_us=host_us, tf32_err_ratio=ratio, rel_err_f64_median=float(np.median(rel)),
             rel_err_f64_max=float(rel.max()))
 
     # the relayout loop (P1c): x + n_iter exactly
@@ -828,6 +930,38 @@ def check_probes(torch, card):
         n_iter=65, ms_n_iter_1=per[1][0], plain_ms_n_iter_1=per[1][1],
         device_ms_n_iter_1=per[1][3])
     return list(entries.values())
+
+
+def dot_host_split(torch, a, b_in, prec):
+    """Host microseconds a call of `visit.dot`, whole and by stage (the
+    checks, the output's allocation, the launch: pointers, stream handle
+    and the ctypes call), beside one `torch.matmul` call's: the host
+    clock over 500 calls that are enqueued and not waited for."""
+    from raytracingrenderer_tpu_torch.ops import visit
+    from raytracingrenderer_tpu_torch.ops.launch import launch
+    dev, tt, r = a.device, a.shape[1], b_in.shape[1]
+    out = torch.empty((tt, r), dtype=torch.float32, device=dev)
+    fn = visit._library()["visit_dot"]
+
+    def per_call_us(f, n=500):
+        f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(n):
+            f()
+        dt = time.perf_counter_ns() - t0
+        torch.cuda.synchronize()
+        return dt / n / 1e3
+
+    return dict(
+        call=per_call_us(lambda: visit.dot(a, b_in, prec)),
+        checks=per_call_us(lambda: visit._check_dot(a, b_in, prec)),
+        empty=per_call_us(lambda: torch.empty((tt, r), dtype=torch.float32,
+                                              device=dev)),
+        launch=per_call_us(lambda: launch(
+            fn, dev, int(prec == "default"), a.data_ptr(),
+            b_in.data_ptr(), out.data_ptr(), tt, r)),
+        matmul=per_call_us(lambda: torch.matmul(a.t(), b_in)))
 
 
 def reset_counts():
@@ -876,6 +1010,42 @@ def render_full(torch, scene, name, card, out_dir, **cfg_over):
     write_hdr(hdr_path, img)
     log(f"wrote {hdr_path} ({os.path.getsize(hdr_path)} bytes)")
     return img, dt
+
+
+def profile_pass(torch, scene, name):
+    """One sample pass of the full-size render under torch.profiler: the
+    wall time, the device's busy time (each kernel's self time counted
+    once) and idle share, and the time and launches of the port's own
+    kernels in it."""
+    from torch.profiler import ProfilerActivity, profile
+    from raytracingrenderer_tpu_torch.config import RenderConfig
+    from raytracingrenderer_tpu_torch.render import render
+    cfg = RenderConfig(**BENCH_CFG)
+    render(scene, cfg, spp=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render(scene, cfg, spp=1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    busy_ms = sum(us for _, us, _ in rows) / 1e3
+    if not busy_ms:
+        log(f"profile {name}: the profiler recorded no device time")
+        return
+    own = {}
+    for tag, mark in (("B2 closest-hit", "bvh_traverse_kernel<false"),
+                      ("B2 any-hit", "bvh_traverse_kernel<true"),
+                      ("B1", "mt_intersect")):
+        hit = [(us, n) for key, us, n in rows if mark in key.replace(
+            "(bool)0", "false").replace("(bool)1", "true")]
+        own[tag] = (sum(us for us, _ in hit) / 1e3, sum(n for _, n in hit))
+    log(f"profile {name}, one 1024x1024 sample pass under torch.profiler: "
+        f"wall {wall_ms:.1f} ms, device busy {busy_ms:.2f} ms (idle "
+        f"{1 - busy_ms / wall_ms:.1%}); "
+        + "; ".join(f"{k} {ms:.3f} ms in {n} launches ({ms / busy_ms:.1%} "
+                    f"of device time)" for k, (ms, n) in own.items()))
 
 
 def same_image(what, a, b):
@@ -1025,6 +1195,7 @@ def main() -> None:
         fail("the spheres render never launched the proxy pre-pass")
     if intersect.stackless_calls:
         fail("the spheres render took the stackless walk")
+    profile_pass(torch, spheres, "spheres")
     # the same render through the scan integrator, timed beside it
     scan_img, scan_s = render_full(torch, spheres, "spheres-scan", card,
                                    out_dir, wavefront=False)

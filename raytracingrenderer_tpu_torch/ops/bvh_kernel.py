@@ -6,8 +6,10 @@ Counterpart of raytracingrenderer_tpu/ops/bvh_kernel.py, whose Pallas
 kernels `_kernel` (binary) and `_kernel_wide` (4-wide), both launched by
 `traverse_packet`, walk the tree once for a whole block of rays on the
 TPU.  Here both kernels are in csrc/bvh_kernel.cu, written for Hopper:
-one ray per thread, each with its own stack.  They compute what the TPU
-kernels compute, over the same tables:
+one ray per thread at a time, each with its own stack (the binary walk
+with persistent warps that take their next rays from a counter, leaves
+tested after nodes, rows read 16 bytes a load; see the source's header).
+They compute what the TPU kernels compute, over the same tables:
 
 - binary nodes (I, 16) f32, one row per internal node holding both
   children: `[llo lhi rlo rhi] lcode rcode axisbits 0`, codes as f32
@@ -37,11 +39,12 @@ cannot; for CPU tensors it runs `traverse_plain`, the plain torch
 version (a lockstep loop over the batch with per-ray stacks, the same
 child order and arithmetic), which is also the kernels' reference on
 the card.  `launches` counts kernel launches per variant;
-`plain_visits` counts the node visits of the plain walks.
+`plain_visits` counts the node visits of the plain walks and the
+triangle tests their leaf visits need (filled slots, for an any-hit ray
+up to its first hit).
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Tuple
 
 import numpy as np
@@ -50,6 +53,7 @@ import torch
 from ..core.vec import V3
 from ..geometry.intersect import BIG_T, DET_EPS, Hit
 from ..scene.types import BVH, Triangles
+from .launch import I32, PTR, bind, launch, stream_of
 
 MAX_STACK = 64          # >= tree depth
 INF = 3.0e38            # box-miss sentinel, below BIG_T
@@ -64,8 +68,10 @@ launches: Dict[str, int] = {"closest_hit": 0, "any_hit": 0,
 # node visits of the plain walks since import (or the last reset): rows of
 # internal nodes and of leaves; each walk runs in lockstep with its kernel,
 # so on the same rays these are the kernel's visits too
-plain_visits: Dict[str, int] = {"internal": 0, "leaf": 0}
+plain_visits: Dict[str, int] = {"internal": 0, "leaf": 0, "slots": 0}
 _lib = None
+# (device index, stream handle) -> the binary kernel's ray counter there
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _leaf_slots(bvh: BVH, tris: Triangles):
@@ -308,8 +314,12 @@ def tables(bvh: BVH, tris: Triangles, leaf16: bool, wide: bool = False
 
 def _init_code(bvh: BVH) -> int:
     """Root code: 0 (the first internal row), or -1 (leaf row 0) when the
-    root is a leaf."""
-    return 0 if int(bvh.right[0]) >= 0 else -1
+    root is a leaf.  Read from the device once a tree and kept in its
+    cache: reading it is a synchronisation, which a launch must not pay."""
+    code = bvh.cache.get("init_code")
+    if code is None:
+        code = bvh.cache["init_code"] = 0 if int(bvh.right[0]) >= 0 else -1
+    return code
 
 
 def max_iters(bvh: BVH) -> int:
@@ -413,6 +423,14 @@ def _leaf16(rows, ray, g, t_b, any_hit):
         j = torch.where(hit, k, j)
         hit_any = hit_any | hit
     return hit_any, j, t_o, u_o, v_o
+
+
+def _slots_needed(count, hit, j, any_hit: bool) -> int:
+    """Triangle tests the leaf visits of one step need: the slots each
+    row holds (`count`), for an any-hit ray only up to its first hit."""
+    if any_hit:
+        count = torch.where(hit, j + 1, count.long())
+    return int(count.sum())
 
 
 def _inv_dir(o: V3, d: V3):
@@ -550,10 +568,13 @@ def _walk(nodes, leaves, o: V3, d: V3, t0, init_code: int, iters: int,
                 hit, j, t_h, u_h, v_h = _leaf16(
                     rows, rr, tuple(c[idx] for c in g), t_b[idx], any_hit)
                 base = rows[:, 1, LANE16_START].int()
+                count = rows[:, 1, LANE16_START + 1]
             else:
                 rows = leaves[row]
                 hit, j, t_h, u_h, v_h = _leaf9(rows, rr, t_b[idx], any_hit)
                 base = rows[:, LANE_START].int()
+                count = rows[:, LANE_START + 1]
+            plain_visits["slots"] += _slots_needed(count, hit, j, any_hit)
             st.record(idx, hit, base, j, t_h, u_h, v_h, any_hit)
 
         # ---- internal: both children from one row, near child first -----
@@ -616,6 +637,8 @@ def _walk_wide(nodes, leaves, o: V3, d: V3, t0, init_code: int, iters: int,
                 rows, tuple(c[idx] for c in ray), t_b[idx], any_hit)
             st.record(idx, hit, rows[:, LANE_START].int(), j, t_h, u_h, v_h,
                       any_hit)
+            plain_visits["slots"] += _slots_needed(
+                rows[:, LANE_START + 1], hit, j, any_hit)
 
         tes = [inf.clone() for _ in range(4)]
         cds = [torch.zeros(n, dtype=torch.int64, device=dev)
@@ -691,19 +714,18 @@ def traverse_plain(bvh: BVH, tris: Triangles, o: V3, d: V3, t_init,
     return _finish(t, tri, u, v, t_init, n)
 
 
+# (tables, rays and seeds, outputs, n / init_code / max_iters / any_hit);
+# the binary walk adds leaf16 and the ray counter
+SIGNATURES = {
+    "bvh_traverse": [PTR] * 2 + [PTR] * 7 + [PTR] * 4 + [I32] * 5 + [PTR],
+    "bvh_traverse_wide": [PTR] * 2 + [PTR] * 7 + [PTR] * 4 + [I32] * 4}
+
+
 def _library():
+    """csrc/bvh_kernel.cu's launchers, bound once."""
     global _lib
     if _lib is None:
-        from .build import load_library
-        lib = load_library("bvh_kernel")
-        ptr = ctypes.c_void_p
-        lib.bvh_traverse.argtypes = ([ptr, ptr] + [ptr] * 7 + [ptr] * 4
-                                     + [ctypes.c_int] * 5 + [ptr])
-        lib.bvh_traverse.restype = ctypes.c_int
-        lib.bvh_traverse_wide.argtypes = ([ptr, ptr] + [ptr] * 7 + [ptr] * 4
-                                          + [ctypes.c_int] * 4 + [ptr])
-        lib.bvh_traverse_wide.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind("bvh_kernel", SIGNATURES)
     return _lib
 
 
@@ -729,6 +751,25 @@ def _check(nodes, leaves, leaf16: bool, wide: bool, arrays, n: int) -> None:
         if a.device != nodes.device:
             raise ValueError(f"{name} is on {a.device}, tables on "
                              f"{nodes.device}")
+    for name, a in (("nodes", nodes), ("leaves", leaves)):
+        if a.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (its rows are "
+                             f"read as float4)")
+
+
+def _counter(dev: torch.device) -> torch.Tensor:
+    """The binary kernel's scratch on the current stream of `dev`: one
+    int32, the next ray a persistent warp takes, which the launcher
+    zeroes on the stream before the kernel.  Kept, so that a launch
+    allocates nothing; one per stream, because launches on two streams
+    can run at the same time."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (index, stream_of(index))
+    counter = _counters.get(key)
+    if counter is None:
+        counter = _counters[key] = torch.zeros(1, dtype=torch.int32,
+                                               device=dev)
+    return counter
 
 
 def traverse_packet(bvh: BVH, tris: Triangles, o: V3, d: V3, t_init,
@@ -759,23 +800,18 @@ def traverse_packet(bvh: BVH, tris: Triangles, o: V3, d: V3, t_init,
     if n == 0:
         return Hit(t, tri, u, v)
     t0 = _seed(t_init, n)
-    lib = _library()
     ptrs = (nodes.data_ptr(), leaves.data_ptr(),
             o.x.data_ptr(), o.y.data_ptr(), o.z.data_ptr(),
             d.x.data_ptr(), d.y.data_ptr(), d.z.data_ptr(), t0.data_ptr(),
             t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
             n, _init_code(bvh), max_iters(bvh), int(any_hit))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if wide:
-            err = lib.bvh_traverse_wide(*ptrs, stream)
-        else:
-            err = lib.bvh_traverse(*ptrs, int(leaf16), stream)
     name = ("wide_" if wide else "") + ("any_hit" if any_hit
                                          else "closest_hit")
-    if err != 0:
-        raise RuntimeError(f"bvh_traverse ({name}) launch failed with CUDA "
-                           f"error {err}")
+    if wide:
+        launch(_library()["bvh_traverse_wide"], dev, *ptrs)
+    else:
+        launch(_library()["bvh_traverse"], dev, *ptrs, int(leaf16),
+               _counter(dev).data_ptr())
     launches[name] += 1
     return _finish(t, tri, u, v, t_init, n)
 

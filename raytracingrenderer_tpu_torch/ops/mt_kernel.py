@@ -19,13 +19,12 @@ counts kernel launches.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..core.vec import V3
 from ..geometry.intersect import BIG_T, Hit, _mt_test
 from ..scene.types import Triangles
+from .launch import I32, PTR, bind, launch
 
 MAX_SMEM_TRIS = 4096   # the TPU kernel's dispatch cap, kept as the contract
 # Plain version: (ray, triangle) pairs per chunk, which bounds the
@@ -80,15 +79,11 @@ def intersect_plain(tris: Triangles, o: V3, d: V3, t_init: torch.Tensor,
 
 
 def _library():
+    """csrc/mt_kernel.cu's launchers, bound once."""
     global _lib
     if _lib is None:
-        from .build import load_library
-        lib = load_library("mt_kernel")
-        ptr = ctypes.c_void_p
-        lib.mt_intersect.argtypes = ([ptr, ctypes.c_int] + [ptr] * 7
-                                     + [ptr] * 4 + [ctypes.c_int, ptr])
-        lib.mt_intersect.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind("mt_kernel",
+                    {"mt_intersect": [PTR, I32] + [PTR] * 11 + [I32]})
     return _lib
 
 
@@ -133,18 +128,12 @@ def intersect(tris: Triangles, o: V3, d: V3, t_init: torch.Tensor) -> Hit:
     v = torch.empty(n, dtype=torch.float32, device=dev)
     if n == 0:
         return Hit(t, tri, u, v)
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mt_intersect(
-            rows.data_ptr(), rows.shape[0],
-            o.x.data_ptr(), o.y.data_ptr(), o.z.data_ptr(),
-            d.x.data_ptr(), d.y.data_ptr(), d.z.data_ptr(),
-            t_init.data_ptr(), t.data_ptr(), tri.data_ptr(), u.data_ptr(),
-            v.data_ptr(), n, stream)
-    if err != 0:
-        raise RuntimeError(f"mt_intersect launch failed with CUDA error "
-                           f"{err}")
+    launch(_library()["mt_intersect"], dev,
+           rows.data_ptr(), rows.shape[0],
+           o.x.data_ptr(), o.y.data_ptr(), o.z.data_ptr(),
+           d.x.data_ptr(), d.y.data_ptr(), d.z.data_ptr(),
+           t_init.data_ptr(), t.data_ptr(), tri.data_ptr(), u.data_ptr(),
+           v.data_ptr(), n)
     launches += 1
     return Hit(t, tri, u, v)
 

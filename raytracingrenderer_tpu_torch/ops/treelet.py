@@ -44,7 +44,6 @@ kernel launches.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import numpy as np
@@ -53,6 +52,7 @@ import torch
 from ..core.vec import V3
 from ..geometry.intersect import DET_EPS, Hit, _mt_test
 from ..scene.types import BVH, Triangles
+from .launch import I32, PTR, bind, launch
 
 T_LEAF = 128        # triangles per treelet (a constants tile's width)
 M_SLOTS = 12        # per-ray candidate cap
@@ -293,15 +293,11 @@ def pair_test_plain(consts: torch.Tensor, feats_p: torch.Tensor,
 
 
 def _library():
+    """csrc/treelet_kernel.cu's launchers, bound once."""
     global _lib
     if _lib is None:
-        from .build import load_library
-        lib = load_library("treelet_kernel")
-        ptr = ctypes.c_void_p
-        lib.treelet_pair_test.argtypes = ([ptr] * 5 + [ctypes.c_int] * 2
-                                          + [ptr])
-        lib.treelet_pair_test.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind("treelet_kernel",
+                    {"treelet_pair_test": [PTR] * 5 + [I32] * 2})
     return _lib
 
 
@@ -338,15 +334,9 @@ def pair_test(consts: torch.Tensor, feats_p: torch.Tensor,
     col = torch.empty(p, dtype=torch.int32, device=dev)
     if p == 0:
         return t, col
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.treelet_pair_test(
-            consts.data_ptr(), feats_p.data_ptr(), tid_p.data_ptr(),
-            t.data_ptr(), col.data_ptr(), p, consts.shape[0] // 16, stream)
-    if err != 0:
-        raise RuntimeError(f"treelet_pair_test launch failed with CUDA error "
-                           f"{err}")
+    launch(_library()["treelet_pair_test"], dev,
+           consts.data_ptr(), feats_p.data_ptr(), tid_p.data_ptr(),
+           t.data_ptr(), col.data_ptr(), p, consts.shape[0] // 16)
     launches += 1
     return t, col
 

@@ -57,10 +57,11 @@ line of chip_smoke.py.  Nothing is built at import.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, List, Tuple
 
 import torch
+
+from .launch import I32, PTR, bind, launch
 
 K = 16                  # feature rows: the contraction depth
 ROWS = 8                # output rows per block, as the probes write them
@@ -288,28 +289,14 @@ def relayout_loop_plain(x: torch.Tensor, n_iter: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _library():
+    """csrc/visit_kernel.cu's launchers, bound once."""
     global _lib
     if _lib is None:
-        from .build import load_library
-        lib = load_library("visit_kernel")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.visit_run.argtypes = [i32] + [ptr] * 4 + [i32] * 5 + [ptr]
-        lib.visit_dot.argtypes = [i32] + [ptr] * 3 + [i32] * 2 + [ptr]
-        lib.visit_relayout.argtypes = [ptr] * 2 + [i32] * 2 + [ptr]
-        for fn in (lib.visit_run, lib.visit_dot, lib.visit_relayout):
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind("visit_kernel", {
+            "visit_run": [I32] + [PTR] * 4 + [I32] * 5,
+            "visit_dot": [I32] + [PTR] * 3 + [I32] * 2,
+            "visit_relayout": [PTR] * 2 + [I32] * 2})
     return _lib
-
-
-def _call(fn_name: str, dev: torch.device, *args) -> None:
-    """Launch csrc/visit_kernel.cu's `fn_name` on the current stream of
-    `dev`; raise on the CUDA error it returns."""
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(_library(), fn_name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed with CUDA error {err}")
 
 
 def _cuda(dev: torch.device, what: str) -> None:
@@ -348,9 +335,9 @@ def visit(tab: torch.Tensor, feats: torch.Tensor, *, n_visits: int,
     rows = ROWS if reduce == "first8" else 1
     t = torch.empty((blocks, rows, r), dtype=torch.float32, device=dev)
     o = torch.empty((blocks, 1, r), dtype=torch.float32, device=dev)
-    _call("visit_run", dev, VARIANTS.index(variant), tab.data_ptr(),
-          feats.data_ptr(), t.data_ptr(), o.data_ptr(), blocks, r, tt,
-          n_tiles, n_visits)
+    launch(_library()["visit_run"], dev,
+           VARIANTS.index(variant), tab.data_ptr(), feats.data_ptr(),
+           t.data_ptr(), o.data_ptr(), blocks, r, tt, n_tiles, n_visits)
     launches["visit/" + variant_name(*variant)] += 1
     shape = (blocks, ROWS, r)
     return t.expand(shape), o.expand(shape)
@@ -368,8 +355,9 @@ def dot(a: torch.Tensor, b: torch.Tensor,
     _cuda(dev, "dot")
     out = torch.empty((a.shape[1], b.shape[1]), dtype=torch.float32,
                       device=dev)
-    _call("visit_dot", dev, int(precision == "default"), a.data_ptr(),
-          b.data_ptr(), out.data_ptr(), a.shape[1], b.shape[1])
+    launch(_library()["visit_dot"], dev,
+           int(precision == "default"), a.data_ptr(), b.data_ptr(),
+           out.data_ptr(), a.shape[1], b.shape[1])
     launches["dot/" + precision] += 1
     return out
 
@@ -384,7 +372,7 @@ def relayout_loop(x: torch.Tensor, n_iter: int) -> torch.Tensor:
         return relayout_loop_plain(x, n_iter)
     _cuda(dev, "relayout")
     out = torch.empty_like(x)
-    _call("visit_relayout", dev, x.data_ptr(), out.data_ptr(), x.numel(),
-          n_iter)
+    launch(_library()["visit_relayout"], dev,
+           x.data_ptr(), out.data_ptr(), x.numel(), n_iter)
     launches["relayout"] += 1
     return out

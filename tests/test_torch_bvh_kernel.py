@@ -15,6 +15,11 @@
   the first occluder it meets, and the port orders children per ray,
   the TPU kernel per block;
 - dead lanes never hit and misses keep t_init;
+- every leaf row carries a count between 1 and 14, the slots at and above
+  it are zeros, and `_leaf9` / `_leaf16` never hit in them (what the
+  CUDA kernel's count-bounded leaf loop rests on);
+- `plain_visits` counts, beside the visits, the triangle tests the leaf
+  visits need: filled slots, for an any-hit ray up to its first hit;
 - `_traverse_stackless` against JAX's (closest-hit ids and any-hit
   bits on >= 99.9% of rays; an any-hit walk keeps the nearest hit of
   the first occluding leaf, and triangles sharing an edge there tie up
@@ -231,3 +236,98 @@ def test_sorted_call_round_trip(scenes, rays):
                             (torch.from_numpy(t_closest),),
                             lambda so, sd, st: st > 0)
     np.testing.assert_array_equal(occ.numpy(), ~dead)
+
+
+@pytest.mark.parametrize("any_hit", [False, True],
+                         ids=["closest-hit", "any-hit"])
+@pytest.mark.parametrize("leaf16", [False, True], ids=["raw", "const"])
+def test_empty_leaf_slots_never_hit(scenes, rays, leaf16, any_hit):
+    """What a leaf loop that stops at the row's count rests on: the count
+    (raw lane 127, constant-form lane 121 of the odd row) is between 1
+    and 14, every slot at or above it is all zeros, and the leaf tests
+    report no hit in such a slot."""
+    _, ts = scenes
+    leaves = (tbk.pack_leaves16 if leaf16 else tbk.pack_leaves)(
+        ts.bvh, ts.triangles)
+    if leaf16:
+        pairs = leaves.view(-1, 2, 128)
+        count = pairs[:, 1, tbk.LANE16_START + 1]
+        slots = torch.cat([pairs[:, 0].reshape(-1, 8, 16),
+                           pairs[:, 1, :96].reshape(-1, 6, 16)], dim=1)
+        assert (pairs[:, 1, 96:tbk.LANE16_START] == 0).all()
+        assert (pairs[:, 1, tbk.LANE16_START + 2:] == 0).all()
+    else:
+        count = leaves[:, tbk.LANE_START + 1]
+        slots = leaves[:, :tbk.SLOTS * 9].reshape(-1, tbk.SLOTS, 9)
+    n_leaf = slots.shape[0]
+    assert n_leaf == (ts.bvh.n_nodes + 1) // 2
+    assert (count == count.round()).all()
+    assert 1 <= count.min() and count.max() <= tbk.SLOTS
+    assert count.min() < tbk.SLOTS          # the scene has partial leaves
+    empty = torch.arange(tbk.SLOTS)[None, :] >= count[:, None]
+    assert (slots[empty] == 0).all()
+    assert (slots[~empty] != 0).any(dim=-1).all()
+
+    # rays aimed at a filled slot of a random leaf row (so that many hit),
+    # then the same rays against that row with every slot zeroed
+    o, _, _, _, t_any = rays
+    g = np.random.default_rng(61)
+    pick = np.tile(np.arange(N), 8)
+    row = torch.from_numpy(g.integers(0, n_leaf, 8 * N))
+    aim = (torch.from_numpy(g.random(8 * N)) * count[row]).long()
+    tri = tbk.pack_leaves(ts.bvh, ts.triangles)[
+        :, :tbk.SLOTS * 9].reshape(-1, tbk.SLOTS, 9)[row, aim]
+    target = tri[:, 0:3] + 0.3 * tri[:, 3:6] + 0.3 * tri[:, 6:9]
+    d = target.numpy() - o[pick]
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    ov, dv = _tv(o[pick]), _tv(d)
+    ray = (ov.x, ov.y, ov.z, dv.x, dv.y, dv.z)
+    gx = (ov.y * dv.z - ov.z * dv.y, ov.z * dv.x - ov.x * dv.z,
+          ov.x * dv.y - ov.y * dv.x)
+    t_b = (torch.from_numpy(np.abs(t_any[pick]) + 1.0) if any_hit
+           else torch.full((8 * N,), tbk.SEED_CLAMP))
+
+    def test(rows):
+        if leaf16:
+            return tbk._leaf16(rows, ray, gx, t_b, any_hit)[:2]
+        return tbk._leaf9(rows, ray, t_b, any_hit)[:2]
+
+    rows = pairs[row] if leaf16 else leaves[row]
+    hit, j = test(rows)
+    assert 0.5 < hit.float().mean().item()
+    assert (j[hit] < count[row][hit]).all()
+    hit, _ = test(torch.zeros_like(rows))
+    assert not hit.any()
+
+
+@pytest.mark.parametrize("any_hit,leaf16,wide", [
+    (False, False, False), (True, True, False), (True, False, False),
+    (False, False, True)],
+    ids=["closest-raw", "any-const", "any-raw", "wide-closest"])
+def test_plain_visits_count_needed_slots(scenes, rays, any_hit, leaf16,
+                                         wide):
+    """`plain_visits["slots"]`, the triangle tests a walk needs: a visited
+    leaf's filled slots, for an any-hit ray only up to its first hit.
+    Between one and 14 a leaf visit, below 14 on a scene with partial
+    leaves; nothing for dead rays."""
+    count = torch.tensor([3.0, 5.0, 14.0])
+    hit = torch.tensor([True, False, True])
+    j = torch.tensor([0, 2, 13])
+    assert tbk._slots_needed(count, hit, j, any_hit=False) == 22
+    assert tbk._slots_needed(count, hit, j, any_hit=True) == 1 + 5 + 14
+
+    _, ts = scenes
+    o, d, dead, t_closest, t_any = rays
+    t0 = torch.from_numpy(t_any if any_hit else t_closest)
+
+    def visits(ov, dv, t_init):
+        before = dict(tbk.plain_visits)
+        tbk.traverse_plain(ts.bvh, ts.triangles, ov, dv, t_init,
+                           any_hit=any_hit, leaf16=leaf16, wide=wide)
+        return {k: tbk.plain_visits[k] - before[k] for k in before}
+
+    v = visits(_tv(o), _tv(d), t0)
+    assert v["internal"] >= (~dead).sum() and v["leaf"] > 0
+    assert v["leaf"] <= v["slots"] < tbk.SLOTS * v["leaf"]
+    assert visits(_tv(o[dead]), _tv(d[dead]), t0[dead]) == {
+        "internal": 0, "leaf": 0, "slots": 0}

@@ -7,11 +7,14 @@ conftest switched off:
 
 The MT kernel is held against its plain torch version at the shapes the
 render gives it (36, 128 and 4096 triangles; a ray count that is not a
-multiple of the 256-thread block; 10% dead lanes), and the BVH kernel
-against its plain version on the 5,156-triangle spheres scene
-(closest-hit and any-hit, 100,003 rays, 10% dead lanes): t within
-rtol/atol 1e-4, triangle ids and any-hit bits agreeing on >= 99.9% of
-rays, no dead lane hit.  The 4-wide BVH kernel (same rays) and the
+multiple of the 256-thread block; 10% dead lanes): t within rtol/atol
+1e-4, triangle ids and any-hit bits agreeing on >= 99.9% of rays, no
+dead lane hit.  The binary BVH kernel is held to its plain version bit
+for bit on the 5,156-triangle spheres scene (closest-hit, any-hit over
+constant-form leaves and over raw ones) on the batches its schedule
+could break: 100,003 rays with 10% dead lanes, 1 ray, 33 rays, 2^16 + 77
+rays with half the lanes dead, and rays that all miss the scene's box.
+The 4-wide BVH kernel (same rays) and the
 treelet pair-test kernel (the pairs of the treelet route on the same
 rays) are held to their plain versions bit for bit.  Renders on "cuda"
 (the cornell box, and the spheres scene through the BVH and the
@@ -21,7 +24,9 @@ within rtol 1e-3 / atol 1e-5, means within 0.5%.  Every kernel of the
 matrix-unit probes (ops/visit.py) is held to its plain version: the
 fp32 visits, the fp32 dot and the relayout bit for bit, the TF32 visit
 and dot within visit.TF32_KERNEL_BOUND of the sum of the products'
-magnitudes; a refused launch raises and leaves no error behind."""
+magnitudes; a refused launch raises and leaves no error behind; a
+launch with the tensors' device already current, or on a side stream,
+stays correct; binary walks back to back share one ray counter."""
 import numpy as np
 import pytest
 import torch
@@ -32,6 +37,7 @@ from raytracingrenderer_tpu_torch.geometry import intersect
 from raytracingrenderer_tpu_torch.imaging import film as film_mod
 from raytracingrenderer_tpu_torch.ops import (bvh_kernel, mt_kernel, treelet,
                                              visit)
+from raytracingrenderer_tpu_torch.ops.launch import launch
 from raytracingrenderer_tpu_torch.render import render
 from raytracingrenderer_tpu_torch.scene.loader import load_scene
 from torch_scenes import write_cornell, write_spheres
@@ -134,27 +140,55 @@ def test_render_cuda_matches_cpu(cuda, scene_dir):
     _agree(a, _render(scene_dir, "cpu"))
 
 
-@pytest.mark.parametrize("any_hit", [False, True])
-def test_bvh_kernel_matches_plain(cuda, spheres_dir, any_hit):
+def _b2_batch(dev, case):
+    """(o, d, t_closest, t_any, dead) of one batch of the binary walk's
+    cases."""
+    o, d, t0, max_t, dead = _rays(dev, 17)
+    if case == "miss":
+        # from outside the scene's box, pointing away from it
+        g = np.random.default_rng(43)
+        o = _v3((g.uniform(-1, 1, (N_RAYS, 3)) + [50, 50, 50]).astype(
+            np.float32), dev)
+        d = g.uniform(0.1, 1, (N_RAYS, 3)).astype(np.float32)
+        d = _v3(d / np.linalg.norm(d, axis=1, keepdims=True), dev)
+        return o, d, t0, max_t, dead
+    n = {"full": N_RAYS, "one": 1, "33": 33, "half_dead": (1 << 16) + 77}[
+        case]
+    o, d = (V3(*(c[:n].contiguous() for c in v)) for v in (o, d))
+    t0, max_t, dead = t0[:n].clone(), max_t[:n].clone(), dead[:n].copy()
+    if case == "half_dead":
+        dead = np.random.default_rng(47).random(n) < 0.5
+        kill = torch.from_numpy(dead).to(dev)
+        t0[kill] = -1.0
+        max_t[kill] = -1.0
+    return o, d, t0, max_t, dead
+
+
+@pytest.mark.parametrize("case", ["full", "one", "33", "half_dead", "miss"])
+@pytest.mark.parametrize("any_hit,leaf16", [(False, None), (True, None),
+                                            (True, False)],
+                         ids=["False", "True", "True-raw-leaves"])
+def test_bvh_kernel_matches_plain(cuda, spheres_dir, any_hit, leaf16, case):
     scene = load_scene(spheres_dir, cuda)
-    o, d, t0, max_t, dead = _rays(cuda, 17)
+    o, d, t0, max_t, dead = _b2_batch(cuda, case)
     t_init = max_t if any_hit else t0
     before = dict(bvh_kernel.launches)
     hk = bvh_kernel.traverse_packet(scene.bvh, scene.triangles, o, d,
-                                    t_init, any_hit=any_hit)
+                                    t_init, any_hit=any_hit, leaf16=leaf16)
     torch.cuda.synchronize()
     key = "any_hit" if any_hit else "closest_hit"
     assert bvh_kernel.launches[key] == before[key] + 1
     hp = bvh_kernel.traverse_plain(scene.bvh, scene.triangles, o, d,
-                                   t_init, any_hit=any_hit)
-    tk, tp = hk.tri.cpu().numpy(), hp.tri.cpu().numpy()
-    assert ((tk >= 0) == (tp >= 0)).mean() >= 0.999
+                                   t_init, any_hit=any_hit, leaf16=leaf16)
+    for k, p in zip(hk, hp):
+        assert torch.equal(k, p)
+    tk = hk.tri.cpu().numpy()
     assert not (tk[dead] >= 0).any()
-    assert 0.1 < (tk >= 0).mean()
-    if not any_hit:
-        assert (tk == tp).mean() >= 0.999
-        np.testing.assert_allclose(hk.t.cpu().numpy(), hp.t.cpu().numpy(),
-                                   rtol=1e-4, atol=1e-4)
+    if case == "full":
+        assert 0.1 < (tk >= 0).mean()
+    if case == "miss":
+        assert not (tk >= 0).any()
+        assert torch.equal(hk.t, t_init)
 
 
 def test_spheres_render_cuda_matches_cpu(cuda, spheres_dir):
@@ -294,12 +328,68 @@ def test_refused_launch_raises(cuda):
     for variant_id in (visit.VARIANTS.index(
             ("batched8", "min", "ray", "highest")), 99):
         with pytest.raises(RuntimeError, match="CUDA error"):
-            visit._call("visit_run", cuda, variant_id, tab.data_ptr(),
-                        feats.data_ptr(), t.data_ptr(), o.data_ptr(), 1, 4096,
-                        512, 8, 8)
+            launch(visit._library()["visit_run"], cuda,
+                   variant_id, tab.data_ptr(), feats.data_ptr(), t.data_ptr(),
+                   o.data_ptr(), 1, 4096, 512, 8, 8)
     with pytest.raises(ValueError, match="shared memory"):
         visit.visit(tab, feats, n_visits=8, n_tiles=8, tile="batched8")
     tk, _ = visit.visit(tab, feats, n_visits=8, n_tiles=8)
     torch.cuda.synchronize()
     assert torch.equal(tk, visit.visit_plain(tab, feats, n_visits=8,
                                              n_tiles=8)[0])
+
+
+def test_launch_helper_current_device(cuda, spheres_dir):
+    """The launch helper with the tensors' device already current (no
+    device context is entered) and on a side stream (the handle is taken
+    anew each call): the results stay bit for bit the plain versions',
+    each call counts one launch."""
+    g = np.random.default_rng(53)
+    a = torch.from_numpy(g.normal(size=(16, 128)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(g.normal(size=(16, 4096)).astype(np.float32)).to(
+        cuda)
+    scene = load_scene(spheres_dir, cuda)
+    o, d, t0, _, _ = _b2_batch(cuda, "full")
+    want_dot = visit.dot_plain(a, b, "highest")
+    want_hit = bvh_kernel.traverse_plain(scene.bvh, scene.triangles, o, d,
+                                         t0)
+    side = torch.cuda.Stream(a.device)
+    side.wait_stream(torch.cuda.current_stream(a.device))
+    for stream in (torch.cuda.current_stream(a.device), side):
+        before = (visit.launches["dot/highest"],
+                  bvh_kernel.launches["closest_hit"])
+        with torch.cuda.device(a.device), torch.cuda.stream(stream):
+            assert torch.cuda.current_device() == a.device.index
+            k = visit.dot(a, b, "highest")
+            hk = bvh_kernel.traverse_packet(scene.bvh, scene.triangles, o,
+                                            d, t0)
+        stream.synchronize()
+        assert (visit.launches["dot/highest"],
+                bvh_kernel.launches["closest_hit"]) == (before[0] + 1,
+                                                        before[1] + 1)
+        assert torch.equal(k, want_dot)
+        for x, y in zip(hk, want_hit):
+            assert torch.equal(x, y)
+
+
+def test_bvh_launches_back_to_back(cuda, spheres_dir):
+    """The binary walk's ray counter is kept per stream and zeroed by the
+    launcher, not allocated a launch.  Launches back to back on one
+    stream, of different widths and variants, each equal the plain
+    version bit for bit, and one counter serves them all."""
+    scene = load_scene(spheres_dir, cuda)
+    runs = []
+    for case, any_hit in (("full", False), ("33", True), ("half_dead", False),
+                          ("one", True), ("full", True)):
+        o, d, t0, max_t, _ = _b2_batch(cuda, case)
+        runs.append((o, d, max_t if any_hit else t0, any_hit))
+    bvh_kernel._counters.clear()
+    got = [bvh_kernel.traverse_packet(scene.bvh, scene.triangles, o, d, t,
+                                      any_hit=a) for o, d, t, a in runs]
+    torch.cuda.synchronize()
+    assert len(bvh_kernel._counters) == 1
+    for (o, d, t, a), hk in zip(runs, got):
+        hp = bvh_kernel.traverse_plain(scene.bvh, scene.triangles, o, d, t,
+                                       any_hit=a)
+        for x, y in zip(hk, hp):
+            assert torch.equal(x, y)
