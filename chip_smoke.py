@@ -78,11 +78,18 @@ Phases (any failure exits non-zero):
      then each visit run of the probes at its full size against its
      plain version (fp32: bit for bit; TF32: within
      visit.TF32_KERNEL_BOUND of the sum of the products' magnitudes),
-     both timed; the dot (P1b) in both precisions against its plain
-     version and float64, timed beside torch.matmul with TF32 off and on
-     (a yardstick the port never calls), a call and on the device, with
-     the host's microseconds a call by stage; the relayout loop, which
-     must equal x + n_iter exactly.
+     both timed, a fp32 run's time also beside `issue_ms`, the floor of
+     a kernel built without FMA (its operations as FP32 instructions at
+     half the peak rate); the fp32 min visit, in its three tile modes,
+     bit for bit at 200 edge shapes (TT 32 to 512, 0 to 64 visits, 1 and
+     64 tiles, 128 and 4096 rays); the dot (P1b) in both precisions
+     against its plain version and float64, timed beside torch.matmul
+     with TF32 off and on (a yardstick the port never calls), a call and
+     on the device, with the host's microseconds a call by stage; the
+     relayout loop, which must equal x + n_iter exactly; for the dot and
+     the relayout also `floor_ms`, the device time of an empty kernel of
+     the same grid and block: what the card takes for any launch of that
+     size.
 
 Each kernel's line carries its bound: the least time the card could
 take for the same work, the larger of its operations over the peak rate
@@ -262,34 +269,6 @@ def time_ms(torch, fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def device_rows(prof):
-    """[(name, self device microseconds, count)] of the profile's device
-    rows: the kernels and copies themselves.  A host operator's row
-    carries its kernels' time again as its own self device time, so the
-    host rows are left out and each kernel counts once."""
-    from torch.autograd import DeviceType
-    return [(e.key, getattr(e, "self_device_time_total", 0) or 0, e.count)
-            for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU]
-
-
-def device_ms(torch, fn, iters=50):
-    """Device time per call of fn: the self device time of the profile's
-    device rows (each kernel counted once) over `iters` calls after a
-    warm-up, or None where the profiler records no device time.  For
-    calls whose back-to-back time is set by the host's launch path."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(us for _, us, _ in device_rows(prof))
-    return total_us / iters / 1e3 if total_us else None
 
 
 def time_once(torch, fn):
@@ -731,27 +710,58 @@ def check_pair_kernel(torch, scene):
 
 
 def visit_bound(cfg, ms):
-    """Bound keys of one visit run from its shapes: per ray and visit
-    (batched: per step) the contraction's 2 * 16 multiply-adds a column
-    and one min a column (fp32 on the CUDA cores; in TF32 the
-    multiply-adds go to the tensor cores), the epilogue's ops a triangle;
-    bytes: the distinct tiles visited, the features, the rows written."""
-    from raytracingrenderer_tpu_torch.ops import visit
-    from raytracingrenderer_tpu_torch.probes import R
-    tt, blocks = cfg["tt"], cfg["blocks"]
-    steps = visit.tile_steps(cfg["n_visits"], cfg["n_tiles"], cfg["tile"])
-    width = len(steps[0]) * tt if steps else 0
-    cols = visit.ROWS if cfg["reduce"] == "first8" else width
-    ray_steps = blocks * R * len(steps)
-    mac = ray_steps * 2 * 16 * cols
-    other = ray_steps * (cols if cfg["reduce"] != "mt"
-                         else width // 4 * MT_EPI_OPS)
-    rows = visit.ROWS if cfg["reduce"] == "first8" else 1
-    nbytes = (len({j for st in steps for j in st}) * 16 * tt
-              + blocks * 16 * R + blocks * R * (rows + 1)) * 4
+    """Bound keys of one visit run from its shapes (`probes.visit_work`:
+    the contraction's 2 * 16 operations a column, one min a column or the
+    epilogue's operations a triangle; the distinct tiles visited, the
+    features, the rows written).  In TF32 the multiply-adds go to the
+    tensor cores.  A fp32 run also gets `issue_ms`: built without FMA a
+    multiply-add is two instructions, so its operations are as many FP32
+    instructions, and the card issues PEAK_FP32 / 2 of them a second;
+    `issue_share` is that floor over the measured time."""
+    from raytracingrenderer_tpu_torch.probes import visit_work
+    w = visit_work(cfg)
     if cfg["precision"] == "default":
-        return bound(ms, other, nbytes, tf32_ops=mac)
-    return bound(ms, mac + other, nbytes)
+        return bound(ms, w["other"], w["bytes"], tf32_ops=w["mac"])
+    issue_ms = (w["mac"] + w["other"]) / (PEAK_FP32 / 2) * 1e3
+    return dict(bound(ms, w["mac"] + w["other"], w["bytes"]),
+                issue_ms=issue_ms, issue_share=issue_ms / ms if ms else None)
+
+
+def check_visit_edges(torch):
+    """The fp32 min visit against its plain version, bit for bit, at the
+    shapes its partition could break: TT 32, 96, 128 and 512 (a warp's
+    slice of 4, 12, 16 and 64 columns), 0, 1, 2, 7 and 64 visits (a ring
+    of three that is never, partly or often refilled), 1 and 64 tiles,
+    128 and 4096 rays a block, in the three tile modes.  -> the number of
+    shapes checked, by tile mode."""
+    import numpy as np
+    from raytracingrenderer_tpu_torch.ops import visit
+    n = {}
+    for tile in ("dynamic", "static", "batched8"):
+        n[tile] = 0
+        for tt in (32, 96, 128, 512):
+            for n_tiles in (1, 64):
+                if tile == "batched8" and n_tiles < 8:
+                    continue
+                g = np.random.default_rng(tt + n_tiles)
+                tab = torch.from_numpy(g.normal(size=(n_tiles * 16, tt))
+                                       .astype(np.float32)).cuda()
+                for r in (128, 4096):
+                    feats = torch.from_numpy(g.normal(size=(2 * 16, r))
+                                             .astype(np.float32)).cuda()
+                    for n_visits in (0, 1, 2, 7, 64):
+                        kw = dict(n_visits=n_visits, n_tiles=n_tiles,
+                                  tile=tile)
+                        tk, ok = visit.visit(tab, feats, **kw)
+                        tp, op = visit.visit_plain(tab, feats, **kw)
+                        if not (torch.equal(tk, tp) and torch.equal(ok, op)):
+                            fail(f"visit/{tile}-min-ray-highest TT={tt} "
+                                 f"V={n_visits} tiles={n_tiles} R={r}: "
+                                 f"differs from the plain version (bit for "
+                                 f"bit expected)")
+                        n[tile] += 1
+    torch.cuda.synchronize()
+    return n
 
 
 def check_probes(torch, card):
@@ -761,9 +771,10 @@ def check_probes(torch, card):
     kernels line's entries."""
     import numpy as np
     from raytracingrenderer_tpu_torch.ops import visit
-    from raytracingrenderer_tpu_torch.probes import (flops, inputs,
-                                                     probe_mxu, probe_mxu2,
-                                                     probe_mxu3, visit_args)
+    from raytracingrenderer_tpu_torch.probes import (device_ms, flops,
+                                                     inputs, probe_mxu,
+                                                     probe_mxu2, probe_mxu3,
+                                                     visit_args)
     src = dict(route="cuda",
                source="raytracingrenderer_tpu_torch/csrc/visit_kernel.cu")
     mods = (probe_mxu, probe_mxu2, probe_mxu3)
@@ -838,7 +849,10 @@ def check_probes(torch, card):
                    f" ({ratio:.3e} of sum |a b|, bound "
                    f"{visit.TF32_KERNEL_BOUND:.3e})")
                 + f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}), share "
-                f"{b['bound_share']:.4f} [{card}]")
+                f"{b['bound_share']:.4f}"
+                + (f"; issue floor without FMA {b['issue_ms']:.4f} ms, share "
+                   f"{b['issue_share']:.4f}" if "issue_ms" in b else "")
+                + f" [{card}]")
             size = dict(tt=cfg["tt"], n_visits=cfg["n_visits"],
                         n_tiles=cfg["n_tiles"], blocks=cfg["blocks"], ms=ms,
                         plain_ms=plain_ms, max_abs_err=err,
@@ -853,6 +867,14 @@ def check_probes(torch, card):
             e["max_abs_err"] = max(e["max_abs_err"], err)
             e["sizes"].append(size)
             del tab, feats, tk, ok, tp, op
+
+    t0 = time.perf_counter()
+    edges = check_visit_edges(torch)
+    log(f"visit/*-min-ray-highest: edge shapes {edges} (TT 32..512, 0..64 "
+        f"visits, 1 and 64 tiles, 128 and 4096 rays) equal the plain version "
+        f"bit for bit, {time.perf_counter() - t0:.2f} s")
+    for tile, n in edges.items():
+        entries[f"visit/{tile}-min-ray-highest"]["edge_shapes_checked"] = n
 
     # the dot (P1b) in both precisions; torch.matmul as the yardstick
     a, b_in = probe_mxu.precision_inputs("cuda")
@@ -874,11 +896,12 @@ def check_probes(torch, card):
                 fail(f"dot/default: |d| reaches {ratio:.3e} of sum |a b|")
         rel = np.abs(k.cpu().numpy() - ref) / np.maximum(np.abs(ref), 1e-3)
         ms = time_ms(torch, lambda: visit.dot(a, b_in, prec), 200)
-        dev_ms = device_ms(torch, lambda: visit.dot(a, b_in, prec))
+        dev_ms = device_ms(lambda: visit.dot(a, b_in, prec))
+        floor_ms = device_ms(lambda: visit.floor_launch(f"dot/{prec}", tt, r))
         try:
             torch.backends.cuda.matmul.allow_tf32 = prec == "default"
             lib_ms = time_ms(torch, lambda: torch.matmul(a.t(), b_in), 200)
-            lib_dev_ms = device_ms(torch, lambda: torch.matmul(a.t(), b_in))
+            lib_dev_ms = device_ms(lambda: torch.matmul(a.t(), b_in))
         finally:
             torch.backends.cuda.matmul.allow_tf32 = saved
         host_us = dot_host_split(torch, a, b_in, prec)
@@ -886,7 +909,8 @@ def check_probes(torch, card):
         mac = 2 * 16 * tt * r
         bd = bound(ms, 0, nbytes, tf32_ops=mac) if prec == "default" \
             else bound(ms, mac, nbytes)
-        log(f"dot/{prec}: kernel {ms:.4f} ms (device {dev_ms} ms), plain "
+        log(f"dot/{prec}: kernel {ms:.4f} ms (device {dev_ms} ms; an empty "
+            f"launch of its grid, the card's floor, {floor_ms} ms), plain "
             f"{plain_ms:.4f} ms, torch.matmul (allow_tf32="
             f"{prec == 'default'}) {lib_ms:.4f} ms (device {lib_dev_ms} ms);"
             f" max |kernel - plain| {err:.3e}; against float64 median "
@@ -900,12 +924,14 @@ def check_probes(torch, card):
             launches=counts[f"dot/{prec}"], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, library_ms=lib_ms, **bd,
             device_ms=dev_ms, library_device_ms=lib_dev_ms,
-            host_us=host_us, tf32_err_ratio=ratio, rel_err_f64_median=float(np.median(rel)),
+            floor_ms=floor_ms, host_us=host_us, tf32_err_ratio=ratio,
+            rel_err_f64_median=float(np.median(rel)),
             rel_err_f64_max=float(rel.max()))
 
     # the relayout loop (P1c): x + n_iter exactly
     x = torch.zeros((probe_mxu.RELAYOUT_BLOCKS * 32, 128), device="cuda")
     per = {}
+    floor_ms = device_ms(lambda: visit.floor_launch("relayout", x.numel()))
     for n_iter in (1, 65):
         k = visit.relayout_loop(x, n_iter)
         p, plain_ms = time_once(torch,
@@ -913,12 +939,12 @@ def check_probes(torch, card):
         if not (torch.equal(k, x + n_iter) and torch.equal(k, p)):
             fail(f"relayout n_iter={n_iter}: not x + n_iter")
         ms = time_ms(torch, lambda: visit.relayout_loop(x, n_iter), 200)
-        dev_ms = device_ms(torch, lambda: visit.relayout_loop(x, n_iter))
+        dev_ms = device_ms(lambda: visit.relayout_loop(x, n_iter))
         per[n_iter] = (ms, plain_ms,
                        bound(ms, n_iter * x.numel(), 2 * x.numel() * 4),
                        dev_ms)
         log(f"relayout n_iter={n_iter}: kernel {ms:.4f} ms (device "
-            f"{dev_ms} ms), plain "
+            f"{dev_ms} ms; an empty launch of its grid {floor_ms} ms), plain "
             f"{plain_ms:.4f} ms, exact; bound {per[n_iter][2]['bound_ms']:.5f}"
             f" ms ({per[n_iter][2]['bound_by']}) [{card}]")
     ms, plain_ms, bd, dev_ms = per[65]
@@ -927,7 +953,8 @@ def check_probes(torch, card):
         replaces="scripts/probe_mxu.py:153 (inner k, call :168)",
         launches=counts["relayout"], max_abs_err=0.0, ms=ms,
         plain_ms=plain_ms, library_ms=None, **bd, device_ms=dev_ms,
-        n_iter=65, ms_n_iter_1=per[1][0], plain_ms_n_iter_1=per[1][1],
+        floor_ms=floor_ms, n_iter=65, ms_n_iter_1=per[1][0],
+        plain_ms_n_iter_1=per[1][1],
         device_ms_n_iter_1=per[1][3])
     return list(entries.values())
 
@@ -1019,6 +1046,7 @@ def profile_pass(torch, scene, name):
     kernels in it."""
     from torch.profiler import ProfilerActivity, profile
     from raytracingrenderer_tpu_torch.config import RenderConfig
+    from raytracingrenderer_tpu_torch.probes import device_rows
     from raytracingrenderer_tpu_torch.render import render
     cfg = RenderConfig(**BENCH_CFG)
     render(scene, cfg, spp=1)

@@ -20,7 +20,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -44,32 +44,36 @@ def nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+def library_path(name: str, src: Optional[Path] = None) -> Path:
+    src = src or CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless an up-to-date library exists."""
-    out = library_path(name)
+def build(name: str, src: Optional[Path] = None) -> Path:
+    """Compile csrc/<name>.cu (or `src`, another revision of it, under the
+    same library name and its own hash) unless an up-to-date library
+    exists."""
+    src = src or CSRC / f"{name}.cu"
+    out = library_path(name, src)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}"
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}"
                            f"{proc.stderr}")
     os.replace(tmp, out)
-    build_log[name] = (time.perf_counter() - t0, proc.stdout + proc.stderr)
+    key = name if src == CSRC / f"{name}.cu" else str(src)
+    build_log[key] = (time.perf_counter() - t0, proc.stdout + proc.stderr)
     return out
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build(name)))
+def load_library(name: str, src: Optional[Path] = None) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build(name, src)))

@@ -24,10 +24,10 @@ Hopper; the entry points that drive them are the modules of
                          the quarters [det | tdet | udet | vdet] of TT/4
                          triangles against the ray's running best t,
                          then the running min of the hits' t.
-      layout="ray" is one thread per ray; layout="lane" splits the TT
-      columns over the lanes of a warp and takes the min across lanes
-      (the counterpart of probe_mxu2.k_rays_major).  The layout changes
-      no value.
+      layout="ray" keeps a ray's features in one thread's registers;
+      layout="lane" splits the TT columns over the lanes of a warp and
+      takes the min across lanes (the counterpart of
+      probe_mxu2.k_rays_major).  The layout changes no value.
       -> (t, o), each (blocks, 8, R): t the running min (3e38 where
       nothing was found), o the sum of the 16 features.  As the probes'
       (blocks * 8, R) outputs, every row of a block is the same except
@@ -54,6 +54,12 @@ computes that sum, the max of it where a min was taken).
 CUDA tensors launch a kernel or raise; CPU tensors take the plain
 version.  `launches` counts kernel launches, by the names of the kernels
 line of chip_smoke.py.  Nothing is built at import.
+
+The fp32 min visit (reduce="min", layout="ray", precision="highest", in
+the three tile modes) runs 4 rays a thread and splits a tile's columns
+over the MIN_WARPS warps of a block, whose mins meet after the last
+visit; its tiles come through a ring of `ring_stages` slots in shared
+memory (csrc/visit_kernel.cu).  `_smem_bytes` is the launcher's layout.
 """
 from __future__ import annotations
 
@@ -69,6 +75,14 @@ SPAN = 128              # rays per thread block of the kernels
 BIG = 3.0e38            # the running min's start and the miss value
 DET_EPS = 1e-12
 SMEM_MAX = 232448       # dynamic shared memory a block can have (H100)
+MIN_WARPS = 8           # column slices (warps a block) of the fp32 min visit
+MIN_RAYS = 4            # consecutive rays a thread of it
+MAX_STAGES = 3          # tiles its ring holds at most
+# what its ring may take of an SM's 228 KB of shared memory (1 KB of which
+# is kept back for each block) and leave room for a second block
+RING_BUDGET = (228 // 2 - 1) * 1024
+# its shared memory beside the ring: the warps' mins and the barriers
+MIN_FIXED = MIN_WARPS * SPAN * 4 + 2 * MAX_STAGES * 8
 
 # (tile, reduce, layout, precision) of each kernel the probes run, in the
 # order of the CUDA launcher's variant ids
@@ -288,14 +302,19 @@ def relayout_loop_plain(x: torch.Tensor, n_iter: int) -> torch.Tensor:
 # the kernels
 # ---------------------------------------------------------------------------
 
+# the launchers of csrc/visit_kernel.cu (the stream follows each list)
+SIGNATURES = {
+    "visit_run": [I32] + [PTR] * 4 + [I32] * 5,
+    "visit_dot": [I32] + [PTR] * 3 + [I32] * 2,
+    "visit_relayout": [PTR] * 2 + [I32] * 2,
+    "visit_floor": [I32] * 3}
+
+
 def _library():
     """csrc/visit_kernel.cu's launchers, bound once."""
     global _lib
     if _lib is None:
-        _lib = bind("visit_kernel", {
-            "visit_run": [I32] + [PTR] * 4 + [I32] * 5,
-            "visit_dot": [I32] + [PTR] * 3 + [I32] * 2,
-            "visit_relayout": [PTR] * 2 + [I32] * 2})
+        _lib = bind("visit_kernel", SIGNATURES)
     return _lib
 
 
@@ -304,11 +323,34 @@ def _cuda(dev: torch.device, what: str) -> None:
         raise ValueError(f"no {what} kernel for device {dev}")
 
 
-def _smem_bytes(tt: int, tile: str, precision: str) -> int:
-    """Dynamic shared memory of a visit kernel: the staged tile(s), rows
+def _aligned(**tensors: torch.Tensor) -> None:
+    """The kernels read 16 bytes a load: raise on a tensor whose first
+    element is not 16-byte aligned (a view at an odd offset)."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the "
+                             f"kernel, its data_ptr is {x.data_ptr():#x}")
+
+
+def ring_stages(tt: int, tile: str) -> int:
+    """Slots of the fp32 min visit's ring of tiles, as the launcher
+    chooses them: as many as fit RING_BUDGET, so that two blocks stay
+    resident on an SM, at most MAX_STAGES, at least the one it cannot do
+    without; the static tile is brought in once and needs one.  (A
+    batched step goes through the ring as 8 visits of one tile.)"""
+    if tile == "static":
+        return 1
+    return max(1, min(MAX_STAGES, (RING_BUDGET - MIN_FIXED) // (K * tt * 4)))
+
+
+def _smem_bytes(tt: int, variant: tuple) -> int:
+    """Dynamic shared memory of the visit kernel of `variant`: for the
+    fp32 min visit the ring and MIN_FIXED; else the staged tile, its rows
     padded by 8 floats for the TF32 fragments' bank pattern."""
-    width = 8 * tt if tile == "batched8" else tt
-    return K * (width + (8 if precision == "default" else 0)) * 4
+    tile, reduce, layout, precision = variant
+    if (reduce, layout, precision) == ("min", "ray", "highest"):
+        return ring_stages(tt, tile) * K * tt * 4 + MIN_FIXED
+    return K * (tt + (8 if precision == "default" else 0)) * 4
 
 
 def visit(tab: torch.Tensor, feats: torch.Tensor, *, n_visits: int,
@@ -327,10 +369,11 @@ def visit(tab: torch.Tensor, feats: torch.Tensor, *, n_visits: int,
                            precision=precision)
     _cuda(dev, "visit")
     tt = tab.shape[1]
-    if _smem_bytes(tt, tile, precision) > SMEM_MAX:
-        raise ValueError(f"{_smem_bytes(tt, tile, precision)} bytes of "
+    if _smem_bytes(tt, variant) > SMEM_MAX:
+        raise ValueError(f"{_smem_bytes(tt, variant)} bytes of "
                          f"shared memory for TT = {tt}, tile={tile!r}: "
                          f"above the {SMEM_MAX} a block can have")
+    _aligned(tab=tab, feats=feats)
     blocks, r = feats.shape[0] // K, feats.shape[1]
     rows = ROWS if reduce == "first8" else 1
     t = torch.empty((blocks, rows, r), dtype=torch.float32, device=dev)
@@ -353,6 +396,7 @@ def dot(a: torch.Tensor, b: torch.Tensor,
     if dev.type == "cpu":
         return dot_plain(a, b, precision)
     _cuda(dev, "dot")
+    _aligned(a=a, b=b)
     out = torch.empty((a.shape[1], b.shape[1]), dtype=torch.float32,
                       device=dev)
     launch(_library()["visit_dot"], dev,
@@ -376,3 +420,18 @@ def relayout_loop(x: torch.Tensor, n_iter: int) -> torch.Tensor:
            x.data_ptr(), out.data_ptr(), x.numel(), n_iter)
     launches["relayout"] += 1
     return out
+
+
+FLOOR_KINDS = ("dot/highest", "dot/default", "relayout")
+
+
+def floor_launch(kind: str, n0: int, n1: int = 0, device="cuda") -> None:
+    """Launch an empty kernel with the grid and block of `dot(a, b)` for
+    a (16, n0), b (16, n1) (kind "dot/highest" or "dot/default") or of
+    `relayout_loop` over n0 floats (kind "relayout"): its time on the
+    device is what the card takes for any launch of that size, the floor
+    under those kernels' times.  It computes nothing and counts no
+    launch."""
+    dev = torch.device(device)
+    _cuda(dev, "floor")
+    launch(_library()["visit_floor"], dev, FLOOR_KINDS.index(kind), n0, n1)

@@ -15,6 +15,10 @@ scripts' count, visits * 2 * 16 * TT * R.
 
 Each module lists its visit runs in CONFIGS (dicts of `visit`'s
 arguments, sizes included), which chip_smoke.py also reads.
+
+Beside them: `bench_b2` and `bench_visit` (a kernel source checked and
+timed beside another commit's in one call) and `trace_gpu_cpu` (the
+torch operators that make a render on the card part from the CPU's).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 R = 4096            # rays per block, as the scripts' R
+MT_EPI_OPS = 15     # FP32 operations of the visit's MT epilogue a triangle
 
 
 def require_cuda() -> torch.device:
@@ -90,3 +95,61 @@ def config(tt: int, n_visits: int, n_tiles: int, blocks: int = 8,
 def flops(cfg: Dict) -> int:
     """The scripts' FLOP count of a run: visits * 2 * 16 * TT * R."""
     return cfg["blocks"] * cfg["n_visits"] * 2 * 16 * cfg["tt"] * R
+
+
+def visit_work(cfg: Dict) -> Dict[str, int]:
+    """What a visit run needs, from its shapes: `mac`, the contraction's
+    operations (per ray and step a multiply and an add for each of the
+    16 features of each column); `other`, one min a column, or the MT
+    epilogue's MT_EPI_OPS a triangle; `bytes`, the distinct tiles
+    visited, the features and the rows written, each once.  Built
+    without FMA, a fp32 kernel issues mac + other FP32 instructions."""
+    from ..ops import visit
+    tt, blocks = cfg["tt"], cfg["blocks"]
+    steps = visit.tile_steps(cfg["n_visits"], cfg["n_tiles"], cfg["tile"])
+    width = len(steps[0]) * tt if steps else 0
+    cols = visit.ROWS if cfg["reduce"] == "first8" else width
+    ray_steps = blocks * R * len(steps)
+    rows = visit.ROWS if cfg["reduce"] == "first8" else 1
+    return dict(
+        mac=ray_steps * 2 * 16 * cols,
+        other=ray_steps * (width // 4 * MT_EPI_OPS if cfg["reduce"] == "mt"
+                           else cols),
+        bytes=(len({j for st in steps for j in st}) * 16 * tt
+               + blocks * 16 * R + blocks * R * (rows + 1)) * 4)
+
+
+def device_rows(prof):
+    """[(name, self device microseconds, count)] of the profile's device
+    rows: the kernels and copies themselves.  A host operator's row
+    carries its kernels' time again as its own self device time, so the
+    host rows are left out and each kernel counts once."""
+    from torch.autograd import DeviceType
+    return [(e.key, getattr(e, "self_device_time_total", 0) or 0, e.count)
+            for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU]
+
+
+def device_ms(fn: Callable, iters: int = 50):
+    """Device time per call of fn: over `iters` calls after a warm-up,
+    each device row's mean time (the kernels themselves, each counted
+    once) times its launches a call, or None where the profiler records
+    no device time.  For calls whose back-to-back time is set by the
+    host's launch path.  The profiler can lose records (seen for an empty
+    kernel: a session with no device row, another with a fifth of the
+    launches): a row's launches a call are its count over `iters`,
+    rounded up, so lost records do not shorten the time; a session
+    without device rows is taken again, twice at most."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(us, n) for _, us, n in device_rows(prof) if us and n]
+        if rows:
+            return sum(us / n * -(-n // iters) for us, n in rows) / 1e3
+    return None

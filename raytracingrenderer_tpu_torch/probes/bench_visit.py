@@ -1,0 +1,227 @@
+"""The kernels of csrc/visit_kernel.cu checked and timed on the card at
+the probes' sizes, alone or beside another tree's revision of the source:
+
+    python -m raytracingrenderer_tpu_torch.probes.bench_visit
+        [--parent DIR ...] [--rounds N] [--out FILE]
+
+Runs: every distinct visit run of the three probes (the seven variants;
+the fp32 min visit also at TT = 512 and at 512 visits), the dot in both
+precisions and the relayout loop.  Each tree's kernels must equal the
+plain versions (fp32 bit for bit, TF32 within visit.TF32_KERNEL_BOUND of
+the sum of the products' magnitudes), or the script exits 1.  The visits
+are timed by CUDA events over 20 back-to-back launches into outputs
+allocated once; the dot, the relayout and the empty launch of their grid
+(`visit_floor`, where the tree has it) by their device time under
+torch.profiler over 50 launches, in microseconds.  A number is the least
+of the rounds; the trees are timed in turns, the order reversed every
+round.  The card's name and power limit are printed with the table.
+
+`--parent DIR` (repeatable) names a checkout of another commit, for
+instance `git archive <commit> | tar -x -C build/parent`: its
+`raytracingrenderer_tpu_torch/csrc/visit_kernel.cu` is built beside this
+tree's and launched through this tree's wrappers' signatures, so both
+are timed in one call on one card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from pathlib import Path
+
+import torch
+
+from raytracingrenderer_tpu_torch.ops import visit
+from raytracingrenderer_tpu_torch.ops.launch import bind, launch
+from raytracingrenderer_tpu_torch.probes import (
+    card, device_ms, inputs, probe_mxu, probe_mxu2, probe_mxu3, require_cuda,
+    timed_ms, visit_args)
+
+SOURCE = Path("raytracingrenderer_tpu_torch") / "csrc" / "visit_kernel.cu"
+RELAYOUT_ITERS = 65
+
+
+def visit_runs():
+    """The probes' distinct visit runs -> [(name, cfg)]."""
+    runs, seen = [], set()
+    for mod in (probe_mxu, probe_mxu2, probe_mxu3):
+        for cfg in mod.CONFIGS:
+            key = tuple(cfg[k] for k in (
+                "tile", "reduce", "layout", "precision", "tt", "n_visits",
+                "n_tiles", "blocks"))
+            if key not in seen:
+                seen.add(key)
+                runs.append((f"visit/{visit.variant_name(*key[:4])} "
+                             f"TT={cfg['tt']} V={cfg['n_visits']} "
+                             f"tiles={cfg['n_tiles']}", cfg))
+    return runs
+
+
+def load(tree):
+    """The launchers of a tree's revision of the source (None: this
+    tree's); a revision that lacks `visit_floor` is bound without it."""
+    src = None if tree is None else Path(tree).resolve() / SOURCE
+    sigs = dict(visit.SIGNATURES)
+    if src is not None and "visit_floor" not in src.read_text():
+        del sigs["visit_floor"]
+    return bind("visit_kernel", sigs, src)
+
+
+class Case:
+    """One run: its inputs, its outputs allocated once, what the plain
+    version gives, and how a tree's library launches it."""
+
+    def __init__(self, name, call, outs, check, by_events):
+        self.name, self.call, self.outs = name, call, outs
+        self.check, self.by_events = check, by_events
+
+    def time(self, lib):
+        """ms by CUDA events, or device microseconds by the profiler."""
+        if self.by_events:
+            return timed_ms(lambda: self.call(lib), reps=20)[0]
+        ms = device_ms(lambda: self.call(lib))
+        return float("nan") if ms is None else ms * 1e3
+
+
+def visit_case(name, cfg, dev):
+    tab, feats = inputs(cfg["n_tiles"], cfg["tt"], cfg["blocks"], dev)
+    kw = visit_args(cfg)
+    variant = (cfg["tile"], cfg["reduce"], cfg["layout"], cfg["precision"])
+    rows = visit.ROWS if cfg["reduce"] == "first8" else 1
+    blocks, r = cfg["blocks"], feats.shape[1]
+    t = torch.empty((blocks, rows, r), device=dev)
+    o = torch.empty((blocks, 1, r), device=dev)
+    tp, op = visit.visit_plain(tab, feats, **kw)
+    tp, op = tp[:, :rows].contiguous(), op[:, :1].contiguous()
+    scale = None
+    if cfg["precision"] == "default":
+        scale = visit.visit_tf32_scale(
+            tab, feats, n_visits=cfg["n_visits"], n_tiles=cfg["n_tiles"],
+            tile=cfg["tile"], layout=cfg["layout"])[:, :1]
+
+    def call(lib):
+        launch(lib["visit_run"], dev, visit.VARIANTS.index(variant),
+               tab.data_ptr(), feats.data_ptr(), t.data_ptr(), o.data_ptr(),
+               blocks, r, cfg["tt"], cfg["n_tiles"], cfg["n_visits"])
+
+    def check():
+        if not torch.equal(o, op):
+            return "the feature sums differ"
+        if scale is None:
+            return None if torch.equal(t, tp) else "t differs"
+        ratio = ((t - tp).abs() / scale).max().item()
+        return None if ratio <= visit.TF32_KERNEL_BOUND else \
+            f"|dt| reaches {ratio:.3e} of sum |a b|"
+
+    return Case(name + " [ms]", call, (t, o), check, True)
+
+
+def dot_case(prec, dev):
+    a, b = probe_mxu.precision_inputs(dev)
+    out = torch.empty((a.shape[1], b.shape[1]), device=dev)
+    want = visit.dot_plain(a, b, prec)
+    scale = visit.tf32_scale(a, b) if prec == "default" else None
+
+    def call(lib):
+        launch(lib["visit_dot"], dev, int(prec == "default"), a.data_ptr(),
+               b.data_ptr(), out.data_ptr(), a.shape[1], b.shape[1])
+
+    def check():
+        if scale is None:
+            return None if torch.equal(out, want) else "the dot differs"
+        ratio = ((out - want).abs() / scale).max().item()
+        return None if ratio <= visit.TF32_KERNEL_BOUND else \
+            f"|d| reaches {ratio:.3e} of sum |a b|"
+
+    return Case(f"dot/{prec} [us on the device]", call, (out,), check, False)
+
+
+def relayout_case(dev):
+    x = torch.zeros((probe_mxu.RELAYOUT_BLOCKS * 32, 128), device=dev)
+    out = torch.empty_like(x)
+
+    def call(lib):
+        launch(lib["visit_relayout"], dev, x.data_ptr(), out.data_ptr(),
+               x.numel(), RELAYOUT_ITERS)
+
+    def check():
+        return None if torch.equal(out, x + RELAYOUT_ITERS) else \
+            "not x + n_iter"
+
+    return Case(f"relayout n={RELAYOUT_ITERS} [us on the device]", call,
+                (out,), check, False)
+
+
+def floor_cases(dev):
+    """The empty launches of the dots' and the relayout's grids."""
+    a, b = probe_mxu.precision_inputs(dev)
+    n = probe_mxu.RELAYOUT_BLOCKS * 32 * 128
+    sizes = {"dot/highest": (a.shape[1], b.shape[1]),
+             "dot/default": (a.shape[1], b.shape[1]), "relayout": (n, 0)}
+
+    def case(kind):
+        def call(lib):
+            if "visit_floor" in lib:
+                launch(lib["visit_floor"], dev,
+                       visit.FLOOR_KINDS.index(kind), *sizes[kind])
+        return Case(f"floor of {kind} [us on the device]", call, (),
+                    lambda: None, False)
+
+    return [case(k) for k in visit.FLOOR_KINDS]
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", action="append", default=[],
+                    help="a checkout of another commit whose source is "
+                         "built and timed beside (repeatable)")
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--out", default=None, help="write the table as JSON")
+    args = ap.parse_args()
+    dev = require_cuda()
+    name = card()
+    trees = {"this tree": None, **{p: p for p in args.parent}}
+    libs = {k: load(v) for k, v in trees.items()}
+    cases = ([visit_case(n, cfg, dev) for n, cfg in visit_runs()]
+             + [dot_case("highest", dev), dot_case("default", dev),
+                relayout_case(dev)] + floor_cases(dev))
+    for tree, lib in libs.items():
+        for c in cases:
+            for x in c.outs:
+                x.fill_(float("nan"))
+            c.call(lib)
+            torch.cuda.synchronize()
+            fault = c.check()
+            if fault:
+                sys.exit(f"{tree}: {c.name}: {fault} against the plain "
+                         f"version")
+    print(f"every kernel of {list(libs)} agrees with its plain version",
+          flush=True)
+    times = {c.name: {t: float("inf") for t in libs} for c in cases}
+    for rnd in range(args.rounds):
+        order = list(libs)[::-1] if rnd % 2 else list(libs)
+        for c in cases:
+            for tree in order:
+                if "floor" in c.name and "visit_floor" not in libs[tree]:
+                    times[c.name][tree] = float("nan")
+                    continue
+                times[c.name][tree] = min(times[c.name][tree],
+                                          c.time(libs[tree]))
+    print(f"the least of {args.rounds} rounds [{name}]")
+    width = max(len(c.name) for c in cases)
+    print(" " * width + "  " + "  ".join(f"{t[-24:]:>24}" for t in libs))
+    for c in cases:
+        print(f"{c.name:<{width}}  "
+              + "  ".join(f"{times[c.name][t]:24.4f}" for t in libs),
+              flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({"card": name, "rounds": args.rounds, "times": times},
+                      f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -24,9 +24,13 @@ within rtol 1e-3 / atol 1e-5, means within 0.5%.  Every kernel of the
 matrix-unit probes (ops/visit.py) is held to its plain version: the
 fp32 visits, the fp32 dot and the relayout bit for bit, the TF32 visit
 and dot within visit.TF32_KERNEL_BOUND of the sum of the products'
-magnitudes; a refused launch raises and leaves no error behind; a
-launch with the tensors' device already current, or on a side stream,
-stays correct; binary walks back to back share one ray counter."""
+magnitudes; the fp32 min visit also at the shapes its partition could
+break (TT 32 to 512, 0 to 64 visits, 1 and 64 tiles, 128 and 4096 rays)
+and launched back to back on a side stream; the fp32 dot at TT 16, 48
+and 128 and R 128 and 4096; a refused launch raises and leaves no error
+behind; a launch with the tensors' device already current, or on a side
+stream, stays correct; binary walks back to back share one ray
+counter."""
 import numpy as np
 import pytest
 import torch
@@ -289,12 +293,65 @@ def test_visit_kernel_matches_plain(cuda, variant):
     assert (tk < 3e38).float().mean().item() > 0.5
 
 
-@pytest.mark.parametrize("precision", ["highest", "default"])
-def test_dot_kernel_matches_plain(cuda, precision):
-    g = np.random.default_rng(31)
-    a = torch.from_numpy((g.normal(size=(16, 128)) * 100).astype(
+EDGE_SHAPES = [(tile, tt, n_visits, n_tiles, r)
+               for tile in ("dynamic", "static", "batched8")
+               for tt in (32, 96, 128, 512)
+               for n_visits in (0, 1, 2, 7, 64)
+               for n_tiles in (1, 64)
+               for r in (128, 4096)
+               if tile != "batched8" or n_tiles >= 8]
+
+
+@pytest.mark.parametrize("tile,tt,n_visits,n_tiles,r", EDGE_SHAPES)
+def test_visit_min_kernel_edge_shapes(cuda, tile, tt, n_visits, n_tiles, r):
+    """The fp32 min visit where its partition could break: a warp's slice
+    of 4, 12, 16 or 64 columns; a ring never, partly or often refilled;
+    one tile visited every time; one block of rays or many."""
+    g = np.random.default_rng(tt + n_visits)
+    tab = torch.from_numpy(g.normal(size=(n_tiles * 16, tt)).astype(
         np.float32)).to(cuda)
-    b = torch.from_numpy((g.normal(size=(16, 4096)) * 100).astype(
+    feats = torch.from_numpy(g.normal(size=(2 * 16, r)).astype(
+        np.float32)).to(cuda)
+    kw = dict(n_visits=n_visits, n_tiles=n_tiles, tile=tile)
+    tk, ok = visit.visit(tab, feats, **kw)
+    torch.cuda.synchronize()
+    tp, op = visit.visit_plain(tab, feats, **kw)
+    assert torch.equal(tk, tp) and torch.equal(ok, op)
+
+
+def test_visit_min_kernel_back_to_back_on_a_side_stream(cuda):
+    """Launches of the fp32 min visit back to back on a stream that is
+    not the default one, of different tile modes, sizes and visit counts:
+    the ring's barriers live in shared memory and are set up anew by each
+    launch, so none carries a phase over to the next."""
+    runs = []
+    for tile, tt, n_visits, n_tiles in (
+            ("dynamic", 128, 64, 64), ("dynamic", 128, 7, 64),
+            ("batched8", 128, 64, 64), ("dynamic", 512, 2, 8),
+            ("static", 96, 5, 8), ("dynamic", 128, 1, 1),
+            ("dynamic", 128, 64, 64), ("dynamic", 32, 0, 8)):
+        tab, feats = _visit_inputs(cuda, n_tiles, tt, 2, 59 + n_visits)
+        runs.append((tab, feats, dict(n_visits=n_visits, n_tiles=n_tiles,
+                                      tile=tile)))
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    for _ in range(3):
+        with torch.cuda.stream(side):
+            got = [visit.visit(tab, feats, **kw) for tab, feats, kw in runs]
+        side.synchronize()
+        for (tab, feats, kw), (tk, ok) in zip(runs, got):
+            tp, op = visit.visit_plain(tab, feats, **kw)
+            assert torch.equal(tk, tp) and torch.equal(ok, op)
+
+
+@pytest.mark.parametrize("r", [128, 4096])
+@pytest.mark.parametrize("tt", [16, 48, 128])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_dot_kernel_matches_plain(cuda, precision, tt, r):
+    g = np.random.default_rng(31)
+    a = torch.from_numpy((g.normal(size=(16, tt)) * 100).astype(
+        np.float32)).to(cuda)
+    b = torch.from_numpy((g.normal(size=(16, r)) * 100).astype(
         np.float32)).to(cuda)
     before = visit.launches["dot/" + precision]
     k = visit.dot(a, b, precision)
@@ -319,24 +376,31 @@ def test_relayout_kernel_is_exact(cuda):
 
 
 def test_refused_launch_raises(cuda):
-    """A launch the card refuses (the batched variant at TT = 512 asks for
-    256 KB of shared memory; an unknown variant id) raises, and the next
-    launch is unaffected."""
-    tab, feats = _visit_inputs(cuda, 8, 512, 1, 41)
+    """A launch the card refuses (a tile of TT = 4096 is 256 KB, more
+    shared memory than a block can have, in the ring of the min visit as
+    in the MT variant's one staged tile; an unknown variant id) raises,
+    and the next launch is unaffected."""
+    tab, feats = _visit_inputs(cuda, 8, 4096, 1, 41)
     t = torch.empty((1, 1, 4096), device=cuda)
     o = torch.empty_like(t)
     for variant_id in (visit.VARIANTS.index(
-            ("batched8", "min", "ray", "highest")), 99):
+            ("batched8", "min", "ray", "highest")), visit.VARIANTS.index(
+            ("dynamic", "min", "ray", "highest")), visit.VARIANTS.index(
+            ("dynamic", "mt", "ray", "highest")), 99):
         with pytest.raises(RuntimeError, match="CUDA error"):
             launch(visit._library()["visit_run"], cuda,
                    variant_id, tab.data_ptr(), feats.data_ptr(), t.data_ptr(),
-                   o.data_ptr(), 1, 4096, 512, 8, 8)
-    with pytest.raises(ValueError, match="shared memory"):
-        visit.visit(tab, feats, n_visits=8, n_tiles=8, tile="batched8")
-    tk, _ = visit.visit(tab, feats, n_visits=8, n_tiles=8)
-    torch.cuda.synchronize()
-    assert torch.equal(tk, visit.visit_plain(tab, feats, n_visits=8,
-                                             n_tiles=8)[0])
+                   o.data_ptr(), 1, 4096, 4096, 8, 8)
+    for tile in ("batched8", "dynamic"):
+        with pytest.raises(ValueError, match="shared memory"):
+            visit.visit(tab, feats, n_visits=8, n_tiles=8, tile=tile)
+    # what the first design refused and the ring takes: 8 tiles of TT = 512
+    tab, feats = _visit_inputs(cuda, 8, 512, 1, 41)
+    for tile in ("batched8", "dynamic"):
+        tk, _ = visit.visit(tab, feats, n_visits=8, n_tiles=8, tile=tile)
+        torch.cuda.synchronize()
+        assert torch.equal(tk, visit.visit_plain(tab, feats, n_visits=8,
+                                                 n_tiles=8, tile=tile)[0])
 
 
 def test_launch_helper_current_device(cuda, spheres_dir):

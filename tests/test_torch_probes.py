@@ -18,7 +18,15 @@ broadcast to it.  Tolerances:
     rounded by at most 2^-11 each, then a 16-term fp32 sum).
 The MT epilogue of probe_mxu.py cannot run in JAX (its shape fault is
 asserted); the port's epilogue is held to a numpy oracle of what it
-intends."""
+intends.
+
+The fp32 min visit's kernel (csrc/visit_kernel.cu::visit_min_kernel)
+cannot run here; a torch model of its partition (4 rays a thread, a
+tile's columns split over 8 warps whose mins meet at the end, the steps
+through a ring of slots with its barriers' parities) is held to
+`visit_plain` with no tolerance, bit for bit: the argument for the
+kernel's parity, run.  `_smem_bytes` is held to `visit`'s refusal, and
+the probes' operation count to the numbers written by hand."""
 import functools
 import importlib.util
 import os
@@ -310,6 +318,181 @@ def test_visit_refuses_what_no_kernel_runs():
         visit.visit(tab, feats[:, :100].contiguous(), n_visits=4, n_tiles=8)
     with pytest.raises(TypeError):
         visit.dot(tab[:16].double(), feats[:16])
+
+
+class _Barrier:
+    """An mbarrier as the kernel uses it: a phase that flips when it
+    completes; a wait with `parity` passes once the phase differs."""
+
+    def __init__(self):
+        self.phase = 0
+
+    def complete(self):
+        self.phase ^= 1
+
+    def passes(self, parity):
+        return self.phase != parity
+
+
+def _min_model(tab, feats, n_visits, n_tiles, tile):
+    """visit_min_kernel's partition in torch -> t (blocks, R): the ring
+    (visit i in slot i % stages with parity (i // stages) & 1, a slot
+    refilled with the tile of visit i + stages once its empty barrier
+    completed; a batched step as 8 visits of its 8 tiles), warp w on
+    columns [w TT/8, (w+1) TT/8) in groups of 4, thread (lane) on rays
+    4 lane .. 4 lane + 3 of a block of 128, the warps' mins folded after
+    the last visit."""
+    blocks, r = feats.shape[0] // 16, feats.shape[1]
+    tt = tab.shape[1]
+    stages = visit.ring_stages(tt, tile)
+    visits = [t for step in visit.tile_steps(n_visits, n_tiles, tile)
+              for t in step]
+    loads = min(len(visits), 1) if tile == "static" else len(visits)
+    cols = tt // visit.MIN_WARPS
+    assert cols % 4 == 0 and 1 <= stages <= visit.MAX_STAGES
+    # (blocks, 16, R / 128, lane, ray of the lane), flattened back at the end
+    f = feats.view(blocks, 16, r // visit.SPAN, 32, visit.MIN_RAYS)
+    f = f.reshape(blocks, 16, r)
+    ring, held = [None] * stages, [None] * stages
+    full = [_Barrier() for _ in range(stages)]
+    empty = [_Barrier() for _ in range(stages)]
+
+    def load(j):
+        ring[j % stages] = tab[visits[j] * 16:(visits[j] + 1) * 16]
+        held[j % stages] = j
+        full[j % stages].complete()
+
+    for j in range(min(stages, loads)):
+        load(j)
+    m = torch.full((blocks, visit.MIN_WARPS, r), visit.BIG)
+    for i in range(len(visits)):
+        s = 0 if tile == "static" else i % stages
+        parity = (i // stages) & 1
+        if tile != "static" or i == 0:
+            assert full[s].passes(parity)
+        assert held[s] == (0 if tile == "static" else i)
+        for c in range(0, cols, 4):
+            idx = [w * cols + c + e for w in range(visit.MIN_WARPS)
+                   for e in range(4)]
+            sums = visit._contract(ring[s][:, idx], f).view(
+                blocks, visit.MIN_WARPS, 4, r)
+            m = torch.minimum(m, torch.minimum(
+                torch.minimum(sums[:, :, 0], sums[:, :, 1]),
+                torch.minimum(sums[:, :, 2], sums[:, :, 3])))
+        if tile != "static":
+            empty[s].complete()
+            if i + stages < loads:
+                assert empty[s].passes(parity)
+                load(i + stages)
+    t = m[:, 0]
+    for w in range(1, visit.MIN_WARPS):
+        t = torch.minimum(t, m[:, w])
+    return t
+
+
+MODEL_CASES = [(tile, tt, n_visits, n_tiles, r)
+               for tile in ("dynamic", "static", "batched8")
+               for tt in (32, 96, 128, 512)
+               for n_visits in (0, 1, 2, 7, 64)
+               for n_tiles in (1, 64)
+               for r in (128, 4096)
+               if tile != "batched8" or n_tiles >= 8]
+
+
+@pytest.mark.parametrize("tile,tt,n_visits,n_tiles,r", MODEL_CASES)
+def test_min_partition_model_equals_plain(tile, tt, n_visits, n_tiles, r):
+    g = np.random.default_rng(tt + n_visits)
+    tab = torch.from_numpy(g.normal(size=(n_tiles * 16, tt)).astype(
+        np.float32))
+    feats = torch.from_numpy(g.normal(size=(2 * 16, r)).astype(np.float32))
+    want, _ = visit.visit_plain(tab, feats, n_visits=n_visits,
+                                n_tiles=n_tiles, tile=tile)
+    got = _min_model(tab, feats, n_visits, n_tiles, tile)
+    assert torch.equal(got, want[:, 0])
+    if n_visits >= (8 if tile == "batched8" else 1):
+        assert (got < 3e38).all()
+    else:
+        assert (got == visit.BIG).all()
+
+
+def test_min_model_ring_refuses_a_wrong_parity():
+    """The model's barriers are not decoration: a consumer that waits
+    with the slot's previous parity is caught."""
+    b = _Barrier()
+    assert not b.passes(0) and b.passes(1)
+    b.complete()
+    assert b.passes(0) and not b.passes(1)
+
+
+@pytest.mark.parametrize("variant", visit.VARIANTS,
+                         ids=[visit.variant_name(*v) for v in visit.VARIANTS])
+def test_smem_bytes_follow_the_refusal(variant, monkeypatch):
+    """`visit` on a CUDA tensor raises on shared memory exactly where
+    `_smem_bytes` passes SMEM_MAX; below it, it goes on to the launch
+    (here stopped at the library, which a CPU machine cannot build)."""
+    tile, reduce, layout, precision = variant
+    fixed = visit.MIN_FIXED
+    for tt in (32, 96, 128, 512, 1024, 2048, 3552, 3616, 3648, 4096):
+        if layout == "lane" and tt != visit.LANE_TT:
+            continue
+        need = visit._smem_bytes(tt, variant)
+        if (reduce, layout, precision) == ("min", "ray", "highest"):
+            step = 16 * tt * 4
+            stages = visit.ring_stages(tt, tile)
+            assert need == stages * step + fixed
+            assert stages == 1 or need <= visit.RING_BUDGET
+            assert stages == (1 if tile == "static" else visit.MAX_STAGES) \
+                or (stages + 1) * step + fixed > visit.RING_BUDGET
+        else:
+            assert need == 16 * (tt + 8 * (precision == "default")) * 4
+        tab = torch.zeros((8 * 16, tt), device="meta")
+        feats = torch.zeros((16, 128), device="meta")
+
+        class Stop(Exception):
+            pass
+
+        def stop():
+            raise Stop
+
+        monkeypatch.setattr(visit, "_library", stop)
+        monkeypatch.setattr(visit, "_cuda", lambda dev, what: None)
+        monkeypatch.setattr(visit, "_aligned", lambda **kw: None)
+        with pytest.raises(ValueError if need > visit.SMEM_MAX else Stop,
+                           match="shared memory"
+                           if need > visit.SMEM_MAX else None):
+            visit.visit(tab, feats, n_visits=8, n_tiles=8, tile=tile,
+                        reduce=reduce, layout=layout, precision=precision)
+    # the probes' sizes: three slots, two blocks an SM
+    assert visit.ring_stages(128, "dynamic") == 3
+    assert visit.ring_stages(512, "dynamic") == 3
+    assert visit.ring_stages(128, "batched8") == 3
+    assert visit.ring_stages(1024, "dynamic") == 1
+    for v, tt in ((0, 128), (0, 512), (6, 128)):
+        assert 2 * (visit._smem_bytes(tt, visit.VARIANTS[v]) + 1024) \
+            <= 228 * 1024
+
+
+def test_aligned_refuses_an_odd_view():
+    x = torch.zeros(16 * 128 + 1)[1:].view(16, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        visit._aligned(a=x)
+    visit._aligned(a=torch.zeros(16, 128))
+
+
+def test_visit_work_counts():
+    """The operation count behind `issue_ms`: at the probes' main size,
+    per ray and visit 2 x 16 x 128 multiplies and adds and 128 mins."""
+    from raytracingrenderer_tpu_torch.probes import config, visit_work
+    w = visit_work(config(128, 64, 512))
+    assert w["mac"] + w["other"] == 8 * 4096 * 64 * 4224
+    assert w["bytes"] == (64 * 16 * 128 + 8 * 16 * 4096 + 8 * 4096 * 2) * 4
+    b8 = visit_work(config(128, 64, 64, tile="batched8"))
+    assert b8["mac"] == w["mac"] and b8["other"] == w["other"]
+    f8 = visit_work(config(128, 64, 64, reduce="first8"))
+    assert f8["mac"] == w["mac"] // 16 and f8["other"] == w["other"] // 16
+    mt = visit_work(config(128, 64, 512, reduce="mt"))
+    assert mt["other"] == 8 * 4096 * 64 * 32 * 15
+    assert visit_work(config(128, 0, 64))["mac"] == 0
 
 
 @pytest.mark.parametrize("probe", ["probe_mxu", "probe_mxu2", "probe_mxu3"])
