@@ -17,108 +17,392 @@
 // With det = -(d . N), t*det = o . N - c0, u*det = G . e2 + d . P2,
 // v*det = -(G . e1 + d . P1), signs folded by sgn(det).
 //
-// Design.  One thread per pair, 128 threads a block.  The TPU kernel runs
-// the four 16-deep contractions of a 1024-pair tile on its matrix unit at
-// precision=HIGHEST and loops over the distinct treelet ids of the tile.
-// Hopper's fp32 matrix path is TF32 (10-bit mantissa), which would lose the
-// exactness of the hit decisions, so this kernel stays in IEEE fp32 on the
-// CUDA cores, summing only the nonzero terms of each contraction, left to
-// right in constant-row order.  Because the pairs are sorted by treelet,
-// the threads of a warp nearly always read the same 16x128 constants tile
-// (8 KB): at each column every thread loads the same address, a broadcast
-// through the read-only cache (__ldg), and the tile stays in L1.
+// The TPU kernel runs the four 16-deep contractions of a 1024-pair tile on
+// its matrix unit at precision=HIGHEST and loops over the distinct treelet
+// ids of the tile.  Hopper's fp32 matrix path is TF32 (10-bit mantissa),
+// which would lose the exactness of the hit decisions, so this kernel stays
+// in IEEE fp32 on the CUDA cores, summing only the nonzero terms of each
+// contraction, left to right in constant-row order.
 //
-// Bound.  Per pair 128 columns x (16 loads + ~45 flops): issue-bound on the
-// loads and the fp32 pipes; the feature row (64 B) is read once.  Staging a
-// treelet-pure block's tile in shared memory and several pairs per thread
-// are later work.
+// Bound.  Per pair and column 33 operations of contraction and 16 of
+// epilogue, all on operands that stay on chip: operations bound it (49 a
+// column over the FP32 peak), and since every product and sum is rounded
+// (--fmad=false, for the bit-for-bit check) the floor is the issue rate,
+// one instruction a cycle and scheduler: twice the bound.  With one pair a
+// thread and the constants read from global memory the kernel issued 16
+// loads for those 49 instructions, each a load of one address by a whole
+// warp, which costs as a full load.  The design:
+//   - A thread holds the features of kPairs = 4 pairs (pairs p, p + 32,
+//     p + 64, p + 96 of its warp's 128 consecutive ones, so that a warp's
+//     loads and stores fall on consecutive addresses) and walks the tile's
+//     columns four at a time: a 16-byte load of one constant row, a
+//     broadcast from shared memory, feeds 4 columns of 4 pairs, 16 loads for
+//     784 instructions.  The sums of a group are taken contraction by
+//     contraction (u, v, det, then t, which reuses N's rows), so that a
+//     contraction's 16 sums and the rows they read are live, not all 64.
+//   - The features are not negated: (-dx) nx + (-dy) ny + (-dz) nz is, under
+//     round-to-nearest, bit for bit -(dx nx + dy ny + dz nz), because a
+//     negation is exact and rounding is symmetric; so is v's sum.  (A sum
+//     that cancels comes out as -0 for +0, which no comparison of the
+//     epilogue tells apart and which reaches neither t nor col.)  The
+//     negation rides on the instruction that reads the sum.
+//   - A block is kWarps warps over 512 consecutive pairs and walks the runs
+//     of equal treelet id in that range (the pairs are sorted, so one or two
+//     on a large scene; any order stays correct, a run is then shorter): the
+//     block marks where tid[i] != tid[i - 1], counts the marks with warp
+//     votes and one pass through shared memory, and keeps the runs' ids in
+//     shared memory.  A run's constants are 16 x 128 contiguous floats: one
+//     thread brings them in with one cp.async.bulk, completion counted on an
+//     mbarrier, into a ring of kStages tiles.  Every warp waits for every
+//     tile (a warp that skipped one could meet the barrier two phases on and
+//     read a stale parity), tests it only where one of its pairs lies in the
+//     run, and leaves it through the slot's `empty` barrier; the producer
+//     refills a slot when all warps have left it.  A pair outside the run is
+//     masked by a radius of -1, which no t passes.
+//   - Columns are walked in ascending order with a strict `<`, so the first
+//     column among equal t is kept, as the plain version's min keeps it.
+// Tried and dropped: see PERF.md (section 6, PR 7).
 //
 // Build with --fmad=false and IEEE division (the default), so that it
 // rounds as pair_test_plain does, operation for operation.
 
 #include <cuda_runtime.h>
 
+#include <climits>
+#include <cstdint>
+
 namespace {
 
-constexpr int kBlock = 128;
-constexpr int kLeaf = 128;
+constexpr int kLeaf = 128;                 // columns of a tile
+constexpr int kTileFloats = 16 * kLeaf;    // a treelet's constants
+constexpr uint32_t kTileBytes = kTileFloats * 4;
+constexpr int kPairs = 4;                  // pairs a thread
+constexpr int kWarps = 4;                  // warps a block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBlockPairs = kThreads * kPairs;
+constexpr int kStages = 2;                 // tiles the ring holds
+constexpr int kBlocksPerSm = 4;
 constexpr float kInf = 3.0e38f;
 constexpr float kDetEps = 1e-12f;
 
-__global__ void __launch_bounds__(kBlock)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.  A
+// wait that outlasts two seconds is a fault of the ring: trap, so that the
+// launch fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  unsigned long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    unsigned long long now;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    if (t0 == 0) {
+      t0 = now;
+    } else if (now - t0 > 2000000000ull) {
+      __trap();
+    }
+  }
+}
+
+// One asynchronous copy of `bytes` contiguous bytes (a multiple of 16, both
+// ends 16-byte aligned) from device memory to shared memory; the bytes are
+// counted on the barrier, on which the caller arrives here too.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ float4 ld4(const float* s) {
+  return *reinterpret_cast<const float4*>(s);
+}
+
+// s[j][e] = f[j][k0] * a.e for the kPairs pairs and 4 columns of a group
+#define PAIR_MUL(s, k0, a)                                  \
+  _Pragma("unroll") for (int j = 0; j < kPairs; ++j) {      \
+    s[j][0] = f[j][k0] * a.x;                               \
+    s[j][1] = f[j][k0] * a.y;                               \
+    s[j][2] = f[j][k0] * a.z;                               \
+    s[j][3] = f[j][k0] * a.w;                               \
+  }
+// s[j][e] = s[j][e] + f[j][k0] * a.e
+#define PAIR_MAD(s, k0, a)                                  \
+  _Pragma("unroll") for (int j = 0; j < kPairs; ++j) {      \
+    s[j][0] = s[j][0] + f[j][k0] * a.x;                     \
+    s[j][1] = s[j][1] + f[j][k0] * a.y;                     \
+    s[j][2] = s[j][2] + f[j][k0] * a.z;                     \
+    s[j][3] = s[j][3] + f[j][k0] * a.w;                     \
+  }
+
+// features of a pair, as they lie in its row: d, o, G
+enum { kDx, kDy, kDz, kOx, kOy, kOz, kGx, kGy, kGz, kFeats };
+
+// The kPairs pairs of a thread against the 128 columns of `tile`; `radius`
+// is a pair's search radius, or -1 where the pair is not of this tile.
+__device__ __forceinline__ void test_tile(const float* __restrict__ tile,
+                                          const float (&f)[kPairs][kFeats],
+                                          const float (&radius)[kPairs],
+                                          float (&tmin)[kPairs],
+                                          int (&col)[kPairs]) {
+#pragma unroll 1
+  for (int c = 0; c < kLeaf; c += 4) {
+    const float* p = tile + c;
+    // u det = G . e2 + d . P2: rows 6-8 and 12-14
+    float su[kPairs][4];
+    {
+      float4 a = ld4(p + 6 * kLeaf);
+      PAIR_MUL(su, kGx, a);
+      a = ld4(p + 7 * kLeaf);
+      PAIR_MAD(su, kGy, a);
+      a = ld4(p + 8 * kLeaf);
+      PAIR_MAD(su, kGz, a);
+      a = ld4(p + 12 * kLeaf);
+      PAIR_MAD(su, kDx, a);
+      a = ld4(p + 13 * kLeaf);
+      PAIR_MAD(su, kDy, a);
+      a = ld4(p + 14 * kLeaf);
+      PAIR_MAD(su, kDz, a);
+    }
+    // -(v det) = G . e1 + d . P1: rows 3-5 and 9-11
+    float sv[kPairs][4];
+    {
+      float4 a = ld4(p + 3 * kLeaf);
+      PAIR_MUL(sv, kGx, a);
+      a = ld4(p + 4 * kLeaf);
+      PAIR_MAD(sv, kGy, a);
+      a = ld4(p + 5 * kLeaf);
+      PAIR_MAD(sv, kGz, a);
+      a = ld4(p + 9 * kLeaf);
+      PAIR_MAD(sv, kDx, a);
+      a = ld4(p + 10 * kLeaf);
+      PAIR_MAD(sv, kDy, a);
+      a = ld4(p + 11 * kLeaf);
+      PAIR_MAD(sv, kDz, a);
+    }
+    // -det = d . N and t det = o . N - c0: rows 0-2 and 15
+    const float4 n0 = ld4(p), n1 = ld4(p + kLeaf), n2 = ld4(p + 2 * kLeaf);
+    float sd[kPairs][4];
+    PAIR_MUL(sd, kDx, n0);
+    PAIR_MAD(sd, kDy, n1);
+    PAIR_MAD(sd, kDz, n2);
+    float st[kPairs][4];
+    PAIR_MUL(st, kOx, n0);
+    PAIR_MAD(st, kOy, n1);
+    PAIR_MAD(st, kOz, n2);
+    const float4 c0 = ld4(p + 15 * kLeaf);
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      st[j][0] = st[j][0] - c0.x;
+      st[j][1] = st[j][1] - c0.y;
+      st[j][2] = st[j][2] - c0.z;
+      st[j][3] = st[j][3] - c0.w;
+    }
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float det = -sd[j][e];
+        const float sgn = det < 0.0f ? -1.0f : 1.0f;
+        const float ad = det * sgn;
+        const float u = su[j][e] * sgn;
+        const float v = -sv[j][e] * sgn;
+        const float tt = st[j][e] * sgn;
+        if (ad >= kDetEps && u >= 0.0f && v >= 0.0f && u + v <= ad &&
+            tt > 0.0f && tt < radius[j] * ad) {
+          const float t = tt / ad;
+          if (t < tmin[j]) {  // strict: the first column among equal t
+            tmin[j] = t;
+            col[j] = c + e;
+          }
+        }
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 pair_test_kernel(const float* __restrict__ consts,
                  const float* __restrict__ feats, const int* __restrict__ tid,
                  float* __restrict__ t_out, int* __restrict__ col_out, int n,
                  int n_treelets) {
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i >= n) return;
-  const int k = tid[i];
-  if (k < 0 || k >= n_treelets) {
-    t_out[i] = kInf;
-    col_out[i] = -1;
-    return;
-  }
-  const float4* f4 = reinterpret_cast<const float4*>(feats) +
-                     static_cast<size_t>(i) * 4;
-  const float4 a = __ldg(f4 + 0);  // dx dy dz ox
-  const float4 b = __ldg(f4 + 1);  // oy oz gx gy
-  const float4 c = __ldg(f4 + 2);  // gz 1 maxt 0
-  const float dx = a.x, dy = a.y, dz = a.z, ox = a.w;
-  const float oy = b.x, oz = b.y, gx = b.z, gy = b.w;
-  const float gz = c.x, maxt = c.z;
-  const float ndx = -dx, ndy = -dy, ndz = -dz;
-  const float ngx = -gx, ngy = -gy, ngz = -gz;
-  const float* tile = consts + static_cast<size_t>(k) * 16 * kLeaf;
+  __shared__ __align__(128) float ring[kStages * kTileFloats];
+  __shared__ int run_tid[kBlockPairs];  // the treelet of each run
+  __shared__ int warp_runs[kWarps];     // runs that start in each warp
+  __shared__ __align__(8) unsigned long long bars[2 * kStages];
+  const uint32_t ring_a = smem_addr(ring);
+  const uint32_t full_a = smem_addr(bars);
+  const uint32_t empty_a = full_a + 8 * kStages;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const bool producer = threadIdx.x == 0;
+  const int base = blockIdx.x * kBlockPairs;          // the block's first pair
+  const int first = base + warp * (32 * kPairs) + lane;  // the thread's
 
-  float tmin = kInf;
-  int col = -1;
-#pragma unroll 4
-  for (int j = 0; j < kLeaf; ++j) {
-    const float* cj = tile + j;
-    const float nx = __ldg(cj + 0 * kLeaf), ny = __ldg(cj + 1 * kLeaf);
-    const float nz = __ldg(cj + 2 * kLeaf);
-    const float e1x = __ldg(cj + 3 * kLeaf), e1y = __ldg(cj + 4 * kLeaf);
-    const float e1z = __ldg(cj + 5 * kLeaf);
-    const float e2x = __ldg(cj + 6 * kLeaf), e2y = __ldg(cj + 7 * kLeaf);
-    const float e2z = __ldg(cj + 8 * kLeaf);
-    const float p1x = __ldg(cj + 9 * kLeaf), p1y = __ldg(cj + 10 * kLeaf);
-    const float p1z = __ldg(cj + 11 * kLeaf);
-    const float p2x = __ldg(cj + 12 * kLeaf), p2y = __ldg(cj + 13 * kLeaf);
-    const float p2z = __ldg(cj + 14 * kLeaf);
-    const float c0 = __ldg(cj + 15 * kLeaf);
-    const float det = ndx * nx + ndy * ny + ndz * nz;
-    const float tdt = ox * nx + oy * ny + oz * nz - c0;
-    const float udt =
-        gx * e2x + gy * e2y + gz * e2z + dx * p2x + dy * p2y + dz * p2z;
-    const float vdt =
-        ngx * e1x + ngy * e1y + ngz * e1z + ndx * p1x + ndy * p1y + ndz * p1z;
-    const float sgn = det < 0.0f ? -1.0f : 1.0f;
-    const float ad = det * sgn;
-    const float su = udt * sgn;
-    const float sv = vdt * sgn;
-    const float st = tdt * sgn;
-    if (ad >= kDetEps && su >= 0.0f && sv >= 0.0f && su + sv <= ad &&
-        st > 0.0f && st < maxt * ad) {
-      const float t = st / ad;
-      if (t < tmin) {  // strict: the first column among equal t
-        tmin = t;
-        col = j;
-      }
+  if (producer) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_a + 8 * s, 1);
+      mbar_init(empty_a + 8 * s, kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+
+  // The runs of the block's pairs: a run starts at a pair of a treelet in
+  // [0, K) whose predecessor in the block has another id.  `starts[j]` has a
+  // bit for each lane whose j-th pair starts one.
+  int k[kPairs];
+  uint32_t starts[kPairs];
+  int warp_total = 0;
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    const int p = first + 32 * j;
+    k[j] = p < n ? tid[p] : -1;
+    if (k[j] < 0 || k[j] >= n_treelets) k[j] = -1;
+    const bool start = k[j] >= 0 && (p == base || tid[p - 1] != k[j]);
+    starts[j] = __ballot_sync(0xffffffffu, start);
+    warp_total += __popc(starts[j]);
+  }
+  if (lane == 0) warp_runs[warp] = warp_total;
+  __syncthreads();  // warp_runs, and the barriers' initial state
+  int run0 = 0;     // runs that start in earlier warps
+  int n_runs = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) run0 += warp_runs[w];
+    n_runs += warp_runs[w];
+  }
+  // run[j]: the run the thread's j-th pair lies in (-1: no pair): as many
+  // runs start at or before it, less one
+  int run[kPairs];
+  {
+    const uint32_t upto = 0xffffffffu >> (31 - lane);
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      const int r = run0 + __popc(starts[j] & upto) - 1;
+      run[j] = k[j] >= 0 ? r : -1;
+      if ((starts[j] >> lane) & 1u) run_tid[r] = k[j];
+      run0 += __popc(starts[j]);
     }
   }
-  t_out[i] = tmin;
-  col_out[i] = tmin < kInf ? col : -1;
+  __syncthreads();  // run_tid
+
+  const auto load_tile = [&](int r) {  // the constants of run r
+    const int s = r % kStages;
+    bulk_load(ring_a + s * kTileBytes,
+              consts + static_cast<size_t>(run_tid[r]) * kTileFloats,
+              kTileBytes, full_a + 8 * s);
+  };
+  if (producer) {
+    for (int r = 0; r < kStages && r < n_runs; ++r) load_tile(r);
+  }
+
+  // the features of the thread's pairs, while the first tiles arrive
+  float f[kPairs][kFeats];
+  float maxt[kPairs];
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+#pragma unroll
+    for (int i = 0; i < kFeats; ++i) f[j][i] = 0.0f;
+    maxt[j] = -1.0f;
+    if (run[j] >= 0) {
+      const float4* f4 = reinterpret_cast<const float4*>(feats) +
+                         static_cast<size_t>(first + 32 * j) * 4;
+      const float4 a = __ldg(f4 + 0);  // dx dy dz ox
+      const float4 b = __ldg(f4 + 1);  // oy oz gx gy
+      const float4 c = __ldg(f4 + 2);  // gz 1 maxt 0
+      f[j][kDx] = a.x; f[j][kDy] = a.y; f[j][kDz] = a.z; f[j][kOx] = a.w;
+      f[j][kOy] = b.x; f[j][kOz] = b.y; f[j][kGx] = b.z; f[j][kGy] = b.w;
+      f[j][kGz] = c.x;
+      maxt[j] = c.z;
+    }
+  }
+  float tmin[kPairs];
+  int col[kPairs];
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    tmin[j] = kInf;
+    col[j] = -1;
+  }
+
+  int s = 0;            // run r's slot, r % kStages, and
+  uint32_t parity = 0;  // the parity of its use of it, (r / kStages) & 1
+  for (int r = 0; r < n_runs; ++r) {
+    float radius[kPairs];
+    bool mine = false;
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      radius[j] = run[j] == r ? maxt[j] : -1.0f;
+      mine = mine || run[j] == r;
+    }
+    mbar_wait(full_a + 8 * s, parity);
+    if (__any_sync(0xffffffffu, mine)) {
+      test_tile(ring + s * kTileFloats, f, radius, tmin, col);
+    }
+    // this warp has left slot s; when all have, the producer refills it
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_a + 8 * s);
+    if (producer && r + kStages < n_runs) {
+      mbar_wait(empty_a + 8 * s, parity);
+      // the warps' reads of the slot before the copy engine's writes
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      load_tile(r + kStages);
+    }
+    if (++s == kStages) {
+      s = 0;
+      parity ^= 1;
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    const int p = first + 32 * j;
+    if (p < n) {
+      t_out[p] = tmin[j];
+      col_out[p] = tmin[j] < kInf ? col[j] : -1;
+    }
+  }
 }
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// Launches on `stream` and returns cudaGetLastError() (0 = launched).  The
+// caller guarantees 16-byte aligned consts and feats.
 extern "C" int treelet_pair_test(const float* consts, const float* feats,
                                  const int* tid, float* t, int* col, int n,
                                  int n_treelets, cudaStream_t stream) {
   if (n <= 0) return 0;
-  const int grid = (n + kBlock - 1) / kBlock;
-  pair_test_kernel<<<grid, kBlock, 0, stream>>>(consts, feats, tid, t, col,
-                                                n, n_treelets);
+  if (n > INT_MAX - kBlockPairs) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = (n - 1) / kBlockPairs + 1;
+  pair_test_kernel<<<grid, kThreads, 0, stream>>>(consts, feats, tid, t, col,
+                                                  n, n_treelets);
   return static_cast<int>(cudaGetLastError());
 }

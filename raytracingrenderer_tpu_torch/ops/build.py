@@ -20,7 +20,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -44,25 +44,28 @@ def nvcc() -> str:
     return path
 
 
-def library_path(name: str, src: Optional[Path] = None) -> Path:
+def library_path(name: str, src: Optional[Path] = None,
+                 flags: Sequence[str] = NVCC_FLAGS) -> Path:
     src = src or CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str, src: Optional[Path] = None) -> Path:
+def build(name: str, src: Optional[Path] = None,
+          flags: Sequence[str] = NVCC_FLAGS) -> Path:
     """Compile csrc/<name>.cu (or `src`, another revision of it, under the
     same library name and its own hash) unless an up-to-date library
-    exists."""
+    exists.  `flags` other than NVCC_FLAGS are for measurements beside the
+    shipped build (a probe that times a source with FMA allowed)."""
     src = src or CSRC / f"{name}.cu"
-    out = library_path(name, src)
+    out = library_path(name, src, flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+    cmd = [nvcc(), *flags, "-o", tmp, str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -70,10 +73,12 @@ def build(name: str, src: Optional[Path] = None) -> Path:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}"
                            f"{proc.stderr}")
     os.replace(tmp, out)
-    key = name if src == CSRC / f"{name}.cu" else str(src)
+    key = name if (src == CSRC / f"{name}.cu"
+                   and tuple(flags) == NVCC_FLAGS) else f"{src} {flags}"
     build_log[key] = (time.perf_counter() - t0, proc.stdout + proc.stderr)
     return out
 
 
-def load_library(name: str, src: Optional[Path] = None) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build(name, src)))
+def load_library(name: str, src: Optional[Path] = None,
+                 flags: Sequence[str] = NVCC_FLAGS) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build(name, src, flags)))

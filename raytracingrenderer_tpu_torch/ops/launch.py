@@ -22,14 +22,15 @@ PTR = ctypes.c_void_p
 I32 = ctypes.c_int
 
 
-def bind(library: str, signatures: Dict[str, Sequence], src=None
-         ) -> Dict[str, Callable]:
+def bind(library: str, signatures: Dict[str, Sequence], src=None,
+         flags=None) -> Dict[str, Callable]:
     """Load csrc/<library>.cu's shared library (or the one built from
-    `src`, another revision of that source) and return its launchers by
-    name, each with `argtypes` (the given ones, then the stream) and an
-    int `restype` set."""
-    from .build import load_library
-    lib = load_library(library, src)
+    `src`, another revision of that source, or with other nvcc `flags`
+    than build.NVCC_FLAGS) and return its launchers by name, each with
+    `argtypes` (the given ones, then the stream) and an int `restype`
+    set."""
+    from .build import NVCC_FLAGS, load_library
+    lib = load_library(library, src, NVCC_FLAGS if flags is None else flags)
     bound = {}
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -16,9 +16,10 @@ scripts' count, visits * 2 * 16 * TT * R.
 Each module lists its visit runs in CONFIGS (dicts of `visit`'s
 arguments, sizes included), which chip_smoke.py also reads.
 
-Beside them: `bench_b2` and `bench_visit` (a kernel source checked and
-timed beside another commit's in one call) and `trace_gpu_cpu` (the
-torch operators that make a render on the card part from the CPU's).
+Beside them: `bench_b2`, `bench_visit` and `bench_pairs` (a kernel
+source checked and timed beside another commit's in one call) and
+`trace_gpu_cpu` (the torch operators that make a render on the card part
+from the CPU's).
 """
 from __future__ import annotations
 
@@ -66,6 +67,33 @@ def timed_ms(fn: Callable, reps: int = 20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def capture_pass(scene, wrapped, **cfg) -> None:
+    """One 1-spp sample pass of `render(scene, RenderConfig(**cfg))` with
+    wrappers' functions watched: `wrapped` is [(module, name, keep)], and
+    `keep(*args, **kwargs)` sees each call of `module.name` made during
+    the pass before the function itself runs (to copy the inputs the
+    main path gives a kernel)."""
+    from ..config import RenderConfig
+    from ..render import render
+    real = [(mod, name, getattr(mod, name)) for mod, name, _ in wrapped]
+
+    def watch(fn, keep):
+        def call(*args, **kwargs):
+            keep(*args, **kwargs)
+            return fn(*args, **kwargs)
+        return call
+
+    for (mod, name, fn), (_, _, keep) in zip(real, wrapped):
+        setattr(mod, name, watch(fn, keep))
+    try:
+        render(scene, RenderConfig(**cfg), spp=1)
+    finally:
+        for mod, name, fn in real:
+            setattr(mod, name, fn)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
 
 
 def inputs(n_tiles: int, tt: int, blocks: int, device
