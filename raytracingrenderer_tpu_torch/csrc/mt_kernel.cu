@@ -273,9 +273,9 @@ extern "C" int mt_intersect(const float* rows, int n_tri, const float* ox,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int grid = (n - 1) / (kThreads * rays) + 1;
-  const auto kernel = rays == 4   ? mt_intersect_kernel<4>
-                      : rays == 2 ? mt_intersect_kernel<2>
-                                  : mt_intersect_kernel<1>;
+  decltype(&mt_intersect_kernel<1>) kernel = &mt_intersect_kernel<1>;
+  if (rays == 4) kernel = &mt_intersect_kernel<4>;
+  if (rays == 2) kernel = &mt_intersect_kernel<2>;
   kernel<<<grid, kThreads, 0, stream>>>(rows, n_tri, ox, oy, oz, dx, dy, dz,
                                         t_init, t, tri, u, v, n);
   return static_cast<int>(cudaGetLastError());

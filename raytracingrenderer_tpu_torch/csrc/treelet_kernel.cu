@@ -28,40 +28,38 @@
 // epilogue, all on operands that stay on chip: operations bound it (49 a
 // column over the FP32 peak), and since every product and sum is rounded
 // (--fmad=false, for the bit-for-bit check) the floor is the issue rate,
-// one instruction a cycle and scheduler: twice the bound.  With one pair a
-// thread and the constants read from global memory the kernel issued 16
-// loads for those 49 instructions, each a load of one address by a whole
-// warp, which costs as a full load.  The design:
-//   - A thread holds the features of kPairs = 4 pairs (pairs p, p + 32,
-//     p + 64, p + 96 of its warp's 128 consecutive ones, so that a warp's
-//     loads and stores fall on consecutive addresses) and walks the tile's
-//     columns four at a time: a 16-byte load of one constant row, a
-//     broadcast from shared memory, feeds 4 columns of 4 pairs, 16 loads for
-//     784 instructions.  The sums of a group are taken contraction by
-//     contraction (u, v, det, then t, which reuses N's rows), so that a
-//     contraction's 16 sums and the rows they read are live, not all 64.
+// one instruction a cycle and scheduler: twice the bound.  With the
+// constants read from global memory, one column at a time, the kernel
+// issued 16 loads for the 57 or so instructions a column that the
+// arithmetic, its compares and the branch around the division come to, each
+// a load of one address by a whole warp, which costs as a full load.  The
+// design:
+//   - A block is 128 threads over 128 consecutive pairs, one pair a thread,
+//     and walks the runs of equal treelet id in that range (the pairs are
+//     sorted, so one to three on a large scene; any order stays correct, a
+//     run is then shorter): it marks where tid[i] != tid[i - 1], counts the
+//     marks with warp votes and one pass through shared memory, and keeps the
+//     runs' ids in shared memory.
+//   - A run's constants are 16 x 128 contiguous floats: one thread brings
+//     the tiles of up to kWindow runs in, one cp.async.bulk each, completion
+//     counted on one mbarrier.  A thread then reads its own run's tile: a
+//     16-byte load of one constant row feeds 4 columns, 16 loads for 4
+//     columns' arithmetic; the threads of a warp read one address (a
+//     broadcast) or, where a run ends inside the warp, two.  No pair is
+//     tested against a tile that is not its own: a warp that straddles a run
+//     costs a second address a load, not a second pass.  A block with more
+//     runs than the window holds takes them window by window, between two
+//     barriers of the block.
 //   - The features are not negated: (-dx) nx + (-dy) ny + (-dz) nz is, under
 //     round-to-nearest, bit for bit -(dx nx + dy ny + dz nz), because a
 //     negation is exact and rounding is symmetric; so is v's sum.  (A sum
 //     that cancels comes out as -0 for +0, which no comparison of the
 //     epilogue tells apart and which reaches neither t nor col.)  The
 //     negation rides on the instruction that reads the sum.
-//   - A block is kWarps warps over 512 consecutive pairs and walks the runs
-//     of equal treelet id in that range (the pairs are sorted, so one or two
-//     on a large scene; any order stays correct, a run is then shorter): the
-//     block marks where tid[i] != tid[i - 1], counts the marks with warp
-//     votes and one pass through shared memory, and keeps the runs' ids in
-//     shared memory.  A run's constants are 16 x 128 contiguous floats: one
-//     thread brings them in with one cp.async.bulk, completion counted on an
-//     mbarrier, into a ring of kStages tiles.  Every warp waits for every
-//     tile (a warp that skipped one could meet the barrier two phases on and
-//     read a stale parity), tests it only where one of its pairs lies in the
-//     run, and leaves it through the slot's `empty` barrier; the producer
-//     refills a slot when all warps have left it.  A pair outside the run is
-//     masked by a radius of -1, which no t passes.
 //   - Columns are walked in ascending order with a strict `<`, so the first
 //     column among equal t is kept, as the plain version's min keeps it.
-// Tried and dropped: see PERF.md (section 6, PR 7).
+// Several pairs a thread over one tile, a ring refilled tile by tile, and
+// what else was tried and dropped: see PERF.md (section 6, PR 7).
 //
 // Build with --fmad=false and IEEE division (the default), so that it
 // rounds as pair_test_plain does, operation for operation.
@@ -76,12 +74,10 @@ namespace {
 constexpr int kLeaf = 128;                 // columns of a tile
 constexpr int kTileFloats = 16 * kLeaf;    // a treelet's constants
 constexpr uint32_t kTileBytes = kTileFloats * 4;
-constexpr int kPairs = 4;                  // pairs a thread
 constexpr int kWarps = 4;                  // warps a block
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBlockPairs = kThreads * kPairs;
-constexpr int kStages = 2;                 // tiles the ring holds
-constexpr int kBlocksPerSm = 4;
+constexpr int kThreads = 32 * kWarps;      // and pairs
+constexpr int kWindow = 3;                 // tiles resident at a time
+constexpr int kBlocksPerSm = 8;
 constexpr float kInf = 3.0e38f;
 constexpr float kDetEps = 1e-12f;
 
@@ -92,11 +88,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
                "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
                : "memory");
 }
 
@@ -127,15 +118,20 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// One asynchronous copy of `bytes` contiguous bytes (a multiple of 16, both
-// ends 16-byte aligned) from device memory to shared memory; the bytes are
-// counted on the barrier, on which the caller arrives here too.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
+// Tell the barrier that `bytes` bytes of asynchronous copies are under way,
+// and arrive on it.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
                    bar),
                "r"(bytes)
                : "memory");
+}
+
+// One asynchronous copy of `bytes` contiguous bytes (a multiple of 16, both
+// ends 16-byte aligned) from device memory to shared memory, counted on the
+// barrier.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];" ::"r"(dst),
@@ -147,106 +143,74 @@ __device__ __forceinline__ float4 ld4(const float* s) {
   return *reinterpret_cast<const float4*>(s);
 }
 
-// s[j][e] = f[j][k0] * a.e for the kPairs pairs and 4 columns of a group
-#define PAIR_MUL(s, k0, a)                                  \
-  _Pragma("unroll") for (int j = 0; j < kPairs; ++j) {      \
-    s[j][0] = f[j][k0] * a.x;                               \
-    s[j][1] = f[j][k0] * a.y;                               \
-    s[j][2] = f[j][k0] * a.z;                               \
-    s[j][3] = f[j][k0] * a.w;                               \
-  }
-// s[j][e] = s[j][e] + f[j][k0] * a.e
-#define PAIR_MAD(s, k0, a)                                  \
-  _Pragma("unroll") for (int j = 0; j < kPairs; ++j) {      \
-    s[j][0] = s[j][0] + f[j][k0] * a.x;                     \
-    s[j][1] = s[j][1] + f[j][k0] * a.y;                     \
-    s[j][2] = s[j][2] + f[j][k0] * a.z;                     \
-    s[j][3] = s[j][3] + f[j][k0] * a.w;                     \
-  }
+// s.e = f * a.e, and s.e = s.e + f * a.e, for the 4 columns of a group
+__device__ __forceinline__ float4 mul4(float f, const float4& a) {
+  return make_float4(f * a.x, f * a.y, f * a.z, f * a.w);
+}
 
-// features of a pair, as they lie in its row: d, o, G
-enum { kDx, kDy, kDz, kOx, kOy, kOz, kGx, kGy, kGz, kFeats };
+__device__ __forceinline__ float4 mad4(const float4& s, float f,
+                                       const float4& a) {
+  return make_float4(s.x + f * a.x, s.y + f * a.y, s.z + f * a.z,
+                     s.w + f * a.w);
+}
 
-// The kPairs pairs of a thread against the 128 columns of `tile`; `radius`
-// is a pair's search radius, or -1 where the pair is not of this tile.
+// A pair's ray as it lies in its feature row: d, o, G = o x d, the radius.
+struct Ray {
+  float dx, dy, dz, ox, oy, oz, gx, gy, gz, radius;
+};
+
+// One column's epilogue: sd = d . N = -det, st = t det, su = u det,
+// sv = -(v det), the sums as the contractions leave them.
+__device__ __forceinline__ void column(float sd, float st, float su, float sv,
+                                       float radius, int c, float& tmin,
+                                       int& col) {
+  const float det = -sd;
+  const float sgn = det < 0.0f ? -1.0f : 1.0f;
+  const float ad = det * sgn;
+  const float u = su * sgn;
+  const float v = -sv * sgn;
+  const float tt = st * sgn;
+  if (ad >= kDetEps && u >= 0.0f && v >= 0.0f && u + v <= ad && tt > 0.0f &&
+      tt < radius * ad) {
+    const float t = tt / ad;
+    if (t < tmin) {  // strict: the first column among equal t
+      tmin = t;
+      col = c;
+    }
+  }
+}
+
+// A pair against the 128 columns of its treelet's `tile`.
 __device__ __forceinline__ void test_tile(const float* __restrict__ tile,
-                                          const float (&f)[kPairs][kFeats],
-                                          const float (&radius)[kPairs],
-                                          float (&tmin)[kPairs],
-                                          int (&col)[kPairs]) {
+                                          const Ray& r, float& tmin,
+                                          int& col) {
 #pragma unroll 1
   for (int c = 0; c < kLeaf; c += 4) {
     const float* p = tile + c;
     // u det = G . e2 + d . P2: rows 6-8 and 12-14
-    float su[kPairs][4];
-    {
-      float4 a = ld4(p + 6 * kLeaf);
-      PAIR_MUL(su, kGx, a);
-      a = ld4(p + 7 * kLeaf);
-      PAIR_MAD(su, kGy, a);
-      a = ld4(p + 8 * kLeaf);
-      PAIR_MAD(su, kGz, a);
-      a = ld4(p + 12 * kLeaf);
-      PAIR_MAD(su, kDx, a);
-      a = ld4(p + 13 * kLeaf);
-      PAIR_MAD(su, kDy, a);
-      a = ld4(p + 14 * kLeaf);
-      PAIR_MAD(su, kDz, a);
-    }
+    float4 su = mul4(r.gx, ld4(p + 6 * kLeaf));
+    su = mad4(su, r.gy, ld4(p + 7 * kLeaf));
+    su = mad4(su, r.gz, ld4(p + 8 * kLeaf));
+    su = mad4(su, r.dx, ld4(p + 12 * kLeaf));
+    su = mad4(su, r.dy, ld4(p + 13 * kLeaf));
+    su = mad4(su, r.dz, ld4(p + 14 * kLeaf));
     // -(v det) = G . e1 + d . P1: rows 3-5 and 9-11
-    float sv[kPairs][4];
-    {
-      float4 a = ld4(p + 3 * kLeaf);
-      PAIR_MUL(sv, kGx, a);
-      a = ld4(p + 4 * kLeaf);
-      PAIR_MAD(sv, kGy, a);
-      a = ld4(p + 5 * kLeaf);
-      PAIR_MAD(sv, kGz, a);
-      a = ld4(p + 9 * kLeaf);
-      PAIR_MAD(sv, kDx, a);
-      a = ld4(p + 10 * kLeaf);
-      PAIR_MAD(sv, kDy, a);
-      a = ld4(p + 11 * kLeaf);
-      PAIR_MAD(sv, kDz, a);
-    }
+    float4 sv = mul4(r.gx, ld4(p + 3 * kLeaf));
+    sv = mad4(sv, r.gy, ld4(p + 4 * kLeaf));
+    sv = mad4(sv, r.gz, ld4(p + 5 * kLeaf));
+    sv = mad4(sv, r.dx, ld4(p + 9 * kLeaf));
+    sv = mad4(sv, r.dy, ld4(p + 10 * kLeaf));
+    sv = mad4(sv, r.dz, ld4(p + 11 * kLeaf));
     // -det = d . N and t det = o . N - c0: rows 0-2 and 15
     const float4 n0 = ld4(p), n1 = ld4(p + kLeaf), n2 = ld4(p + 2 * kLeaf);
-    float sd[kPairs][4];
-    PAIR_MUL(sd, kDx, n0);
-    PAIR_MAD(sd, kDy, n1);
-    PAIR_MAD(sd, kDz, n2);
-    float st[kPairs][4];
-    PAIR_MUL(st, kOx, n0);
-    PAIR_MAD(st, kOy, n1);
-    PAIR_MAD(st, kOz, n2);
+    const float4 sd = mad4(mad4(mul4(r.dx, n0), r.dy, n1), r.dz, n2);
+    float4 st = mad4(mad4(mul4(r.ox, n0), r.oy, n1), r.oz, n2);
     const float4 c0 = ld4(p + 15 * kLeaf);
-#pragma unroll
-    for (int j = 0; j < kPairs; ++j) {
-      st[j][0] = st[j][0] - c0.x;
-      st[j][1] = st[j][1] - c0.y;
-      st[j][2] = st[j][2] - c0.z;
-      st[j][3] = st[j][3] - c0.w;
-    }
-#pragma unroll
-    for (int j = 0; j < kPairs; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float det = -sd[j][e];
-        const float sgn = det < 0.0f ? -1.0f : 1.0f;
-        const float ad = det * sgn;
-        const float u = su[j][e] * sgn;
-        const float v = -sv[j][e] * sgn;
-        const float tt = st[j][e] * sgn;
-        if (ad >= kDetEps && u >= 0.0f && v >= 0.0f && u + v <= ad &&
-            tt > 0.0f && tt < radius[j] * ad) {
-          const float t = tt / ad;
-          if (t < tmin[j]) {  // strict: the first column among equal t
-            tmin[j] = t;
-            col[j] = c + e;
-          }
-        }
-      }
-    }
+    st = make_float4(st.x - c0.x, st.y - c0.y, st.z - c0.z, st.w - c0.w);
+    column(sd.x, st.x, su.x, sv.x, r.radius, c, tmin, col);
+    column(sd.y, st.y, su.y, sv.y, r.radius, c + 1, tmin, col);
+    column(sd.z, st.z, su.z, sv.z, r.radius, c + 2, tmin, col);
+    column(sd.w, st.w, su.w, sv.w, r.radius, c + 3, tmin, col);
   }
 }
 
@@ -255,140 +219,79 @@ pair_test_kernel(const float* __restrict__ consts,
                  const float* __restrict__ feats, const int* __restrict__ tid,
                  float* __restrict__ t_out, int* __restrict__ col_out, int n,
                  int n_treelets) {
-  __shared__ __align__(128) float ring[kStages * kTileFloats];
-  __shared__ int run_tid[kBlockPairs];  // the treelet of each run
-  __shared__ int warp_runs[kWarps];     // runs that start in each warp
-  __shared__ __align__(8) unsigned long long bars[2 * kStages];
-  const uint32_t ring_a = smem_addr(ring);
-  const uint32_t full_a = smem_addr(bars);
-  const uint32_t empty_a = full_a + 8 * kStages;
+  __shared__ __align__(128) float tiles[kWindow * kTileFloats];
+  __shared__ int run_tid[kThreads];  // the treelet of each run
+  __shared__ int warp_runs[kWarps];  // runs that start in each warp
+  __shared__ __align__(8) unsigned long long bar;  // a window has landed
+  const uint32_t tiles_a = smem_addr(tiles);
+  const uint32_t bar_a = smem_addr(&bar);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const bool producer = threadIdx.x == 0;
-  const int base = blockIdx.x * kBlockPairs;          // the block's first pair
-  const int first = base + warp * (32 * kPairs) + lane;  // the thread's
+  const int p = blockIdx.x * kThreads + threadIdx.x;  // the thread's pair
 
   if (producer) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full_a + 8 * s, 1);
-      mbar_init(empty_a + 8 * s, kWarps);
-    }
+    mbar_init(bar_a, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
 
   // The runs of the block's pairs: a run starts at a pair of a treelet in
-  // [0, K) whose predecessor in the block has another id.  `starts[j]` has a
-  // bit for each lane whose j-th pair starts one.
-  int k[kPairs];
-  uint32_t starts[kPairs];
-  int warp_total = 0;
-#pragma unroll
-  for (int j = 0; j < kPairs; ++j) {
-    const int p = first + 32 * j;
-    k[j] = p < n ? tid[p] : -1;
-    if (k[j] < 0 || k[j] >= n_treelets) k[j] = -1;
-    const bool start = k[j] >= 0 && (p == base || tid[p - 1] != k[j]);
-    starts[j] = __ballot_sync(0xffffffffu, start);
-    warp_total += __popc(starts[j]);
-  }
-  if (lane == 0) warp_runs[warp] = warp_total;
-  __syncthreads();  // warp_runs, and the barriers' initial state
-  int run0 = 0;     // runs that start in earlier warps
+  // [0, K) whose predecessor in the block has another id.
+  int k = p < n ? tid[p] : -1;
+  if (k < 0 || k >= n_treelets) k = -1;
+  const bool start = k >= 0 && (threadIdx.x == 0 || tid[p - 1] != k);
+  const uint32_t starts = __ballot_sync(0xffffffffu, start);
+  if (lane == 0) warp_runs[warp] = __popc(starts);
+  __syncthreads();  // warp_runs, and the barrier's initial state
+  int run = __popc(starts & (0xffffffffu >> (31 - lane))) - 1;
   int n_runs = 0;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) {
-    if (w < warp) run0 += warp_runs[w];
+    if (w < warp) run += warp_runs[w];
     n_runs += warp_runs[w];
   }
-  // run[j]: the run the thread's j-th pair lies in (-1: no pair): as many
-  // runs start at or before it, less one
-  int run[kPairs];
-  {
-    const uint32_t upto = 0xffffffffu >> (31 - lane);
-#pragma unroll
-    for (int j = 0; j < kPairs; ++j) {
-      const int r = run0 + __popc(starts[j] & upto) - 1;
-      run[j] = k[j] >= 0 ? r : -1;
-      if ((starts[j] >> lane) & 1u) run_tid[r] = k[j];
-      run0 += __popc(starts[j]);
-    }
-  }
-  __syncthreads();  // run_tid
+  // the run the pair lies in: as many runs start at or before it, less one
+  if (k < 0) run = -1;
+  if (start) run_tid[run] = k;
 
-  const auto load_tile = [&](int r) {  // the constants of run r
-    const int s = r % kStages;
-    bulk_load(ring_a + s * kTileBytes,
-              consts + static_cast<size_t>(run_tid[r]) * kTileFloats,
-              kTileBytes, full_a + 8 * s);
-  };
-  if (producer) {
-    for (int r = 0; r < kStages && r < n_runs; ++r) load_tile(r);
+  // the pair's features, while the tiles are brought in
+  Ray r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f};
+  if (run >= 0) {
+    const float4* f4 =
+        reinterpret_cast<const float4*>(feats) + static_cast<size_t>(p) * 4;
+    const float4 a = __ldg(f4 + 0);  // dx dy dz ox
+    const float4 b = __ldg(f4 + 1);  // oy oz gx gy
+    const float4 c = __ldg(f4 + 2);  // gz 1 maxt 0
+    r = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.z};
   }
+  float tmin = kInf;
+  int col = -1;
 
-  // the features of the thread's pairs, while the first tiles arrive
-  float f[kPairs][kFeats];
-  float maxt[kPairs];
-#pragma unroll
-  for (int j = 0; j < kPairs; ++j) {
-#pragma unroll
-    for (int i = 0; i < kFeats; ++i) f[j][i] = 0.0f;
-    maxt[j] = -1.0f;
-    if (run[j] >= 0) {
-      const float4* f4 = reinterpret_cast<const float4*>(feats) +
-                         static_cast<size_t>(first + 32 * j) * 4;
-      const float4 a = __ldg(f4 + 0);  // dx dy dz ox
-      const float4 b = __ldg(f4 + 1);  // oy oz gx gy
-      const float4 c = __ldg(f4 + 2);  // gz 1 maxt 0
-      f[j][kDx] = a.x; f[j][kDy] = a.y; f[j][kDz] = a.z; f[j][kOx] = a.w;
-      f[j][kOy] = b.x; f[j][kOz] = b.y; f[j][kGx] = b.z; f[j][kGy] = b.w;
-      f[j][kGz] = c.x;
-      maxt[j] = c.z;
-    }
-  }
-  float tmin[kPairs];
-  int col[kPairs];
-#pragma unroll
-  for (int j = 0; j < kPairs; ++j) {
-    tmin[j] = kInf;
-    col[j] = -1;
-  }
-
-  int s = 0;            // run r's slot, r % kStages, and
-  uint32_t parity = 0;  // the parity of its use of it, (r / kStages) & 1
-  for (int r = 0; r < n_runs; ++r) {
-    float radius[kPairs];
-    bool mine = false;
-#pragma unroll
-    for (int j = 0; j < kPairs; ++j) {
-      radius[j] = run[j] == r ? maxt[j] : -1.0f;
-      mine = mine || run[j] == r;
-    }
-    mbar_wait(full_a + 8 * s, parity);
-    if (__any_sync(0xffffffffu, mine)) {
-      test_tile(ring + s * kTileFloats, f, radius, tmin, col);
-    }
-    // this warp has left slot s; when all have, the producer refills it
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty_a + 8 * s);
-    if (producer && r + kStages < n_runs) {
-      mbar_wait(empty_a + 8 * s, parity);
-      // the warps' reads of the slot before the copy engine's writes
+  uint32_t parity = 0;
+  for (int w0 = 0; w0 < n_runs; w0 += kWindow) {
+    // run_tid is written, and every thread has left the window before
+    __syncthreads();
+    if (producer) {
+      const int count = min(kWindow, n_runs - w0);
+      // the threads' reads of the tiles before the copy engine's writes
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      load_tile(r + kStages);
+      mbar_expect(bar_a, count * kTileBytes);
+      for (int i = 0; i < count; ++i) {
+        bulk_copy(tiles_a + i * kTileBytes,
+                  consts + static_cast<size_t>(run_tid[w0 + i]) * kTileFloats,
+                  kTileBytes, bar_a);
+      }
     }
-    if (++s == kStages) {
-      s = 0;
-      parity ^= 1;
+    mbar_wait(bar_a, parity);
+    parity ^= 1;
+    if (run >= w0 && run < w0 + kWindow) {
+      test_tile(tiles + (run - w0) * kTileFloats, r, tmin, col);
     }
   }
 
-#pragma unroll
-  for (int j = 0; j < kPairs; ++j) {
-    const int p = first + 32 * j;
-    if (p < n) {
-      t_out[p] = tmin[j];
-      col_out[p] = tmin[j] < kInf ? col[j] : -1;
-    }
+  if (p < n) {
+    t_out[p] = tmin;
+    col_out[p] = tmin < kInf ? col : -1;
   }
 }
 
@@ -400,8 +303,8 @@ extern "C" int treelet_pair_test(const float* consts, const float* feats,
                                  const int* tid, float* t, int* col, int n,
                                  int n_treelets, cudaStream_t stream) {
   if (n <= 0) return 0;
-  if (n > INT_MAX - kBlockPairs) return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = (n - 1) / kBlockPairs + 1;
+  if (n > INT_MAX - kThreads) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = (n - 1) / kThreads + 1;
   pair_test_kernel<<<grid, kThreads, 0, stream>>>(consts, feats, tid, t, col,
                                                   n, n_treelets);
   return static_cast<int>(cudaGetLastError());

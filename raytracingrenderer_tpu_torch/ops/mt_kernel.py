@@ -4,8 +4,8 @@ plain torch version.
 Counterpart of raytracingrenderer_tpu/ops/mt_kernel.py, whose Pallas
 kernel (`_kernel`, launched by `intersect_pallas`) carries small scenes
 on the TPU.  Here the kernel is csrc/mt_kernel.cu, written for Hopper
-(sm_90a): one thread per ray, triangles streamed through shared memory
-in tiles.  It computes what the TPU kernel computes, with the same
+(sm_90a): several rays a thread, padded triangle rows streamed through
+a ring of shared-memory tiles by bulk copies.  It computes what the TPU kernel computes, with the same
 arithmetic: `t_init` seeds each ray's search radius, so closest-hit
 passes BIG_T and any-hit passes the segment length (an occlusion exists
 iff a triangle id was recorded); a miss keeps t = t_init, tri = -1,
@@ -31,16 +31,29 @@ MAX_SMEM_TRIS = 4096   # the TPU kernel's dispatch cap, kept as the contract
 # (N, chunk) temporaries to 64 MB each.
 _PAIR_BUDGET = 1 << 24
 
+ROW = 12               # floats of a packed row: 9 and the padding
+_PACKED_SETS = 8       # triangle sets whose packed rows are kept
+
 launches = 0           # kernel launches since import (or the last reset)
 _lib = None
+_packed = []           # [(the 9 tensors and their versions, rows)]
 
 
 def pack_tris(tris: Triangles) -> torch.Tensor:
-    """(T, 9) contiguous f32 rows [p0 e1 e2]."""
-    return torch.stack([
-        tris.p0.x, tris.p0.y, tris.p0.z,
-        tris.e1.x, tris.e1.y, tris.e1.z,
-        tris.e2.x, tris.e2.y, tris.e2.z], dim=-1).contiguous()
+    """(T, ROW) contiguous f32 rows [p0 e1 e2 0 0 0]: what the kernel
+    reads, three 16-byte loads a row.  Packed once a triangle set: the
+    rows are kept with the nine component tensors they were made from
+    (checked by identity and version, so a new or an updated `Triangles`
+    packs anew), the last few sets only."""
+    parts = (*tris.p0, *tris.e1, *tris.e2)
+    for kept, rows in _packed:
+        if all(a is b and a._version == v for a, (b, v) in zip(parts, kept)):
+            return rows
+    zero = torch.zeros_like(parts[0])
+    rows = torch.stack([*parts] + [zero] * (ROW - 9), dim=-1).contiguous()
+    _packed.insert(0, (tuple((a, a._version) for a in parts), rows))
+    del _packed[_PACKED_SETS:]
+    return rows
 
 
 def intersect_plain(tris: Triangles, o: V3, d: V3, t_init: torch.Tensor,
@@ -88,8 +101,8 @@ def _library():
 
 
 def _check(rows: torch.Tensor, arrays, n: int) -> None:
-    if rows.dim() != 2 or rows.shape[1] != 9:
-        raise ValueError(f"triangle rows must be (T, 9), got "
+    if rows.dim() != 2 or rows.shape[1] != ROW:
+        raise ValueError(f"triangle rows must be (T, {ROW}), got "
                          f"{tuple(rows.shape)}")
     if rows.shape[0] > MAX_SMEM_TRIS:
         raise ValueError(f"{rows.shape[0]} triangles exceed the brute-force "
@@ -122,6 +135,9 @@ def intersect(tris: Triangles, o: V3, d: V3, t_init: torch.Tensor) -> Hit:
         return intersect_plain(tris, o, d, t_init)
     if dev.type != "cuda":
         raise ValueError(f"no MT kernel for device {dev}")
+    if rows.data_ptr() % 16:
+        raise ValueError("the packed rows must be 16-byte aligned (copied "
+                         "in bulk, read as float4)")
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     u = torch.empty(n, dtype=torch.float32, device=dev)

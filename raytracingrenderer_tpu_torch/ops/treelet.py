@@ -5,7 +5,8 @@ Counterpart of raytracingrenderer_tpu/ops/treelet.py, whose Pallas
 kernel `_pair_kernel` (launched by `_pair_test`) tests (ray, treelet)
 pairs as four (16, T_LEAF) x (16, PAIR_TILE) matrix products on the
 TPU's MXU.  Here the kernel is csrc/treelet_kernel.cu, written for
-Hopper: one thread per pair, in IEEE fp32 on the CUDA cores.  The route
+Hopper: several pairs a thread against a treelet's constants in shared
+memory, in IEEE fp32 on the CUDA cores.  The route
 (`traverse_treelet`) is the JAX package's, step for step:
 
   1. `candidates`: per ray, the treelets whose box the ray enters within
@@ -328,8 +329,9 @@ def pair_test(consts: torch.Tensor, feats_p: torch.Tensor,
         return pair_test_plain(consts, feats_p, tid_p)
     if dev.type != "cuda":
         raise ValueError(f"no pair-test kernel for device {dev}")
-    if feats_p.data_ptr() % 16:
-        raise ValueError("feats must be 16-byte aligned (read as float4)")
+    if feats_p.data_ptr() % 16 or consts.data_ptr() % 16:
+        raise ValueError("feats and consts must be 16-byte aligned (read as "
+                         "float4, copied in bulk)")
     t = torch.empty(p, dtype=torch.float32, device=dev)
     col = torch.empty(p, dtype=torch.int32, device=dev)
     if p == 0:

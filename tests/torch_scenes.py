@@ -238,3 +238,59 @@ def write_spheres(scene_dir, width=1024, height=1024, subdiv=5):
     with open(os.path.join(scene_dir, "scene.json"), "w") as fh:
         json.dump(desc, fh, indent=1)
     return scene_dir
+
+
+PAIR_PATTERNS = ("one", "each", "runs", "sentinel_tail", "sentinel_mid",
+                 "equal_t")
+PAIR_SENTINEL = 0x7FFFFF
+
+
+def pair_case(p, pattern, seed=0):
+    """Synthetic inputs of the treelet pair test at the shapes its
+    partition could break -> (consts (K*16, 128) f32, feats (P, 16) f32,
+    tid (P,) i32), numpy arrays in the layout of `pack_constants`,
+    `_feats` and the sorted pair ids.  Patterns: "one" treelet for every
+    pair; "each": a new treelet every pair; "runs" of 1 to 5 pairs a
+    treelet; "sentinel_tail": the last tenth (at least one pair) keyed
+    to the sentinel; "sentinel_mid": ids out of range (the sentinel, -1
+    and K) strewn through the middle; "equal_t": one treelet whose
+    columns 9, 70 and 71 repeat the triangles of columns 5, 5 and 70, so
+    that equal t meet at several columns.  Each treelet has 100 to 128
+    triangles around the origin (the other columns are zero) and each
+    ray starts near the origin with a radius of 0.3 to 4."""
+    g = np.random.default_rng([seed, p, PAIR_PATTERNS.index(pattern)])
+    if pattern in ("one", "equal_t"):
+        tid = np.full(p, 3)
+    elif pattern == "each":
+        tid = np.arange(p)
+    else:
+        tid = np.repeat(np.arange(p), g.integers(1, 6, p))[:p]
+    k = max(int(tid.max()) + 1, 4)
+    if pattern == "sentinel_tail":
+        tid[p - max(p // 10, 1):] = PAIR_SENTINEL
+    if pattern == "sentinel_mid":
+        bad = g.random(p) < 0.2
+        tid[bad] = g.choice([PAIR_SENTINEL, -1, k], int(bad.sum()))
+    p0 = g.uniform(-1, 1, (k, 128, 3)).astype(np.float32)
+    e1 = (g.standard_normal((k, 128, 3)) * 0.6).astype(np.float32)
+    e2 = (g.standard_normal((k, 128, 3)) * 0.6).astype(np.float32)
+    if pattern == "equal_t":
+        for a in (p0, e1, e2):
+            a[:, 9] = a[:, 5]
+            a[:, 70] = a[:, 5]
+            a[:, 71] = a[:, 70]
+    n = np.cross(e1, e2)
+    rows = np.concatenate([n, e1, e2, np.cross(p0, e1), np.cross(p0, e2),
+                           (p0 * n).sum(-1, keepdims=True)], axis=-1)
+    filled = np.arange(128)[None, :] < g.integers(100, 129, k)[:, None]
+    rows = np.where(filled[..., None], rows, 0.0).astype(np.float32)
+    consts = np.ascontiguousarray(rows.transpose(0, 2, 1)).reshape(k * 16,
+                                                                   128)
+    o = g.uniform(-0.3, 0.3, (p, 3)).astype(np.float32)
+    d = g.standard_normal((p, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    feats = np.zeros((p, 16), np.float32)
+    feats[:, 0:3], feats[:, 3:6], feats[:, 6:9] = d, o, np.cross(o, d)
+    feats[:, 9] = 1.0
+    feats[:, 10] = g.uniform(0.3, 4.0, p)
+    return consts, feats, tid.astype(np.int32)
