@@ -12,11 +12,18 @@ Phases (any failure exits non-zero):
      (sm_90a), one nvcc per source, all started together, beside the
      native BVH builder's library (the committed one, or g++ of
      native/bvh_builder.cpp where the CPU lacks AVX-512);
-  3. the MT kernel (B1) against its plain torch version on the card, at
-     the shapes the renders give it, closest-hit and any-hit, with 10%
-     dead lanes: t within rtol/atol 1e-4, triangle ids and any-hit bits
-     agreeing on >= 99.9% of rays, no dead lane hit; kernel and plain
-     times at 1,048,576 rays;
+  3. the MT kernel (B1) against its plain torch version on the card, bit
+     for bit (max |dt| = 0, every id, u, v and any-hit bit equal, no dead
+     lane hit), closest-hit and any-hit: 2^20 + 77 random rays with 10%
+     dead lanes against the cornell box's 36 triangles and against 128
+     and 4096 random ones; the inputs of every launch of one cornell
+     sample pass (12 launches at 2^20 coherent rays) and of the any-hit
+     proxy pre-pass of one spheres wavefront pass (6 launches over 128
+     triangles, narrowing widths), kept by wrapping the wrapper for that
+     pass and timed as a pass (`render_pass_ms`); kernel and plain times
+     at 1,048,576 random rays beside the bound and the issue floor (the
+     operations as FP32 instructions at half the peak rate: the kernel
+     is built without FMA); the host's microseconds a call by stage;
   4. the BVH kernel (B2) against its plain torch version on the spheres
      scene (the cornell box plus 16 icospheres, 327,716 triangles),
      closest-hit and any-hit: (a) 2^20 + 77 rays from
@@ -60,10 +67,12 @@ Phases (any failure exits non-zero):
      random rays with 10% dead lanes; (c) 2^20 live random rays, which
      time B3, B2 and the plain wide walk;
   9. the treelet pair-test kernel (B4) against its plain version, bit
-     for bit (t and column), on the pairs of the first call of one
-     sample pass of the spheres render with `attach_treelets` applied
-     (the primary closest-hit call, 2^20 rays); both timed, and the share
-     of live rays that overflowed to B2 printed;
+     for bit (t and column), on the pairs of every `pair_test` call of
+     one sample pass of the spheres render with `attach_treelets` applied
+     (12 calls; the first is the primary closest-hit call, 2^20 rays);
+     the first call and the pass (`render_pass_ms`) timed beside the
+     bound and the issue floor, and the share of live rays that
+     overflowed to B2 printed;
  10. main path 3, that render at 1024x1024, 8 spp through the treelet
      route: B4, B1 (the proxy pre-pass) and both B2 variants (the
      overflow fallback) must have launched and `treelet_calls` be
@@ -297,6 +306,15 @@ def bound(ms, ops=0.0, nbytes=0.0, tf32_ops=0.0):
                 bound_share=b / ms if ms else None)
 
 
+def issue(ms, ops):
+    """The issue floor of a fp32 kernel built without FMA: its operations
+    as FP32 instructions, of which the card issues PEAK_FP32 / 2 a second
+    -> the kernels line's `issue_ms` and the share of it that `ms`
+    reached."""
+    issue_ms = ops / (PEAK_FP32 / 2) * 1e3
+    return dict(issue_ms=issue_ms, issue_share=issue_ms / ms if ms else None)
+
+
 def compare(torch, what, t_init, k, p, any_hit, min_hit_frac=None,
             exact=False):
     """A kernel's output against its plain version's on one batch: log
@@ -331,19 +349,22 @@ def compare(torch, what, t_init, k, p, any_hit, min_hit_frac=None,
 
 
 def check_mt_kernel(torch, name, tris, timed: bool):
-    """B1 vs plain on the card; returns (max_abs_err, ms, plain_ms, the
-    bound keys at the timed width)."""
+    """B1 vs plain on the card, bit for bit; returns (max_abs_err, ms,
+    plain_ms, the bound and issue keys at the timed width)."""
     from raytracingrenderer_tpu_torch.ops import mt_kernel
     o, d, t_closest, t_any = make_rays(torch, N_CHECK, seed=0)
     what = f"mt_kernel {name}, {tris.count} triangles"
     err, _ = compare(torch, f"{what}, closest-hit", t_closest,
                      mt_kernel.intersect(tris, o, d, t_closest),
                      mt_kernel.intersect_plain(tris, o, d, t_closest),
-                     any_hit=False, min_hit_frac=0.1)
+                     any_hit=False, min_hit_frac=0.1, exact=True)
+    plain_any = mt_kernel.intersect_plain(tris, o, d, t_any)
+    compare(torch, f"{what}, any-hit radii, the hits", t_any,
+            mt_kernel.intersect(tris, o, d, t_any), plain_any,
+            any_hit=False, exact=True)
     compare(torch, f"{what}, any-hit", t_any,
-            mt_kernel.any_hit(tris, o, d, t_any),
-            mt_kernel.intersect_plain(tris, o, d, t_any).tri >= 0,
-            any_hit=True)
+            mt_kernel.any_hit(tris, o, d, t_any), plain_any.tri >= 0,
+            any_hit=True, exact=True)
     ms = plain_ms = None
     b = {}
     if timed:
@@ -352,13 +373,101 @@ def check_mt_kernel(torch, name, tris, timed: bool):
             tris, o, d, t_closest), 20)
         plain_ms = time_ms(torch, lambda: mt_kernel.intersect_plain(
             tris, o, d, t_closest), 3)
-        b = bound(ms, N_TIMED * tris.count * MT_PAIR_OPS,
-                  N_TIMED * RAY_BYTES + tris.count * 36)
+        ops = N_TIMED * tris.count * MT_PAIR_OPS
+        b = dict(bound(ms, ops, N_TIMED * RAY_BYTES + tris.count * 36),
+                 **issue(ms, ops))
         log(f"mt_kernel {name}: closest-hit at {N_TIMED} rays x "
             f"{tris.count} triangles: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms "
-            f"({b['bound_by']}), share {b['bound_share']:.4f}")
+            f"({b['bound_by']}), share {b['bound_share']:.4f}; issue floor "
+            f"without FMA {b['issue_ms']:.4f} ms, share "
+            f"{b['issue_share']:.4f}")
     return err, ms, plain_ms, b
+
+
+def check_mt_passes(torch, cornell, spheres):
+    """B1 on what the renders give it: the inputs of every launch of one
+    cornell sample pass and of the proxy pre-pass of one spheres
+    wavefront pass, kept by wrapping `mt_kernel.intersect` for that
+    pass; each launch bit for bit with `intersect_plain`, then the pass
+    timed (the sum over its launches).  Returns per pass the numbers of
+    the kernels line."""
+    from raytracingrenderer_tpu_torch.core.vec import V3
+    from raytracingrenderer_tpu_torch.ops import mt_kernel
+    from raytracingrenderer_tpu_torch.probes import capture_pass
+    out = {}
+    for name, scene in (("cornell", cornell), ("spheres_prepass", spheres)):
+        kept = []
+
+        def keep(tris, o, d, t_init):
+            if o.x.shape[0]:
+                kept.append((tris, V3(*(c.clone() for c in o)),
+                             V3(*(c.clone() for c in d)), t_init.clone()))
+
+        capture_pass(scene, [(mt_kernel, "intersect", keep)], **BENCH_CFG)
+        err = 0.0
+        for i, (tris, o, d, t_init) in enumerate(kept):
+            e, _ = compare(torch, f"mt_kernel {name} pass launch {i}, "
+                           f"{tris.count} triangles", t_init,
+                           mt_kernel.intersect(tris, o, d, t_init),
+                           mt_kernel.intersect_plain(tris, o, d, t_init),
+                           any_hit=False, exact=True)
+            err = max(err, e)
+        pass_ms = time_ms(torch, lambda: [mt_kernel.intersect(*b)
+                                          for b in kept], 10)
+        pairs = sum(b[0].count * b[3].shape[0] for b in kept)
+        out[name] = dict(
+            max_abs_err=err, render_pass_ms=pass_ms,
+            render_pass_widths=[int(b[3].shape[0]) for b in kept],
+            render_pass_triangles=kept[0][0].count,
+            render_pass_issue_ms=issue(pass_ms,
+                                       pairs * MT_PAIR_OPS)["issue_ms"])
+        log(f"mt_kernel over the {len(kept)} launches of one 1024x1024 "
+            f"{name} pass ({kept[0][0].count} triangles, widths "
+            f"{out[name]['render_pass_widths']}): {pass_ms:.3f} ms, issue "
+            f"floor {out[name]['render_pass_issue_ms']:.3f} ms")
+    return out
+
+
+def mt_host_split(torch, tris):
+    """Host microseconds a call of `mt_kernel.intersect`, whole and by
+    stage (the packed rows, kept from the first call; the checks; the
+    four outputs; the launch): the host clock over 500 calls of 1024
+    rays that are enqueued and not waited for."""
+    from raytracingrenderer_tpu_torch.ops import mt_kernel
+    from raytracingrenderer_tpu_torch.ops.launch import launch
+    o, d, t_init, _ = make_rays(torch, 1024, seed=9, dead_frac=0.0)
+    n, dev = 1024, t_init.device
+    rows = mt_kernel.pack_tris(tris)
+    arrays = (("o.x", o.x), ("o.y", o.y), ("o.z", o.z), ("d.x", d.x),
+              ("d.y", d.y), ("d.z", d.z), ("t_init", t_init))
+    outs = [torch.empty(n, dtype=dt, device=dev) for dt in
+            (torch.float32, torch.int32, torch.float32, torch.float32)]
+    fn = mt_kernel._library()["mt_intersect"]
+
+    def per_call_us(f, reps=500):
+        f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(reps):
+            f()
+        dt = time.perf_counter_ns() - t0
+        torch.cuda.synchronize()
+        return dt / reps / 1e3
+
+    us = dict(
+        call=per_call_us(lambda: mt_kernel.intersect(tris, o, d, t_init)),
+        pack=per_call_us(lambda: mt_kernel.pack_tris(tris)),
+        checks=per_call_us(lambda: mt_kernel._check(rows, arrays, n)),
+        empty=per_call_us(lambda: [torch.empty(n, dtype=x.dtype, device=dev)
+                                   for x in outs]),
+        launch=per_call_us(lambda: launch(
+            fn, dev, rows.data_ptr(), rows.shape[0],
+            *(a.data_ptr() for _, a in arrays),
+            *(x.data_ptr() for x in outs), n)))
+    log(f"mt_kernel: host us a call of intersect, whole and by stage (500 "
+        f"calls of 1024 rays): { {k: round(v, 2) for k, v in us.items()} }")
+    return us
 
 
 def capture_b2_inputs(torch, scene):
@@ -640,61 +749,69 @@ def check_wide_kernel(torch, scene, batches):
     return out
 
 
-def capture_treelet_call(torch, scene):
+def capture_treelet_calls(torch, scene):
     """One sample pass of the treelet render with the pair test and the
-    candidate stage wrapped, keeping the first call's pair-test inputs
-    and overflow flags: the primary closest-hit call at full width."""
-    from raytracingrenderer_tpu_torch.config import RenderConfig
+    candidate stage watched -> (the pair-test inputs of every call,
+    [(consts, feats, tid)]; the first call's overflow flags and live
+    lanes: the primary closest-hit call at full width)."""
     from raytracingrenderer_tpu_torch.ops import treelet
-    from raytracingrenderer_tpu_torch.render import render
-    real_pairs, real_cands = treelet.pair_test, treelet.candidates
-    kept = {}
+    from raytracingrenderer_tpu_torch.probes import capture_pass
+    pairs, first = [], {}
+    real_cands = treelet.candidates
 
-    def keep_pairs(consts, feats, tid):
-        kept.setdefault("pairs", (consts, feats.clone(), tid.clone()))
-        return real_pairs(consts, feats, tid)
-
-    def keep_cands(bvh, o, d, t_seed):
+    def cands(bvh, o, d, t_seed):
         slots, over = real_cands(bvh, o, d, t_seed)
-        kept.setdefault("overflow", (over.clone(), t_seed > 0.0))
+        first.setdefault("overflow", (over.clone(), t_seed > 0.0))
         return slots, over
 
-    treelet.pair_test, treelet.candidates = keep_pairs, keep_cands
+    treelet.candidates = cands
     try:
-        render(scene, RenderConfig(**BENCH_CFG), spp=1)
+        capture_pass(scene, [(treelet, "pair_test",
+                              lambda consts, feats, tid: pairs.append(
+                                  (consts, feats.clone(), tid.clone())))],
+                     **BENCH_CFG)
     finally:
-        treelet.pair_test, treelet.candidates = real_pairs, real_cands
-    torch.cuda.synchronize()
-    return kept
+        treelet.candidates = real_cands
+    return pairs, first["overflow"]
 
 
 def check_pair_kernel(torch, scene):
-    """B4 against `pair_test_plain` on the pairs of one full-width
-    closest-hit call of the treelet route, bit for bit (t and col);
-    both timed.  Returns the numbers of the kernels line."""
+    """B4 against `pair_test_plain` on the pairs of every `pair_test`
+    call of one sample pass of the treelet route, bit for bit (t and
+    col); the first call (the primary closest-hit call at full width)
+    and the pass timed.  Returns the numbers of the kernels line."""
     from raytracingrenderer_tpu_torch.ops import treelet
-    kept = capture_treelet_call(torch, scene)
-    consts, feats, tid = kept["pairs"]
-    over, active = kept["overflow"]
+    calls, (over, active) = capture_treelet_calls(torch, scene)
     n_rays = int(over.shape[0])
     share = over[active].float().mean().item()
-    tk, ck = treelet.pair_test(consts, feats, tid)
-    tp, cp = treelet.pair_test_plain(consts, feats, tid)
-    hits = tp < treelet.INF
-    err = (tk - tp).abs().max().item()
-    mism = int((ck != cp).sum())
-    log(f"treelet_pair_test: {tid.shape[0]} pairs of {n_rays} rays "
-        f"({consts.shape[0] // 16} treelets), {hits.float().mean().item():.3f}"
-        f" of pairs hit, max_abs_err {err:.3e}, {mism} columns differ; "
-        f"{share:.4%} of the live rays overflowed to B2")
-    if not (torch.equal(tk, tp) and torch.equal(ck, cp)):
-        fail("the pair-test kernel disagrees with pair_test_plain")
+    err, mism, plain_ms = 0.0, 0, None
+    for i, (consts, feats, tid) in enumerate(calls):
+        tk, ck = treelet.pair_test(consts, feats, tid)
+        (tp, cp), ms_p = time_once(torch, lambda: treelet.pair_test_plain(
+            consts, feats, tid))
+        plain_ms = ms_p if plain_ms is None else plain_ms
+        e = (tk - tp).abs().max().item() if tid.shape[0] else 0.0
+        m = int((ck != cp).sum())
+        log(f"treelet_pair_test call {i}: {tid.shape[0]} pairs "
+            f"({consts.shape[0] // 16} treelets), "
+            f"{(tp < treelet.INF).float().mean().item():.3f} of pairs hit, "
+            f"max_abs_err {e:.3e}, {m} columns differ")
+        if not (torch.equal(tk, tp) and torch.equal(ck, cp)):
+            fail("the pair-test kernel disagrees with pair_test_plain")
+        err, mism = max(err, e), mism + m
+    log(f"treelet_pair_test: {len(calls)} calls of one pass equal the plain "
+        f"version bit for bit; {share:.4%} of the first call's live rays "
+        f"overflowed to B2")
+    consts, feats, tid = calls[0]
     ms = time_ms(torch, lambda: treelet.pair_test(consts, feats, tid), 20)
-    _, plain_ms = time_once(torch, lambda: treelet.pair_test_plain(
-        consts, feats, tid))
+    pass_ms = time_ms(torch, lambda: [treelet.pair_test(*c) for c in calls],
+                      10)
     pairs = int(tid.shape[0])
+    pass_pairs = sum(int(c[2].shape[0]) for c in calls)
     nbytes = (consts.numel() * 4 + pairs * (feats.shape[1] * 4 + 4 + 8))
-    b = bound(ms, pairs * treelet.T_LEAF * PAIR_OPS, nbytes)
+    ops = pairs * treelet.T_LEAF * PAIR_OPS
+    b = dict(bound(ms, ops, nbytes), **issue(ms, ops))
+    pass_issue = issue(pass_ms, pass_pairs * treelet.T_LEAF * PAIR_OPS)
     # the same pairs with the four 16-deep contractions on the tensor
     # cores in TF32 (dense, 2 * 16 * 4 * T_LEAF a pair, as the TPU kernel
     # runs them) and the rest on the FP32 pipes
@@ -702,11 +819,17 @@ def check_pair_kernel(torch, scene):
                    tf32_ops=pairs * 2 * 16 * 4 * treelet.T_LEAF)
     log(f"treelet_pair_test: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms at "
         f"{pairs} pairs; bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
-        f"FP32), share {b['bound_share']:.4f}; with TF32 contractions "
-        f"{b_tf32['bound_ms']:.4f} ms ({b_tf32['bound_by']})")
+        f"FP32), share {b['bound_share']:.4f}; issue floor without FMA "
+        f"{b['issue_ms']:.4f} ms, share {b['issue_share']:.4f}; with TF32 "
+        f"contractions {b_tf32['bound_ms']:.4f} ms ({b_tf32['bound_by']}); "
+        f"over the pass's {len(calls)} calls ({pass_pairs} pairs) "
+        f"{pass_ms:.3f} ms, issue floor {pass_issue['issue_ms']:.3f} ms")
     return dict(max_abs_err=err, mismatches=mism, ms=ms, plain_ms=plain_ms,
                 pairs=pairs, rays=n_rays, overflow_share=share,
-                library_ms=None, **b, tf32_bound_ms=b_tf32["bound_ms"])
+                library_ms=None, **b, tf32_bound_ms=b_tf32["bound_ms"],
+                render_pass_ms=pass_ms,
+                render_pass_pairs=[int(c[2].shape[0]) for c in calls],
+                render_pass_issue_ms=pass_issue["issue_ms"])
 
 
 def visit_bound(cfg, ms):
@@ -1198,6 +1321,8 @@ def main() -> None:
                                      random_tris(torch, 128, 2), timed=False)
     err_c, ms_c, plain_c, bound_c = check_mt_kernel(
         torch, "(c) random-4096", random_tris(torch, 4096, 3), timed=True)
+    mt_pass = check_mt_passes(torch, cornell, spheres)
+    mt_host_us = mt_host_split(torch, cornell.triangles)
 
     # -- 4. B2 against its plain version -----------------------------------
     b2, b2_batches = check_bvh_kernel(torch, spheres)
@@ -1284,15 +1409,23 @@ def main() -> None:
         "replaces": "raytracingrenderer_tpu/ops/mt_kernel.py:41",
         "launches": mt_cornell,
         "launches_spheres_prepass": mt_spheres,
-        "max_abs_err": max(err_a, err_b, err_c),
+        "max_abs_err": max(err_a, err_b, err_c,
+                           *(p["max_abs_err"] for p in mt_pass.values())),
         "ms": ms_a,
         "plain_ms": plain_a,
         "library_ms": None,
         **bound_a,
+        "render_pass_ms": mt_pass["cornell"]["render_pass_ms"],
+        "render_pass_issue_ms": mt_pass["cornell"]["render_pass_issue_ms"],
+        "render_pass_widths": mt_pass["cornell"]["render_pass_widths"],
+        "spheres_prepass": mt_pass["spheres_prepass"],
+        "host_us": mt_host_us,
         "ms_4096_tris": ms_c,
         "plain_ms_4096_tris": plain_c,
         "bound_ms_4096_tris": bound_c["bound_ms"],
         "bound_share_4096_tris": bound_c["bound_share"],
+        "issue_ms_4096_tris": bound_c["issue_ms"],
+        "issue_share_4096_tris": bound_c["issue_share"],
         "launches_treelet_path": tl_launches["mt"],
     }] + [dict(name=f"bvh_traverse/{v}", **bvh_src,
                launches=b2_launches[v],

@@ -10,13 +10,13 @@
 // under the radius, as the TPU kernel's is.
 //
 // Bound.  FP32 arithmetic: 53 operations (one of them an IEEE division,
-// which is several instructions) per (ray, triangle) pair on operands in
-// registers or shared memory, and 44 bytes of device memory a ray.  Every
-// product and sum is rounded (--fmad=false, for the bit-for-bit check), so
-// the floor is the issue rate, one instruction a cycle and scheduler: twice
-// the operations' bound.  With one ray a thread and 9-float rows the kernel
-// issued 9 scalar shared-memory loads for those 53 operations and staged
-// its tiles between two barriers of the whole block.  The design:
+// which is a dozen instructions and a branch) per (ray, triangle) pair on
+// operands in registers or shared memory, and 44 bytes of device memory a
+// ray.  Every product and sum is rounded (--fmad=false, for the bit-for-bit
+// check), so the floor is the issue rate, one instruction a cycle and
+// scheduler: twice the operations' bound.  The first design issued 9 scalar
+// shared-memory loads for those 53 operations and staged its tiles between
+// two barriers of the whole block.  The design:
 //   - Rows are padded to kRowFloats = 12 floats by the wrapper (once a
 //     triangle set): a row is three 16-byte loads, broadcasts from shared
 //     memory, and a tile of rows is contiguous, so one thread brings it in
@@ -25,24 +25,25 @@
 //     triangle count; the wrapper still refuses more than 4096 triangles,
 //     the TPU kernel's cap).  36 or 128 triangles are one tile, loaded once;
 //     4096 stream through the ring with no barrier of the whole block.
-//   - A thread holds kRays rays (rays i, i + 128, ... of its block, so that
-//     a warp's loads and stores fall on consecutive addresses whatever the
-//     arrays' alignment, and the 32 rays of a warp's slot are consecutive:
-//     coherent where the caller's are), and a row's three loads feed all of
-//     them.  kRays is 4 for wide launches, 2 or 1 for narrow ones, so that a
-//     launch of 131,072 rays still fills the card's schedulers.
 //   - The tail after u (qvec, v, t: about half of the operations) is skipped
-//     for the 32 rays of a slot where a warp vote finds none that can still
-//     hit: a ray can only hit with |det| >= eps, 0 <= u <= 1 and a positive
-//     radius.  u <= 1 is implied by the hit test, not added to it: with
-//     v >= 0, u + v >= u exactly, rounding is monotone, so fl(u + v) >= u,
-//     and u > 1 fails u + v <= 1.  u itself is computed as before, division
-//     included (u = X / det's sign cannot be read off X and det: the
-//     product can round to -0, which passes u >= 0).  The skipped lanes'
-//     results would have been discarded, so every output is unchanged.
+//     where a vote over the warp's 32 consecutive rays finds none that can
+//     still hit: a ray can only hit with |det| >= eps, 0 <= u <= 1 and a
+//     positive radius.  u <= 1 is implied by the hit test, not added to it:
+//     with v >= 0, u + v >= u exactly, rounding is monotone, so
+//     fl(u + v) >= u, and u > 1 fails u + v <= 1.  u itself is computed as
+//     before, division included (the sign of u = X / det cannot be read off
+//     X and det: the product can round to -0, which passes u >= 0).  The
+//     skipped rays' results would have been discarded, so every output is
+//     unchanged.  It pays where a warp's rays are coherent (the primary and
+//     the coherence-sorted rays of a render) and costs a vote and a branch a
+//     triangle where they are not.
+//   - One ray a thread.  Several rays a thread over one row's loads measured
+//     no faster (the loads are 3 for 53 operations already), and with the
+//     vote slower: a branch a ray cuts the rays' arithmetic into regions the
+//     compiler cannot interleave.
 // The arithmetic follows the TPU kernel (mt_kernel.py:73-92) operation by
 // operation: pvec, det, 1 / det, tvec, u, qvec, v, t, then the tests.
-// Tried and dropped: see PERF.md (section 6, PR 7).
+// What was tried and dropped: see PERF.md (section 6, PR 7).
 //
 // Build with --fmad=false: contracting a*b+c into an FMA would round
 // differently from the plain torch version and flip hits on edge-grazing
@@ -60,9 +61,6 @@ constexpr int kRowFloats = 12;  // [p0 e1 e2 0 0 0]
 constexpr int kTile = 256;      // rows of a ring slot
 constexpr int kStages = 2;
 constexpr int kTileFloats = kTile * kRowFloats;
-// launches at least this wide take 4 rays a thread, at least kMid 2, else 1
-constexpr int kWide = 1 << 19;
-constexpr int kMid = 1 << 17;
 constexpr float kDetEps = 1e-12f;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -123,7 +121,6 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       : "memory");
 }
 
-template <int kRays>
 __global__ void __launch_bounds__(kThreads)
 mt_intersect_kernel(const float* __restrict__ rows, int n_tri,
                     const float* __restrict__ ox, const float* __restrict__ oy,
@@ -163,28 +160,18 @@ mt_intersect_kernel(const float* __restrict__ rows, int n_tri,
     for (int i = 0; i < kStages && i < n_tiles; ++i) load_tile(i);
   }
 
-  // the thread's rays, while the first tiles arrive
-  const int first = blockIdx.x * (kThreads * kRays) + threadIdx.x;
-  float rox[kRays], roy[kRays], roz[kRays], rdx[kRays], rdy[kRays],
-      rdz[kRays];
-  float t_b[kRays], u_b[kRays], v_b[kRays];
-  int tri_b[kRays];
-  bool open[kRays];  // a positive radius: the ray can hit at all
-#pragma unroll
-  for (int j = 0; j < kRays; ++j) {
-    const int i = first + j * kThreads;
-    rox[j] = roy[j] = roz[j] = rdx[j] = rdz[j] = 0.f;
-    rdy[j] = 1.f;
-    t_b[j] = -1.f;  // threads past the end never hit
-    if (i < n) {
-      rox[j] = ox[i]; roy[j] = oy[i]; roz[j] = oz[i];
-      rdx[j] = dx[i]; rdy[j] = dy[i]; rdz[j] = dz[i];
-      t_b[j] = t_init[i];
-    }
-    open[j] = t_b[j] > 0.f;
-    tri_b[j] = -1;
-    u_b[j] = v_b[j] = 0.f;
+  // the thread's ray, while the first tiles arrive
+  const int ray = blockIdx.x * kThreads + threadIdx.x;
+  float rox = 0.f, roy = 0.f, roz = 0.f, rdx = 0.f, rdy = 1.f, rdz = 0.f;
+  float t_b = -1.f;  // threads past the end never hit
+  if (ray < n) {
+    rox = ox[ray]; roy = oy[ray]; roz = oz[ray];
+    rdx = dx[ray]; rdy = dy[ray]; rdz = dz[ray];
+    t_b = t_init[ray];
   }
+  const bool open = t_b > 0.f;  // a positive radius: the ray can hit at all
+  int tri_b = -1;
+  float u_b = 0.f, v_b = 0.f;
 
   int s = 0;            // tile i's slot, i % kStages, and
   uint32_t parity = 0;  // the parity of its use of it, (i / kStages) & 1
@@ -198,37 +185,32 @@ mt_intersect_kernel(const float* __restrict__ rows, int n_tri,
       const float p0x = r0.x, p0y = r0.y, p0z = r0.z;
       const float e1x = r0.w, e1y = r1.x, e1z = r1.y;
       const float e2x = r1.z, e2y = r1.w, e2z = r2.x;
-#pragma unroll
-      for (int j = 0; j < kRays; ++j) {
-        // pvec = d x e2
-        const float pvx = rdy[j] * e2z - rdz[j] * e2y;
-        const float pvy = rdz[j] * e2x - rdx[j] * e2z;
-        const float pvz = rdx[j] * e2y - rdy[j] * e2x;
-        const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-        const bool ok = fabsf(det) >= kDetEps;
-        const float inv_det = ok ? 1.0f / det : 0.0f;
-        const float tvx = rox[j] - p0x;
-        const float tvy = roy[j] - p0y;
-        const float tvz = roz[j] - p0z;
-        const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-        // none of the slot's 32 rays can hit this triangle: skip the tail
-        if (!__any_sync(0xffffffffu,
-                        ok && open[j] && u >= 0.f && u <= 1.f)) {
-          continue;
-        }
-        // qvec = tvec x e1
-        const float qvx = tvy * e1z - tvz * e1y;
-        const float qvy = tvz * e1x - tvx * e1z;
-        const float qvz = tvx * e1y - tvy * e1x;
-        const float v = (rdx[j] * qvx + rdy[j] * qvy + rdz[j] * qvz) * inv_det;
-        const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-        if (ok && u >= 0.f && v >= 0.f && u + v <= 1.f && t > 0.f &&
-            t < t_b[j]) {
-          t_b[j] = t;
-          tri_b[j] = i * kTile + k;
-          u_b[j] = u;
-          v_b[j] = v;
-        }
+      // pvec = d x e2
+      const float pvx = rdy * e2z - rdz * e2y;
+      const float pvy = rdz * e2x - rdx * e2z;
+      const float pvz = rdx * e2y - rdy * e2x;
+      const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+      const bool ok = fabsf(det) >= kDetEps;
+      const float inv_det = ok ? 1.0f / det : 0.0f;
+      const float tvx = rox - p0x;
+      const float tvy = roy - p0y;
+      const float tvz = roz - p0z;
+      const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+      // none of the warp's 32 rays can hit this triangle: skip the tail
+      if (!__any_sync(0xffffffffu, ok && open && u >= 0.f && u <= 1.f)) {
+        continue;
+      }
+      // qvec = tvec x e1
+      const float qvx = tvy * e1z - tvz * e1y;
+      const float qvy = tvz * e1x - tvx * e1z;
+      const float qvz = tvx * e1y - tvy * e1x;
+      const float v = (rdx * qvx + rdy * qvy + rdz * qvz) * inv_det;
+      const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+      if (ok && u >= 0.f && v >= 0.f && u + v <= 1.f && t > 0.f && t < t_b) {
+        t_b = t;
+        tri_b = i * kTile + k;
+        u_b = u;
+        v_b = v;
       }
     }
     // this warp has left slot s; when all have, the producer refills it
@@ -246,15 +228,11 @@ mt_intersect_kernel(const float* __restrict__ rows, int n_tri,
     }
   }
 
-#pragma unroll
-  for (int j = 0; j < kRays; ++j) {
-    const int i = first + j * kThreads;
-    if (i < n) {
-      t_out[i] = t_b[j];
-      tri_out[i] = tri_b[j];
-      u_out[i] = u_b[j];
-      v_out[i] = v_b[j];
-    }
+  if (ray < n) {
+    t_out[ray] = t_b;
+    tri_out[ray] = tri_b;
+    u_out[ray] = u_b;
+    v_out[ray] = v_b;
   }
 }
 
@@ -268,15 +246,9 @@ extern "C" int mt_intersect(const float* rows, int n_tri, const float* ox,
                             const float* t_init, float* t, int* tri, float* u,
                             float* v, int n, cudaStream_t stream) {
   if (n <= 0) return 0;
-  const int rays = n >= kWide ? 4 : n >= kMid ? 2 : 1;
-  if (n > INT_MAX - kThreads * rays) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int grid = (n - 1) / (kThreads * rays) + 1;
-  decltype(&mt_intersect_kernel<1>) kernel = &mt_intersect_kernel<1>;
-  if (rays == 4) kernel = &mt_intersect_kernel<4>;
-  if (rays == 2) kernel = &mt_intersect_kernel<2>;
-  kernel<<<grid, kThreads, 0, stream>>>(rows, n_tri, ox, oy, oz, dx, dy, dz,
-                                        t_init, t, tri, u, v, n);
+  if (n > INT_MAX - kThreads) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = (n - 1) / kThreads + 1;
+  mt_intersect_kernel<<<grid, kThreads, 0, stream>>>(
+      rows, n_tri, ox, oy, oz, dx, dy, dz, t_init, t, tri, u, v, n);
   return static_cast<int>(cudaGetLastError());
 }

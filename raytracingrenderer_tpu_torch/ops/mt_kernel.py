@@ -4,12 +4,14 @@ plain torch version.
 Counterpart of raytracingrenderer_tpu/ops/mt_kernel.py, whose Pallas
 kernel (`_kernel`, launched by `intersect_pallas`) carries small scenes
 on the TPU.  Here the kernel is csrc/mt_kernel.cu, written for Hopper
-(sm_90a): several rays a thread, padded triangle rows streamed through
-a ring of shared-memory tiles by bulk copies.  It computes what the TPU kernel computes, with the same
-arithmetic: `t_init` seeds each ray's search radius, so closest-hit
-passes BIG_T and any-hit passes the segment length (an occlusion exists
-iff a triangle id was recorded); a miss keeps t = t_init, tri = -1,
-u = v = 0; ties go to the lowest triangle index.
+(sm_90a): one thread per ray, padded triangle rows streamed through a
+ring of shared-memory tiles by bulk copies, the second half of the test
+skipped where no ray of a warp can pass it.  It computes what the TPU
+kernel computes, with the same arithmetic: `t_init` seeds each ray's
+search radius, so closest-hit passes BIG_T and any-hit passes the
+segment length (an occlusion exists iff a triangle id was recorded); a
+miss keeps t = t_init, tri = -1, u = v = 0; ties go to the lowest
+triangle index.
 
 `intersect` launches the kernel for CUDA tensors and raises if it cannot;
 for CPU tensors it calls `intersect_plain`, the plain torch version of

@@ -5,19 +5,23 @@ conftest switched off:
 
     python -m pytest --noconftest -p no:randomly -q tests/test_torch_cuda.py
 
-The MT kernel is held against its plain torch version at the shapes the
-render gives it (36, 128 and 4096 triangles; a ray count that is not a
-multiple of the 256-thread block; 10% dead lanes): t within rtol/atol
-1e-4, triangle ids and any-hit bits agreeing on >= 99.9% of rays, no
-dead lane hit.  The binary BVH kernel is held to its plain version bit
-for bit on the 5,156-triangle spheres scene (closest-hit, any-hit over
-constant-form leaves and over raw ones) on the batches its schedule
-could break: 100,003 rays with 10% dead lanes, 1 ray, 33 rays, 2^16 + 77
-rays with half the lanes dead, and rays that all miss the scene's box.
+The MT kernel is held to its plain torch version bit for bit (t, tri, u,
+v; closest-hit and any-hit) at the shapes the render gives it and at the
+edges of its partition (1 to 2^20 + 77 rays around a block's 128; 1 to
+4096 triangles around a tile's rows and the ring's refill; 10% dead
+lanes, none of which may hit).  The binary BVH kernel is held to its
+plain version bit for bit on the 5,156-triangle spheres scene
+(closest-hit, any-hit over constant-form leaves and over raw ones) on
+the batches its schedule could break: 100,003 rays with 10% dead lanes,
+1 ray, 33 rays, 2^16 + 77 rays with half the lanes dead, and rays that
+all miss the scene's box.
 The 4-wide BVH kernel (same rays) and the
 treelet pair-test kernel (the pairs of the treelet route on the same
-rays) are held to their plain versions bit for bit.  Renders on "cuda"
-(the cornell box, and the spheres scene through the BVH and the
+rays; synthetic pairs at the edges of its partition: one treelet for
+all, a new one every pair, runs of 1 to 5, ids out of range at the tail
+and in the middle, equal t at several columns; launches back to back on
+a side stream) are held to their plain versions bit for bit.  Renders
+on "cuda" (the cornell box, and the spheres scene through the BVH and the
 wavefront integrator, by the packet route and by the treelet route) are
 held against the same renders on "cpu" per pixel: >= 99% of pixels
 within rtol 1e-3 / atol 1e-5, means within 0.5%.  Every kernel of the
@@ -44,7 +48,8 @@ from raytracingrenderer_tpu_torch.ops import (bvh_kernel, mt_kernel, treelet,
 from raytracingrenderer_tpu_torch.ops.launch import launch
 from raytracingrenderer_tpu_torch.render import render
 from raytracingrenderer_tpu_torch.scene.loader import load_scene
-from torch_scenes import write_cornell, write_spheres
+from torch_scenes import (PAIR_PATTERNS, pair_case, write_cornell,
+                          write_spheres)
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -117,24 +122,43 @@ def _agree(a, b):
     assert abs(a.mean() - b.mean()) <= 0.005 * abs(b.mean())
 
 
-@pytest.mark.parametrize("n_tri", [36, 128, 4096])
-def test_mt_kernel_matches_plain(cuda, scene_dir, n_tri):
+def _rays_n(dev, n, seed):
+    """n rays from inside the box, a tenth of them dead -> (o, d, closest-
+    hit radii, any-hit radii, the dead lanes)."""
+    g = np.random.default_rng([seed, n])
+    o = (g.uniform(-1, 1, (n, 3)) * 0.5 + [0, 1, 0.5]).astype(np.float32)
+    d = g.standard_normal((n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    dead = g.random(n) < 0.1
+    t0 = np.where(dead, -1.0, 3.4e38).astype(np.float32)
+    max_t = np.where(dead, -1.0, g.uniform(0.05, 2.5, n)).astype(np.float32)
+    return (_v3(o, dev), _v3(d, dev), torch.from_numpy(t0).to(dev),
+            torch.from_numpy(max_t).to(dev), dead)
+
+
+@pytest.mark.parametrize("n_tri", [1, 36, 128, 511, 512, 513, 4096])
+@pytest.mark.parametrize("n", [1, 3, 127, 128, 129, 1000, 1 << 17,
+                               (1 << 20) + 77])
+def test_mt_kernel_matches_plain(cuda, scene_dir, n, n_tri):
+    """Bit for bit (t, tri, u, v; closest-hit and any-hit), at widths
+    around a block's 128 rays and triangle counts around a tile's rows
+    and the ring's refill, with dead lanes."""
     tris = _tris(n_tri, scene_dir, cuda)
-    ov, dv, tv, mv, dead = _rays(cuda, 13)
+    ov, dv, tv, mv, dead = _rays_n(cuda, n, 13)
     before = mt_kernel.launches
     hk = mt_kernel.intersect(tris, ov, dv, tv)
-    ak = mt_kernel.any_hit(tris, ov, dv, mv)
+    ak = mt_kernel.intersect(tris, ov, dv, mv)
     torch.cuda.synchronize()
     assert mt_kernel.launches == before + 2
     hp = mt_kernel.intersect_plain(tris, ov, dv, tv)
-    ap = mt_kernel.intersect_plain(tris, ov, dv, mv).tri >= 0
-    np.testing.assert_allclose(hk.t.cpu().numpy(), hp.t.cpu().numpy(),
-                               rtol=1e-4, atol=1e-4)
-    assert (hk.tri == hp.tri).float().mean().item() >= 0.999
-    assert (ak == ap).float().mean().item() >= 0.999
-    assert (hk.tri.cpu().numpy()[dead] == -1).all()
-    assert not ak.cpu().numpy()[dead].any()
-    assert (hk.tri >= 0).float().mean().item() > 0.3
+    ap = mt_kernel.intersect_plain(tris, ov, dv, mv)
+    for got, want in ((hk, hp), (ak, ap)):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert (got.tri.cpu().numpy()[dead] == -1).all()
+    assert torch.equal(mt_kernel.any_hit(tris, ov, dv, mv), ap.tri >= 0)
+    if n >= 1000 and n_tri >= 36:
+        assert (hk.tri >= 0).float().mean().item() > 0.3
 
 
 def test_render_cuda_matches_cpu(cuda, scene_dir):
@@ -247,6 +271,47 @@ def test_pair_kernel_matches_plain(cuda, spheres_dir):
     tp, cp = treelet.pair_test_plain(consts, feats, tid)
     assert torch.equal(tk, tp) and torch.equal(ck, cp)
     assert 0.05 < (tk < treelet.INF).float().mean().item() < 0.95
+
+
+@pytest.mark.parametrize("pattern", PAIR_PATTERNS)
+@pytest.mark.parametrize("p", [1, 3, 511, 512, 513, 4099])
+def test_pair_kernel_edges(cuda, p, pattern):
+    """The pair kernel where its partition could break, on synthetic
+    pairs: one treelet for all, a new one every pair (more runs a block
+    than its window of tiles holds), runs of 1 to 5 (warps that straddle
+    runs), ids out of range at the tail and in the middle, equal t at
+    several columns (the first is kept): bit for bit."""
+    consts, feats, tid = (torch.from_numpy(a).to(cuda)
+                          for a in pair_case(p, pattern))
+    before = treelet.launches
+    tk, ck = treelet.pair_test(consts, feats, tid)
+    torch.cuda.synchronize()
+    assert treelet.launches == before + 1
+    tp, cp = treelet.pair_test_plain(consts, feats, tid)
+    assert torch.equal(tk, tp) and torch.equal(ck, cp)
+    valid = (tid >= 0) & (tid < consts.shape[0] // 16)
+    assert (ck[~valid] == -1).all() and (tk[~valid] == treelet.INF).all()
+    if pattern == "equal_t" and p >= 511:
+        assert (ck == 5).any()
+        assert not ((ck == 9) | (ck == 70) | (ck == 71)).any()
+
+
+def test_pair_kernel_back_to_back_on_a_side_stream(cuda):
+    """Launches back to back on a stream that is not the default one, of
+    different sizes and run patterns: the window's barrier lives in
+    shared memory and is set up anew by each launch."""
+    runs = [tuple(torch.from_numpy(a).to(cuda) for a in pair_case(p, pat))
+            for p, pat in ((4099, "runs"), (513, "each"), (3, "one"),
+                           (4099, "sentinel_mid"), (512, "equal_t"))]
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    for _ in range(3):
+        with torch.cuda.stream(side):
+            got = [treelet.pair_test(*r) for r in runs]
+        side.synchronize()
+        for r, (tk, ck) in zip(runs, got):
+            tp, cp = treelet.pair_test_plain(*r)
+            assert torch.equal(tk, tp) and torch.equal(ck, cp)
 
 
 def test_treelet_render_cuda_matches_cpu(cuda, spheres_dir):

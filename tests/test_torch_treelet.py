@@ -22,7 +22,16 @@ small triangle soup:
   at the bar of tests/test_torch_render.py.
 
 The CUDA kernel itself is checked against `pair_test_plain` by
-tests/test_torch_cuda.py and chip_smoke.py on the card."""
+tests/test_torch_cuda.py and chip_smoke.py on the card; here a torch
+model of its partition (the runs of equal treelet id that a block of
+pairs walks, the window of tiles resident at a time, a pair tested
+against its own run's tile only, the sums without negated features, the
+columns folded four at a time with the first column kept among equal t)
+is held to `pair_test_plain` bit for bit on synthetic pairs at the shapes
+that could break it."""
+import pathlib
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -47,7 +56,7 @@ from raytracingrenderer_tpu_torch.ops import treelet as ttl
 from raytracingrenderer_tpu_torch.render import render
 from raytracingrenderer_tpu_torch.scene.loader import load_scene as tload
 from raytracingrenderer_tpu_torch.scene.types import Triangles
-from torch_scenes import write_spheres
+from torch_scenes import PAIR_PATTERNS, pair_case, write_spheres
 
 torch.set_num_threads(2)
 
@@ -316,3 +325,104 @@ def test_treelet_render_matches_jax(spheres_dir, scenes):
     close = np.isclose(got, want, rtol=1e-3, atol=1e-5).all(-1).mean()
     assert close >= 0.99, close
     assert abs(got.mean() - want.mean()) <= 0.005 * abs(want.mean())
+
+
+# --------------------------------------------------------------------------
+# the CUDA kernel's partition, modelled in torch
+
+def _cu_const(name):
+    """An integer constant of csrc/treelet_kernel.cu."""
+    src = (pathlib.Path(ttl.__file__).resolve().parent.parent / "csrc"
+           / "treelet_kernel.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _pair_model(consts, feats, tid):
+    """pair_test_kernel's partition in torch -> (t, col).  A block is
+    32 * kWarps consecutive pairs, one a thread.  A run starts at a pair
+    of a treelet in [0, K) whose predecessor in the block has another id;
+    a pair lies in the run that started last (-1: no pair).  The block
+    takes its runs kWindow at a time: the window's tiles are brought in
+    on one barrier, whose phase each window flips, and a pair of a run in
+    the window is tested against that run's tile, and no other.  The sums
+    take the features as they are (the kernel negates the sums, not the
+    features); columns are folded four at a time in ascending order with
+    a strict `<`."""
+    k_all = consts.shape[0] // 16
+    tab = consts.view(k_all, 16, ttl.T_LEAF)
+    n = tid.shape[0]
+    threads, window = 32 * _cu_const("kWarps"), _cu_const("kWindow")
+    t_out = torch.full((n,), ttl.INF)
+    col_out = torch.full((n,), -1, dtype=torch.int32)
+    for base in range(0, n, threads):
+        ids = tid[base:base + threads].long()
+        k = torch.where((ids >= 0) & (ids < k_all), ids, -1)
+        prev = torch.cat([ids[:1] + 1, ids[:-1]])     # the first always starts
+        start = (k >= 0) & (prev != k)
+        run = torch.where(k >= 0, torch.cumsum(start.int(), 0) - 1, -1)
+        run_tid = k[start]
+        assert (k[run >= 0] == run_tid[run[run >= 0]]).all()
+        f = feats[base:base + threads]
+        tmin = torch.full((ids.shape[0],), ttl.INF)
+        col = torch.full((ids.shape[0],), -1, dtype=torch.int32)
+        phase = 0
+        for w0 in range(0, run_tid.shape[0], window):
+            tiles = tab[run_tid[w0:w0 + window]]        # the bulk copies
+            phase ^= 1
+            assert phase != (w0 // window) & 1          # the wait passes
+            sel = (run >= w0) & (run < w0 + window)
+            r = tiles[run[sel] - w0].unbind(1)          # 16 x (m, 128)
+            dx, dy, dz, ox, oy, oz, gx, gy, gz = (
+                f[sel, i:i + 1] for i in range(9))
+            radius = f[sel, 10:11]
+            su = (gx * r[6] + gy * r[7] + gz * r[8]
+                  + dx * r[12] + dy * r[13] + dz * r[14])
+            sv = (gx * r[3] + gy * r[4] + gz * r[5]
+                  + dx * r[9] + dy * r[10] + dz * r[11])
+            sd = dx * r[0] + dy * r[1] + dz * r[2]
+            st = ox * r[0] + oy * r[1] + oz * r[2] - r[15]
+            det = -sd
+            sgn = torch.where(det < 0.0, -1.0, 1.0)
+            ad, u, v, tt = det * sgn, su * sgn, -sv * sgn, st * sgn
+            hit = ((ad >= tint.DET_EPS) & (u >= 0.0) & (v >= 0.0)
+                   & (u + v <= ad) & (tt > 0.0) & (tt < radius * ad))
+            cand = torch.where(hit, tt / torch.where(hit, ad, 1.0),
+                               float("inf"))
+            best, c_best = tmin[sel], col[sel]
+            for c in range(0, ttl.T_LEAF, 4):
+                g = cand[:, c:c + 4]
+                for e in range(4):
+                    better = g[:, e] < best
+                    best = torch.where(better, g[:, e], best)
+                    c_best = torch.where(better, c + e, c_best).int()
+            tmin[sel], col[sel] = best, c_best
+        t_out[base:base + threads] = tmin
+        col_out[base:base + threads] = torch.where(tmin < ttl.INF, col, -1)
+    return t_out, col_out
+
+
+@pytest.mark.parametrize("pattern", PAIR_PATTERNS)
+@pytest.mark.parametrize("p", [1, 3, 127, 128, 129, 511, 512, 513, 4099])
+def test_pair_partition_model_equals_plain(p, pattern):
+    """One treelet for all pairs, a new one every pair (more runs than the
+    window holds), runs of 1 to 5, ids out of range at the tail and in the
+    middle, equal t at several columns; P around the block's 128 pairs
+    and far above: the model equals `pair_test_plain` bit for bit."""
+    if pattern == "each" and p > 513:
+        p = 1029                      # 1029 runs: enough windows, less time
+    consts, feats, tid = (torch.from_numpy(a)
+                          for a in pair_case(p, pattern))
+    want_t, want_col = ttl.pair_test_plain(consts, feats, tid)
+    got_t, got_col = _pair_model(consts, feats, tid)
+    assert torch.equal(got_t, want_t) and torch.equal(got_col, want_col)
+    valid = (tid >= 0) & (tid < consts.shape[0] // 16)
+    assert (got_col[~valid] == -1).all()
+    assert (got_t[~valid] == np.float32(ttl.INF)).all()
+    if p >= 127:
+        assert 0.3 < (got_t[valid] < ttl.INF).float().mean() <= 1.0
+    if pattern == "equal_t" and p >= 127:
+        # columns 9, 70, 71 repeat column 5's triangle: the first is kept
+        assert (got_col == 5).any()
+        assert not ((got_col == 9) | (got_col == 70) | (got_col == 71)).any()
+    if pattern.startswith("sentinel"):
+        assert (~valid).any()

@@ -254,10 +254,11 @@ def pair_case(p, pattern, seed=0):
     treelet; "sentinel_tail": the last tenth (at least one pair) keyed
     to the sentinel; "sentinel_mid": ids out of range (the sentinel, -1
     and K) strewn through the middle; "equal_t": one treelet whose
-    columns 9, 70 and 71 repeat the triangles of columns 5, 5 and 70, so
-    that equal t meet at several columns.  Each treelet has 100 to 128
-    triangles around the origin (the other columns are zero) and each
-    ray starts near the origin with a radius of 0.3 to 4."""
+    columns 9, 70 and 71 repeat the triangle of column 5 (a large one
+    that many rays hit first), so that equal t meet at several columns.
+    Each treelet has 100 to 128 triangles around the origin (the other
+    columns are zero) and each ray starts near the origin with a radius
+    of 0.3 to 4."""
     g = np.random.default_rng([seed, p, PAIR_PATTERNS.index(pattern)])
     if pattern in ("one", "equal_t"):
         tid = np.full(p, 3)
@@ -270,11 +271,14 @@ def pair_case(p, pattern, seed=0):
         tid[p - max(p // 10, 1):] = PAIR_SENTINEL
     if pattern == "sentinel_mid":
         bad = g.random(p) < 0.2
+        bad[p // 2] = True
         tid[bad] = g.choice([PAIR_SENTINEL, -1, k], int(bad.sum()))
     p0 = g.uniform(-1, 1, (k, 128, 3)).astype(np.float32)
     e1 = (g.standard_normal((k, 128, 3)) * 0.6).astype(np.float32)
     e2 = (g.standard_normal((k, 128, 3)) * 0.6).astype(np.float32)
     if pattern == "equal_t":
+        # a large triangle just above the rays' origins: many rays' nearest
+        p0[:, 5], e1[:, 5], e2[:, 5] = (-2, -2, 0.5), (8, 0, 0), (0, 8, 0)
         for a in (p0, e1, e2):
             a[:, 9] = a[:, 5]
             a[:, 70] = a[:, 5]
