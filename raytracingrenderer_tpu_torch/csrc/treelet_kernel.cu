@@ -164,12 +164,16 @@ struct Ray {
 __device__ __forceinline__ void column(float sd, float st, float su, float sv,
                                        float radius, int c, float& tmin,
                                        int& col) {
-  const float det = -sd;
-  const float sgn = det < 0.0f ? -1.0f : 1.0f;
-  const float ad = det * sgn;
-  const float u = su * sgn;
-  const float v = -sv * sgn;
-  const float tt = st * sgn;
+  // |det|, and the sign of det folded into u, v and t by flipping their sign
+  // bit: x * sgn(det) bit for bit wherever |det| >= eps (det = -0 or NaN
+  // fail that test either way).  det = -sd, so det < 0 where sd's sign bit
+  // is clear; v's sum carries one more negation.
+  const uint32_t sd_sign = __float_as_uint(sd) & 0x80000000u;
+  const uint32_t flip = sd_sign ^ 0x80000000u;
+  const float ad = fabsf(sd);
+  const float u = __uint_as_float(__float_as_uint(su) ^ flip);
+  const float v = __uint_as_float(__float_as_uint(sv) ^ sd_sign);
+  const float tt = __uint_as_float(__float_as_uint(st) ^ flip);
   if (ad >= kDetEps && u >= 0.0f && v >= 0.0f && u + v <= ad && tt > 0.0f &&
       tt < radius * ad) {
     const float t = tt / ad;
@@ -184,7 +188,7 @@ __device__ __forceinline__ void column(float sd, float st, float su, float sv,
 __device__ __forceinline__ void test_tile(const float* __restrict__ tile,
                                           const Ray& r, float& tmin,
                                           int& col) {
-#pragma unroll 1
+#pragma unroll 2
   for (int c = 0; c < kLeaf; c += 4) {
     const float* p = tile + c;
     // u det = G . e2 + d . P2: rows 6-8 and 12-14
