@@ -280,6 +280,19 @@ def time_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def host_us_a_call(torch, fn, reps=500):
+    """Host microseconds a call of fn: the host clock over `reps` calls
+    that are enqueued and not waited for."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return dt / reps / 1e3
+
+
 def time_once(torch, fn):
     """One call of fn timed with CUDA events -> (its result, ms)."""
     torch.cuda.synchronize()
@@ -445,23 +458,16 @@ def mt_host_split(torch, tris):
             (torch.float32, torch.int32, torch.float32, torch.float32)]
     fn = mt_kernel._library()["mt_intersect"]
 
-    def per_call_us(f, reps=500):
-        f()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter_ns()
-        for _ in range(reps):
-            f()
-        dt = time.perf_counter_ns() - t0
-        torch.cuda.synchronize()
-        return dt / reps / 1e3
+    def per_call(f):
+        return host_us_a_call(torch, f)
 
     us = dict(
-        call=per_call_us(lambda: mt_kernel.intersect(tris, o, d, t_init)),
-        pack=per_call_us(lambda: mt_kernel.pack_tris(tris)),
-        checks=per_call_us(lambda: mt_kernel._check(rows, arrays, n)),
-        empty=per_call_us(lambda: [torch.empty(n, dtype=x.dtype, device=dev)
-                                   for x in outs]),
-        launch=per_call_us(lambda: launch(
+        call=per_call(lambda: mt_kernel.intersect(tris, o, d, t_init)),
+        pack=per_call(lambda: mt_kernel.pack_tris(tris)),
+        checks=per_call(lambda: mt_kernel._check(rows, arrays, n)),
+        empty=per_call(lambda: [
+            torch.empty(n, dtype=x.dtype, device=dev) for x in outs]),
+        launch=per_call(lambda: launch(
             fn, dev, rows.data_ptr(), rows.shape[0],
             *(a.data_ptr() for _, a in arrays),
             *(x.data_ptr() for x in outs), n)))
@@ -845,9 +851,8 @@ def visit_bound(cfg, ms):
     w = visit_work(cfg)
     if cfg["precision"] == "default":
         return bound(ms, w["other"], w["bytes"], tf32_ops=w["mac"])
-    issue_ms = (w["mac"] + w["other"]) / (PEAK_FP32 / 2) * 1e3
-    return dict(bound(ms, w["mac"] + w["other"], w["bytes"]),
-                issue_ms=issue_ms, issue_share=issue_ms / ms if ms else None)
+    ops = w["mac"] + w["other"]
+    return dict(bound(ms, ops, w["bytes"]), **issue(ms, ops))
 
 
 def check_visit_edges(torch):
@@ -1093,15 +1098,8 @@ def dot_host_split(torch, a, b_in, prec):
     out = torch.empty((tt, r), dtype=torch.float32, device=dev)
     fn = visit._library()["visit_dot"]
 
-    def per_call_us(f, n=500):
-        f()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter_ns()
-        for _ in range(n):
-            f()
-        dt = time.perf_counter_ns() - t0
-        torch.cuda.synchronize()
-        return dt / n / 1e3
+    def per_call_us(f):
+        return host_us_a_call(torch, f)
 
     return dict(
         call=per_call_us(lambda: visit.dot(a, b_in, prec)),

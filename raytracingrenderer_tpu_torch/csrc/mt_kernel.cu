@@ -12,11 +12,15 @@
 // Bound.  FP32 arithmetic: 53 operations (one of them an IEEE division,
 // which is a dozen instructions and a branch) per (ray, triangle) pair on
 // operands in registers or shared memory, and 44 bytes of device memory a
-// ray.  Every product and sum is rounded (--fmad=false, for the bit-for-bit
-// check), so the floor is the issue rate, one instruction a cycle and
-// scheduler: twice the operations' bound.  The first design issued 9 scalar
-// shared-memory loads for those 53 operations and staged its tiles between
-// two barriers of the whole block.  The design:
+// ray: 0.030 ms of operations for 2^20 rays x 36 triangles on an H100.  Every
+// product and sum is rounded (--fmad=false, for the bit-for-bit check), so
+// the floor is the issue rate, one instruction a cycle and scheduler: twice
+// that, 0.060 ms.  The first design issued 9 scalar shared-memory loads for
+// those 53 operations, staged its tiles between two barriers of the whole
+// block and ran the whole test for every pair: 0.118 ms on random rays, 1.41
+// ms over the 12 launches of a cornell sample pass, 1.17 ms over the 6 of a
+// spheres pass's proxy pre-pass (128 triangles).  This design takes 0.116,
+// 1.16 and 0.79 ms.  What it does:
 //   - Rows are padded to kRowFloats = 12 floats by the wrapper (once a
 //     triangle set): a row is three 16-byte loads, broadcasts from shared
 //     memory, and a tile of rows is contiguous, so one thread brings it in
@@ -36,14 +40,17 @@
 //     skipped rays' results would have been discarded, so every output is
 //     unchanged.  It pays where a warp's rays are coherent (the primary and
 //     the coherence-sorted rays of a render) and costs a vote and a branch a
-//     triangle where they are not.
-//   - One ray a thread.  Several rays a thread over one row's loads measured
-//     no faster (the loads are 3 for 53 operations already), and with the
-//     vote slower: a branch a ray cuts the rays' arithmetic into regions the
-//     compiler cannot interleave.
+//     triangle where they are not (random rays: 0.116 ms with it, 0.105
+//     without).
+//   - One ray a thread.  4 or 2 rays a thread over one row's loads measured
+//     no faster without the vote (0.106, 0.105 ms: the loads are 3 for 53
+//     operations already) and slower with it (0.122, 0.115 ms at 4 and 2; a
+//     branch a ray cuts the rays' arithmetic into regions the compiler cannot
+//     interleave; one vote over a thread's 2 rays 0.115, and 0.82 ms against
+//     0.79 over the pre-pass).  Built with FMA allowed it takes 10% less and
+//     changes some output of half the rays.
 // The arithmetic follows the TPU kernel (mt_kernel.py:73-92) operation by
 // operation: pvec, det, 1 / det, tvec, u, qvec, v, t, then the tests.
-// What was tried and dropped: see PERF.md (section 6, PR 7).
 //
 // Build with --fmad=false: contracting a*b+c into an FMA would round
 // differently from the plain torch version and flip hits on edge-grazing

@@ -26,20 +26,23 @@
 //
 // Bound.  Per pair and column 33 operations of contraction and 16 of
 // epilogue, all on operands that stay on chip: operations bound it (49 a
-// column over the FP32 peak), and since every product and sum is rounded
-// (--fmad=false, for the bit-for-bit check) the floor is the issue rate,
-// one instruction a cycle and scheduler: twice the bound.  With the
-// constants read from global memory, one column at a time, the kernel
-// issued 16 loads for the 57 or so instructions a column that the
-// arithmetic, its compares and the branch around the division come to, each
-// a load of one address by a whole warp, which costs as a full load.  The
-// design:
+// column over the FP32 peak: 0.210 ms for the 2,243,692 pairs of a 1024 x
+// 1024 primary call on an H100), and since every product and sum is rounded
+// (--fmad=false, for the bit-for-bit check) the floor is the issue rate, one
+// instruction a cycle and scheduler: twice the bound, 0.420 ms.  With the
+// constants read from global memory, one column at a time, the first design
+// issued 16 loads, each of one address by a whole warp (which costs as a full
+// load), beside the 60 or so instructions a column that the arithmetic, its
+// compares and the branch around the division come to, and ran at one
+// instruction a cycle: 0.705 ms.  This design takes 0.531 ms there, 79% of
+// the issue floor, and 3.25 ms against 4.02 over the 12 calls of a sample
+// pass (11.5 M pairs).  What it does:
 //   - A block is 128 threads over 128 consecutive pairs, one pair a thread,
 //     and walks the runs of equal treelet id in that range (the pairs are
-//     sorted, so one to three on a large scene; any order stays correct, a
-//     run is then shorter): it marks where tid[i] != tid[i - 1], counts the
-//     marks with warp votes and one pass through shared memory, and keeps the
-//     runs' ids in shared memory.
+//     sorted; a pass's calls have runs of 600 pairs down to 24; any order
+//     stays correct, a run is then shorter): it marks where
+//     tid[i] != tid[i - 1], counts the marks with warp votes and one pass
+//     through shared memory, and keeps the runs' ids in shared memory.
 //   - A run's constants are 16 x 128 contiguous floats: one thread brings
 //     the tiles of up to kWindow runs in, one cp.async.bulk each, completion
 //     counted on one mbarrier.  A thread then reads its own run's tile: a
@@ -54,12 +57,24 @@
 //     round-to-nearest, bit for bit -(dx nx + dy ny + dz nz), because a
 //     negation is exact and rounding is symmetric; so is v's sum.  (A sum
 //     that cancels comes out as -0 for +0, which no comparison of the
-//     epilogue tells apart and which reaches neither t nor col.)  The
-//     negation rides on the instruction that reads the sum.
+//     epilogue tells apart and which reaches neither t nor col.)
+//   - sgn(det) is not multiplied in: |det| is the sum's magnitude, and u, v
+//     and t get det's sign as a flip of their sign bit, one logic operation
+//     each for a compare, a select and four products.  x * (+-1) is that flip
+//     bit for bit; the two differ only for det = -0 or NaN, which fail
+//     |det| >= eps either way.
 //   - Columns are walked in ascending order with a strict `<`, so the first
-//     column among equal t is kept, as the plain version's min keeps it.
-// Several pairs a thread over one tile, a ring refilled tile by tile, and
-// what else was tried and dropped: see PERF.md (section 6, PR 7).
+//     column among equal t is kept, as the plain version's min keeps it; two
+//     groups of four columns a loop step.
+// Tried and dropped (times for the primary call and the pass): 4 and 2 pairs
+// a thread over one tile's loads, a block walking its runs through a ring of
+// tiles (1.03 and 0.69 ms; 19.8 and 7.9 ms: a warp tests every tile its pairs
+// straddle, whole, and the 4 x 4 loop is 1,300 instructions of 16 branch
+// regions); the tile's columns in the lanes' registers and the min by
+// butterfly (1.07; 5.4); the first design with 16-byte loads from global
+// memory (0.70; 3.8); a window of 2 or 4 tiles (within 1% or slower);
+// products by sgn(det), one group a step (0.56; 3.4).  Built with FMA allowed
+// it takes 0.46 and 2.9 ms and changes t or col of 9% of the pairs.
 //
 // Build with --fmad=false and IEEE division (the default), so that it
 // rounds as pair_test_plain does, operation for operation.

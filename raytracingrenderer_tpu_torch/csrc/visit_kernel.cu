@@ -47,11 +47,11 @@
 //     its columns does not care where a column sits.  (A 64 KB slot a step
 //     leaves room for one slot, or one block an SM: both measured slower.)
 // The pair test (csrc/treelet_kernel.cu) is the same contraction with an
-// epilogue a column; it can take over the 4 rays (there: pairs) a thread
-// over a float4 of columns, and the bulk copy of a treelet's constants on
-// an mbarrier.  Its epilogue needs a pair's columns together, as the MT
-// reduce here does, so it cannot split columns over warps without a
-// combine a visit.
+// epilogue a column.  It took over the float4 of columns and the bulk copy
+// of a treelet's constants on an mbarrier, but not the 4 rays (there: pairs)
+// a thread: its pairs change treelet every few dozen, a warp of 128 pairs
+// would test every tile it straddles, and measured slower than one pair a
+// thread that reads its own treelet's tile.
 //
 // The other visit kernels keep their first design: one thread block over
 // 128 rays, the visited tile staged in dynamic shared memory by the whole
@@ -97,8 +97,7 @@
 // value of `a` serves 4 rays, 4 kDotRows sums are in flight, and `out` is
 // written as float4s.  A block's warps take consecutive row groups of the
 // same 128 rays, so b's loads of all but the first warp are served by L1.
-// The pair test can take the same over for its constants.  TF32
-// (dot_tf32_kernel): one warp per 16 x 32 tile of the output.
+// TF32 (dot_tf32_kernel): one warp per 16 x 32 tile of the output.
 //
 // The relayout kernel (P1c).  No relayout exists here: a torch tensor's
 // shape is its strides, and a reshape of a contiguous (32, 128) block to

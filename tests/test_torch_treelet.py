@@ -330,6 +330,9 @@ def test_treelet_render_matches_jax(spheres_dir, scenes):
 # --------------------------------------------------------------------------
 # the CUDA kernel's partition, modelled in torch
 
+SIGN = -0x80000000      # the sign bit of an int32 view of a float32
+
+
 def _cu_const(name):
     """An integer constant of csrc/treelet_kernel.cu."""
     src = (pathlib.Path(ttl.__file__).resolve().parent.parent / "csrc"
@@ -346,8 +349,9 @@ def _pair_model(consts, feats, tid):
     on one barrier, whose phase each window flips, and a pair of a run in
     the window is tested against that run's tile, and no other.  The sums
     take the features as they are (the kernel negates the sums, not the
-    features); columns are folded four at a time in ascending order with
-    a strict `<`."""
+    features), |det| is the sum's magnitude and det's sign reaches u, v
+    and t as a flip of their sign bits; columns are folded four at a time
+    in ascending order with a strict `<`."""
     k_all = consts.shape[0] // 16
     tab = consts.view(k_all, 16, ttl.T_LEAF)
     n = tid.shape[0]
@@ -381,9 +385,13 @@ def _pair_model(consts, feats, tid):
                   + dx * r[9] + dy * r[10] + dz * r[11])
             sd = dx * r[0] + dy * r[1] + dz * r[2]
             st = ox * r[0] + oy * r[1] + oz * r[2] - r[15]
-            det = -sd
-            sgn = torch.where(det < 0.0, -1.0, 1.0)
-            ad, u, v, tt = det * sgn, su * sgn, -sv * sgn, st * sgn
+            # the sign of det = -sd folded in by flipping sign bits
+            sd_sign = sd.view(torch.int32) & SIGN
+            flip = sd_sign ^ SIGN
+            ad = sd.abs()
+            u = (su.view(torch.int32) ^ flip).view(torch.float32)
+            v = (sv.view(torch.int32) ^ sd_sign).view(torch.float32)
+            tt = (st.view(torch.int32) ^ flip).view(torch.float32)
             hit = ((ad >= tint.DET_EPS) & (u >= 0.0) & (v >= 0.0)
                    & (u + v <= ad) & (tt > 0.0) & (tt < radius * ad))
             cand = torch.where(hit, tt / torch.where(hit, ad, 1.0),
