@@ -63,9 +63,11 @@ Phases (any failure exits non-zero):
      closest-hit and any-hit, bit for bit (max |dt| = 0, every id and
      bit equal, no dead lane hit): (a) its path, the coherence-sorted
      bounce and shadow rays of one 1024x1024 sample pass (kept in phase
-     4), walked with the wide counts set to 0 just before; (b) 2^20 + 77
-     random rays with 10% dead lanes; (c) 2^20 live random rays, which
-     time B3, B2 and the plain wide walk;
+     4), walked with the wide counts set to 0 just before, then timed
+     over its 5 + 6 launches (`render_pass_ms`) beside B2 over the same
+     launches and both leaf forms; (b) 2^20 + 77 random rays with 10%
+     dead lanes; (c) 2^20 live random rays, which time B3, B2 and the
+     plain wide walk, with the bound and the walk's traffic as phase 4's;
   9. the treelet pair-test kernel (B4) against its plain version, bit
      for bit (t and column), on the pairs of every `pair_test` call of
      one sample pass of the spheres render with `attach_treelets` applied
@@ -91,7 +93,8 @@ Phases (any failure exits non-zero):
      a kernel built without FMA (its operations as FP32 instructions at
      half the peak rate); the fp32 min visit, in its three tile modes,
      bit for bit at 200 edge shapes (TT 32 to 512, 0 to 64 visits, 1 and
-     64 tiles, 128 and 4096 rays); the dot (P1b) in both precisions
+     64 tiles, 128 and 4096 rays), the lane visit at 40 (0 to 64 visits,
+     1 and 64 tiles, 128 and 4096 rays, 1 and 8 blocks); the dot (P1b) in both precisions
      against its plain version and float64, timed beside torch.matmul
      with TF32 off and on (a yardstick the port never calls), a call and
      on the device, with the host's microseconds a call by stage; the
@@ -657,10 +660,12 @@ def check_wide_kernel(torch, scene, batches):
     and bit equal, no dead lane hit), per variant: (a) the path: the
     coherence-sorted bounce rays (closest-hit) and shadow rays (any-hit)
     of one 1024x1024 sample pass, as scripts/probe_wide.py feeds the wide
-    kernel, walked with the counts set to 0 just before; (b) 2^20 + 77
-    random rays with 10% dead lanes; (c) 2^20 live random rays, which
-    also time B3, B2 and the plain wide walk.  Returns per variant the
-    numbers of the kernels line."""
+    kernel, walked with the counts set to 0 just before, then timed over
+    those launches beside B2 on the same batches (both leaf forms); (b)
+    2^20 + 77 random rays with 10% dead lanes; (c) 2^20 live random rays,
+    which also time B3, B2 and the plain wide walk, beside the bound and
+    the walk's traffic.  Returns per variant the numbers of the kernels
+    line."""
     from raytracingrenderer_tpu_torch.ops import bvh_kernel
     bvh, tris = scene.bvh, scene.triangles
     out = {v: dict(max_abs_err=0.0, mismatches=0, checked_rays=0,
@@ -707,6 +712,27 @@ def check_wide_kernel(torch, scene, batches):
     for i, ((any_hit, o, d, t_init), h) in enumerate(zip(path, hits)):
         check(f"pass batch {i}", t_init, any_hit, h,
               plain(o, d, t_init, any_hit))
+
+    def pass_ms(any_hit, wide, leaf16=None):
+        """CUDA events over the path's launches of a variant, back to back
+        (B3, or B2 over either leaf form on the same batches)."""
+        mine = [b for b in path if b[0] == any_hit]
+        return time_ms(torch, lambda: [bvh_kernel.traverse_packet(
+            bvh, tris, o, d, t_init, any_hit=any_hit, leaf16=leaf16,
+            wide=wide) for _, o, d, t_init in mine], 10)
+
+    for any_hit, variant in ((False, "closest_hit"), (True, "any_hit")):
+        out[variant].update(
+            render_pass_ms=pass_ms(any_hit, True),
+            render_pass_widths=[int(b[3].shape[0]) for b in path
+                                if b[0] == any_hit],
+            b2_render_pass_ms=pass_ms(any_hit, False),
+            b2_raw_leaves_render_pass_ms=pass_ms(any_hit, False, False))
+        log(f"bvh_kernel wide {variant} over the pass's "
+            f"{len(out[variant]['render_pass_widths'])} launches: B3 "
+            f"{out[variant]['render_pass_ms']:.4f} ms, B2 "
+            f"{out[variant]['b2_render_pass_ms']:.4f} ms (raw leaves "
+            f"{out[variant]['b2_raw_leaves_render_pass_ms']:.4f} ms)")
     # (b) random rays with dead lanes, a width that is no multiple
     o, d, t_closest, t_any = make_rays(torch, N_BVH_CHECK, seed=6)
     for t_init, any_hit in ((t_closest, False), (t_any, True)):
@@ -734,14 +760,22 @@ def check_wide_kernel(torch, scene, batches):
         ops = visits["internal"] * WIDE_OPS + visits["slots"] * LEAF9_OPS
         ops14 = (visits["internal"] * WIDE_OPS
                  + visits["leaf"] * LEAF_SLOTS * LEAF9_OPS)
-        nbytes = N_TIMED * RAY_BYTES + sum(
-            t.numel() * t.element_size()
-            for t in bvh_kernel.tables(bvh, tris, False, wide=True))
+        nodes, leaves = bvh_kernel.tables(bvh, tris, False, wide=True)
+        table_bytes = sum(t.numel() * t.element_size()
+                          for t in (nodes, leaves))
+        nbytes = N_TIMED * RAY_BYTES + table_bytes
+        # what the walk reads, as B2's traffic: a wide row a node visit,
+        # 16 bytes and 36 a tested slot a leaf visit, and the rays
+        traffic = (visits["internal"] * nodes.shape[1] * 4
+                   + visits["leaf"] * 16 + visits["slots"] * 36
+                   + N_TIMED * RAY_BYTES)
         b14 = bound(ms, ops14, nbytes)
         out[variant].update(launches=counts["wide_" + variant], ms=ms,
                             plain_ms=plain_ms, b2_ms=b2_ms,
                             b2_raw_leaves_ms=b2_raw_ms, rays=N_TIMED,
-                            node_visits=visits,
+                            node_visits=visits, table_bytes=table_bytes,
+                            traffic_bytes=traffic,
+                            traffic_ms=traffic / PEAK_BYTES * 1e3,
                             bound_ms_14_slots=b14["bound_ms"],
                             bound_share_14_slots=b14["bound_share"],
                             **bound(ms, ops, nbytes))
@@ -751,7 +785,9 @@ def check_wide_kernel(torch, scene, batches):
             f"bound {out[variant]['bound_ms']:.4f} ms "
             f"({out[variant]['bound_by']}), share "
             f"{out[variant]['bound_share']:.4f} (counting 14 tests a leaf "
-            f"visit: {b14['bound_ms']:.4f} ms, {b14['bound_share']:.4f})")
+            f"visit: {b14['bound_ms']:.4f} ms, {b14['bound_share']:.4f}); "
+            f"tables {table_bytes} B, traffic {traffic} B, "
+            f"{out[variant]['traffic_ms']:.4f} ms at the memory rate")
     return out
 
 
@@ -892,6 +928,38 @@ def check_visit_edges(torch):
     return n
 
 
+def check_lane_edges(torch):
+    """The lane visit against its plain version, bit for bit, at the
+    shapes its partition could break: 0, 1, 2, 7 and 64 visits (a ring of
+    three never, partly or often refilled), 1 and 64 tiles, 128 and 4096
+    rays, 1 and 8 blocks.  -> the number of shapes checked."""
+    import numpy as np
+    from raytracingrenderer_tpu_torch.ops import visit
+    n = 0
+    for n_visits in (0, 1, 2, 7, 64):
+        for n_tiles in (1, 64):
+            g = np.random.default_rng(n_visits + n_tiles)
+            tab = torch.from_numpy(g.normal(size=(n_tiles * 16,
+                                                  visit.LANE_TT))
+                                   .astype(np.float32)).cuda()
+            for r in (128, 4096):
+                for blocks in (1, 8):
+                    feats = torch.from_numpy(g.normal(size=(
+                        blocks * 16, r)).astype(np.float32)).cuda()
+                    kw = dict(n_visits=n_visits, n_tiles=n_tiles,
+                              layout="lane")
+                    tk, ok = visit.visit(tab, feats, **kw)
+                    tp, op = visit.visit_plain(tab, feats, **kw)
+                    if not (torch.equal(tk, tp) and torch.equal(ok, op)):
+                        fail(f"visit/dynamic-min-lane-highest V={n_visits} "
+                             f"tiles={n_tiles} R={r} blocks={blocks}: "
+                             f"differs from the plain version (bit for bit "
+                             f"expected)")
+                    n += 1
+    torch.cuda.synchronize()
+    return n
+
+
 def check_probes(torch, card):
     """Phase 12: the probes' entry points with the visit counts set to 0
     just before (main path 4), then every kernel of visit_kernel.cu
@@ -1003,6 +1071,12 @@ def check_probes(torch, card):
         f"bit for bit, {time.perf_counter() - t0:.2f} s")
     for tile, n in edges.items():
         entries[f"visit/{tile}-min-ray-highest"]["edge_shapes_checked"] = n
+    t0 = time.perf_counter()
+    n = check_lane_edges(torch)
+    log(f"visit/dynamic-min-lane-highest: {n} edge shapes (0..64 visits, 1 "
+        f"and 64 tiles, 128 and 4096 rays, 1 and 8 blocks) equal the plain "
+        f"version bit for bit, {time.perf_counter() - t0:.2f} s")
+    entries["visit/dynamic-min-lane-highest"]["edge_shapes_checked"] = n
 
     # the dot (P1b) in both precisions; torch.matmul as the yardstick
     a, b_in = probe_mxu.precision_inputs("cuda")

@@ -71,9 +71,17 @@
 // Build with --fmad=false, so that it rounds as the plain torch version
 // does: the kernels equal `traverse_plain` bit for bit.
 //
-// The 4-wide walk (bvh_traverse_wide_kernel) keeps the first design: one ray
-// per thread for the whole launch, node rows read four bytes a load; it
-// shares the leaf test above.
+// The 4-wide walk is the same kernel (kWide) with a wide row's visit in
+// place of a binary one: leaves after nodes, persistent warps, the int2
+// stack in local memory, raw leaves through leaf_raw; a 128-byte row comes
+// as eight float4.  Its first design (one ray a thread for the whole
+// launch, node and leaf visits in one loop, a row as 29 scalar loads) ran
+// 1.9 times as long; at 6 blocks an SM it is 4.5% faster than at 4, where
+// it needs no spill (PERF.md, PR 8).  A visit takes the live children far
+// to near by the row's axis and the ray's direction sign, pushes all but
+// the nearest and follows that one; every entry, pruned or leaf, counts
+// against max_iters: each ray's sequence of visits is the one of
+// `_walk_wide`, and the kernel equals it bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -139,13 +147,6 @@ __device__ __forceinline__ float slab_box(float lox, float loy, float loz,
                            fmaxf(t0z, t1z));
   const float te = fmaxf(tmin, 0.0f);
   return (tmax >= te && te < t_b) ? te : kInf;
-}
-
-// The same for one child box stored as [lo hi] at `c`, four bytes a load.
-__device__ __forceinline__ float slab(const float* __restrict__ c,
-                                      const Ray& r, float t_b) {
-  return slab_box(__ldg(c + 0), __ldg(c + 1), __ldg(c + 2), __ldg(c + 3),
-                  __ldg(c + 4), __ldg(c + 5), r, t_b);
 }
 
 // Raw-form Moller-Trumbore of one triangle [p0 e1 e2] at f[0..8]
@@ -287,9 +288,98 @@ __device__ __forceinline__ void leaf_const(const float* __restrict__ rows,
   }
 }
 
-// The binary walk.  `counter`, zero when the kernel starts, is the next ray
-// a warp takes.
-template <bool kAnyHit, bool kLeaf16>
+// The rays a warp with the lanes `live` in flight takes from `counter`, one
+// for each idle lane -> the ray this lane takes (n or more: none); sets
+// `exhausted` (the same in the warp) once the counter has passed n.
+__device__ __forceinline__ int next_ray(unsigned live, unsigned lane,
+                                        int* __restrict__ counter, int n,
+                                        bool& exhausted) {
+  const unsigned idle = ~live;
+  const int want = __popc(idle);
+  int first = 0;
+  if (lane == 0) first = atomicAdd(counter, want);
+  first = __shfl_sync(kFull, first, 0);
+  exhausted = first + want >= n;
+  return first + __popc(idle & ((1u << lane) - 1u));
+}
+
+// One binary row (internal node `code`): both children slab-tested, the
+// near one followed, the far one pushed when both are hit; `have` is false
+// when neither is.
+__device__ __forceinline__ void visit_binary(const float* __restrict__ nodes,
+                                             const Ray& r, float t_b,
+                                             int& code, float& te, bool& have,
+                                             int2* stack, int& sp) {
+  float f[16];
+  load_vec<4>(f, reinterpret_cast<const float4*>(
+                     nodes + static_cast<size_t>(code) * 16));
+  const float tel = slab_box(f[0], f[1], f[2], f[3], f[4], f[5], r, t_b);
+  const float ter = slab_box(f[6], f[7], f[8], f[9], f[10], f[11], r, t_b);
+  const int lcode = static_cast<int>(f[12]);
+  const int rcode = static_cast<int>(f[13]);
+  const int ab = static_cast<int>(f[14]);
+  // near child: this ray's direction sign on the split axis (bit 0-1)
+  // against which child lies lower on it (bit 2)
+  const int axis = ab & 3;
+  const bool l_low = (ab & 4) != 0;
+  const float dsel = axis == 0 ? r.dx : (axis == 1 ? r.dy : r.dz);
+  const bool left_near = (dsel > 0.0f) == l_low;
+  const int code_f = left_near ? lcode : rcode;
+  const int code_s = left_near ? rcode : lcode;
+  const float te_f = left_near ? tel : ter;
+  const float te_s = left_near ? ter : tel;
+  const bool any_f = te_f < kInf;
+  const bool any_s = te_s < kInf;
+  if (any_f && any_s && sp < kMaxStack) {  // fork: push the far child
+    stack[sp] = make_int2(code_s, __float_as_int(te_s));
+    ++sp;
+  }
+  have = any_f || any_s;
+  code = any_f ? code_f : code_s;
+  te = any_f ? te_f : te_s;
+}
+
+// One 4-wide row (the TPU's _kernel_wide, bvh_kernel.py:589-660): its
+// children, stored ascending along the row's axis, are taken far to near
+// (a ray going up the axis meets child 0 first, so it takes 3, 2, 1, 0);
+// every live one but the last is pushed and the last, the nearest, is
+// followed.  Its 128 bytes come as eight float4: six for the four boxes,
+// one for the codes, one for the axis.
+__device__ __forceinline__ void visit_wide(const float* __restrict__ nodes,
+                                           const Ray& r, float t_b, int& code,
+                                           float& te, bool& have, int2* stack,
+                                           int& sp) {
+  float f[32];
+  load_vec<8>(f, reinterpret_cast<const float4*>(
+                     nodes + static_cast<size_t>(code) * 32));
+  const int axis = static_cast<int>(f[28]);
+  const float dsel = axis == 0 ? r.dx : (axis == 1 ? r.dy : r.dz);
+  const bool d_pos = dsel > 0.0f;
+  float tes[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float* c = f + 6 * k;
+    tes[k] = slab_box(c[0], c[1], c[2], c[3], c[4], c[5], r, t_b);
+  }
+  have = false;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float te_k = d_pos ? tes[3 - j] : tes[j];
+    if (te_k < kInf) {
+      if (have && sp < kMaxStack) {  // a nearer live child follows
+        stack[sp] = make_int2(code, __float_as_int(te));
+        ++sp;
+      }
+      code = static_cast<int>(d_pos ? f[27 - j] : f[24 + j]);
+      te = te_k;
+      have = true;
+    }
+  }
+}
+
+// The walk, binary or 4-wide (kWide: over raw leaves).  `counter`, zero
+// when the kernel starts, is the next ray a warp takes.
+template <bool kAnyHit, bool kLeaf16, bool kWide>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
 bvh_traverse_kernel(const float* __restrict__ nodes,
                     const float* __restrict__ leaves,
@@ -314,13 +404,7 @@ bvh_traverse_kernel(const float* __restrict__ nodes,
     // ---- rays: a warp with too few in flight hands its idle lanes the next
     unsigned live = __ballot_sync(kFull, alive);
     if (!exhausted && __popc(live) < kRefillBelow) {
-      const unsigned idle = ~live;
-      const int want = __popc(idle);
-      int first = 0;
-      if (lane == 0) first = atomicAdd(counter, want);
-      first = __shfl_sync(kFull, first, 0);
-      exhausted = first + want >= n;
-      const int i = first + __popc(idle & ((1u << lane) - 1u));
+      const int i = next_ray(live, lane, counter, n, exhausted);
       if (!alive && i < n) {
         idx = i;
         r = load_ray(ox, oy, oz, dx, dy, dz, i);
@@ -337,7 +421,7 @@ bvh_traverse_kernel(const float* __restrict__ nodes,
     if (live == 0) break;
     const bool was_alive = alive;
 
-    // ---- internal nodes, until this lane holds a leaf or is done
+    // ---- internal rows, until this lane holds a leaf or is done
     bool leaf = false;
     while (alive) {
       if (!have) {  // refill from the stack
@@ -363,33 +447,11 @@ bvh_traverse_kernel(const float* __restrict__ nodes,
         leaf = true;
         break;
       }
-      float f[16];
-      load_vec<4>(f, reinterpret_cast<const float4*>(
-                         nodes + static_cast<size_t>(code) * 16));
-      const float tel = slab_box(f[0], f[1], f[2], f[3], f[4], f[5], r, b.t);
-      const float ter = slab_box(f[6], f[7], f[8], f[9], f[10], f[11], r, b.t);
-      const int lcode = static_cast<int>(f[12]);
-      const int rcode = static_cast<int>(f[13]);
-      const int ab = static_cast<int>(f[14]);
-      // near child: this ray's direction sign on the split axis (bit 0-1)
-      // against which child lies lower on it (bit 2)
-      const int axis = ab & 3;
-      const bool l_low = (ab & 4) != 0;
-      const float dsel = axis == 0 ? r.dx : (axis == 1 ? r.dy : r.dz);
-      const bool left_near = (dsel > 0.0f) == l_low;
-      const int code_f = left_near ? lcode : rcode;
-      const int code_s = left_near ? rcode : lcode;
-      const float te_f = left_near ? tel : ter;
-      const float te_s = left_near ? ter : tel;
-      const bool any_f = te_f < kInf;
-      const bool any_s = te_s < kInf;
-      if (any_f && any_s && sp < kMaxStack) {  // fork: push the far child
-        stack[sp] = make_int2(code_s, __float_as_int(te_s));
-        ++sp;
+      if (kWide) {
+        visit_wide(nodes, r, b.t, code, te, have, stack, sp);
+      } else {
+        visit_binary(nodes, r, b.t, code, te, have, stack, sp);
       }
-      have = any_f || any_s;
-      code = any_f ? code_f : code_s;
-      te = any_f ? te_f : te_s;
     }
     __syncwarp();
 
@@ -413,105 +475,18 @@ bvh_traverse_kernel(const float* __restrict__ nodes,
   }
 }
 
-// 4-wide walk over raw leaves (the TPU's _kernel_wide, bvh_kernel.py:589-660).
-template <bool kAnyHit>
-__global__ void __launch_bounds__(kBlock)
-bvh_traverse_wide_kernel(const float* __restrict__ nodes,
-                         const float* __restrict__ leaves,
-                         const float* __restrict__ ox,
-                         const float* __restrict__ oy,
-                         const float* __restrict__ oz,
-                         const float* __restrict__ dx,
-                         const float* __restrict__ dy,
-                         const float* __restrict__ dz,
-                         const float* __restrict__ t0,
-                         float* __restrict__ t_out,
-                         int* __restrict__ tri_out, float* __restrict__ u_out,
-                         float* __restrict__ v_out, int n, int init_code,
-                         int max_iters) {
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  Best b{t0[i], -1, 0.0f, 0.0f};
-
-  int nstack[kMaxStack];
-  float tstack[kMaxStack];
-  int sp = 0;
-  bool have = true;
-  int code = init_code;
-  float te = 0.0f;
-  for (int it = 0; (have || sp > 0) && it < max_iters; ++it) {
-    if (!have) {  // refill from the stack
-      --sp;
-      code = nstack[sp];
-      te = tstack[sp];
-    }
-    const bool m = te < b.t;
-    float tes[4] = {kInf, kInf, kInf, kInf};
-    int cds[4] = {0, 0, 0, 0};
-    int axis = 0;
-    if (code < 0) {
-      if (m) {
-        leaf_raw<kAnyHit>(leaves + static_cast<size_t>(-code - 1) * 128, r,
-                          b);
-      }
-    } else if (m) {
-      const float* nd = nodes + static_cast<size_t>(code) * 32;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        tes[k] = slab(nd + 6 * k, r, b.t);
-        cds[k] = static_cast<int>(__ldg(nd + 24 + k));
-      }
-      axis = static_cast<int>(__ldg(nd + 28));
-    }
-    // children are stored ascending along `axis`: a ray going up the axis
-    // meets child 0 first, so it takes 3, 2, 1, 0 and follows the last
-    const float dsel = axis == 0 ? r.dx : (axis == 1 ? r.dy : r.dz);
-    const bool d_pos = dsel > 0.0f;
-    have = false;
-    int code_n = 0;
-    float te_n = kInf;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float te_k = d_pos ? tes[3 - j] : tes[j];
-      const int code_k = d_pos ? cds[3 - j] : cds[j];
-      if (te_k < kInf) {
-        if (have && sp < kMaxStack) {  // a nearer live child follows
-          nstack[sp] = code_n;
-          tstack[sp] = te_n;
-          ++sp;
-        }
-        code_n = code_k;
-        te_n = te_k;
-        have = true;
-      }
-    }
-    code = code_n;
-    te = te_n;
-    if (kAnyHit && b.t < 0.0f) {  // occluded: done
-      have = false;
-      sp = 0;
-    }
-  }
-  t_out[i] = b.t;
-  tri_out[i] = b.tri;
-  u_out[i] = b.u;
-  v_out[i] = b.v;
-}
-
-// Zero the counter on the stream, then launch the binary walk on no more
+// Zero the counter on the stream, then launch the walk `kKernel` on no more
 // blocks than the card holds at once.
 // -> the CUDA error, 0 if launched; a refused launch leaves no error behind
 // for later calls.
-template <bool kAnyHit, bool kLeaf16>
+template <auto kKernel>
 int launch(const float* nodes, const float* leaves, const float* ox,
            const float* oy, const float* oz, const float* dx, const float* dy,
            const float* dz, const float* t0, float* t, int* tri, float* u,
            float* v, int n, int init_code, int max_iters, int* counter,
            cudaStream_t stream) {
-  const auto kernel = bvh_traverse_kernel<kAnyHit, kLeaf16>;
-  // the resident blocks are asked once a device and kept (per
-  // instantiation): a launch then costs the host one cudaGetDevice
+  // the resident blocks are asked once a device and kept (per kernel): a
+  // launch then costs the host one cudaGetDevice
   static int ready_dev = -1, resident = 0;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -519,7 +494,7 @@ int launch(const float* nodes, const float* leaves, const float* ox,
     int sms = 0, per_sm = 0;
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess) {
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kKernel,
                                                         kBlock, 0);
     }
     if (e == cudaSuccess && per_sm < 1) e = cudaErrorLaunchOutOfResources;
@@ -539,9 +514,9 @@ int launch(const float* nodes, const float* leaves, const float* ox,
   }
   int grid = (n + kBlock - 1) / kBlock;
   if (grid > resident) grid = resident;
-  kernel<<<grid, kBlock, 0, stream>>>(nodes, leaves, ox, oy, oz, dx, dy, dz,
-                                      t0, t, tri, u, v, n, init_code,
-                                      max_iters, counter);
+  kKernel<<<grid, kBlock, 0, stream>>>(nodes, leaves, ox, oy, oz, dx, dy, dz,
+                                       t0, t, tri, u, v, n, init_code,
+                                       max_iters, counter);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -559,33 +534,28 @@ extern "C" int bvh_traverse(const float* nodes, const float* leaves,
                             int any_hit, int leaf16, int* counter,
                             cudaStream_t stream) {
   if (n <= 0) return 0;
-  const auto fn = any_hit ? (leaf16 ? launch<true, true> : launch<true, false>)
-                          : (leaf16 ? launch<false, true>
-                                    : launch<false, false>);
+  const auto fn =
+      any_hit ? (leaf16 ? launch<bvh_traverse_kernel<true, true, false>>
+                        : launch<bvh_traverse_kernel<true, false, false>>)
+              : (leaf16 ? launch<bvh_traverse_kernel<false, true, false>>
+                        : launch<bvh_traverse_kernel<false, false, false>>);
   return fn(nodes, leaves, ox, oy, oz, dx, dy, dz, t0, t, tri, u, v, n,
             init_code, max_iters, counter, stream);
 }
 
-// 4-wide walk over raw leaves; launches on `stream` and returns
-// cudaGetLastError() (0 = launched).
+// The 4-wide walk over raw leaves, with `counter` as for bvh_traverse;
+// launches on `stream` and returns the CUDA error (0 = launched).
 extern "C" int bvh_traverse_wide(const float* nodes, const float* leaves,
                                  const float* ox, const float* oy,
                                  const float* oz, const float* dx,
                                  const float* dy, const float* dz,
                                  const float* t0, float* t, int* tri,
                                  float* u, float* v, int n, int init_code,
-                                 int max_iters, int any_hit,
+                                 int max_iters, int any_hit, int* counter,
                                  cudaStream_t stream) {
   if (n <= 0) return 0;
-  const int grid = (n + kBlock - 1) / kBlock;
-  if (any_hit) {
-    bvh_traverse_wide_kernel<true><<<grid, kBlock, 0, stream>>>(
-        nodes, leaves, ox, oy, oz, dx, dy, dz, t0, t, tri, u, v, n, init_code,
-        max_iters);
-  } else {
-    bvh_traverse_wide_kernel<false><<<grid, kBlock, 0, stream>>>(
-        nodes, leaves, ox, oy, oz, dx, dy, dz, t0, t, tri, u, v, n, init_code,
-        max_iters);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const auto fn = any_hit ? launch<bvh_traverse_kernel<true, false, true>>
+                          : launch<bvh_traverse_kernel<false, false, true>>;
+  return fn(nodes, leaves, ox, oy, oz, dx, dy, dz, t0, t, tri, u, v, n,
+            init_code, max_iters, counter, stream);
 }

@@ -53,6 +53,28 @@
 // would test every tile it straddles, and measured slower than one pair a
 // thread that reads its own treelet's tile.
 //
+// The lane visit (visit_lane_kernel, fp32, the counterpart of k_rays_major,
+// whose (R, 16) x (16, TT) product takes its min over TT across lanes) does
+// the min visit's multiply-adds and mins on its own layout: a warp takes 16
+// rays, lane l holds columns 4l .. 4l + 3 of the tile in registers (a float4
+// of each row, 64 values) and reads each ray's features from shared memory
+// (four broadcast float4).  Its first design staged every tile with the
+// whole block between two barriers and, for each ray and visit, ran a
+// 5-step butterfly of shuffles and mins on the dependent chain: about 11 of
+// every 150 instructions, and a shuffle's latency each step.  Now:
+//   - the tiles come through the min visit's ring of bulk copies on full /
+//     empty mbarriers, and a warp leaves a slot as soon as its columns are
+//     in registers; no barrier of the whole block stands in the loop;
+//   - each lane keeps a running min of each of its warp's rays over its
+//     own columns of every visit, and the butterfly runs once, after the
+//     last visit.
+// The running mins live in shared memory, a load and a store a ray-visit,
+// in a loop of 2 rays a step, and a warp takes 16 rays, not 32 (PERF.md, PR
+// 8): 32 mins in registers need the rays' loop unrolled, some 4,200
+// instructions a visit, which ran 7% slower than the rolled loop (its code
+// outgrows the instruction caches); 16 rays a warp then give the card twice
+// the warps to hide latency with, 3.5% more.
+//
 // The other visit kernels keep their first design: one thread block over
 // 128 rays, the visited tile staged in dynamic shared memory by the whole
 // block, float4 by float4, between two barriers.
@@ -60,12 +82,6 @@
 //     ray's best t as it stood before the visit, and reduce "first8", 8
 //     columns a visit): one thread per ray, its 16 features in registers,
 //     the tile read as float4 broadcasts.
-//   lane layout (fp32, the counterpart of k_rays_major): a warp takes 32
-//     rays; lane l holds columns l, l+32, l+64, l+96 of the tile in
-//     registers (64 values), reads each ray's features from shared memory
-//     (a broadcast), and the min over the 128 columns is a 5-step butterfly
-//     of warp shuffles per ray and visit: a reduction across lanes, as the
-//     TPU variant's is.
 //   TF32 (precision "default"): mma.sync.m16n8k8 with TF32 operands, two
 //     k-steps for K = 16; what XLA does on a GPU for an f32 dot at DEFAULT
 //     precision.  A warp takes 32 rays (4 n-tiles of 8).  The features
@@ -482,66 +498,139 @@ visit_ray_kernel(const float* __restrict__ tab,
 
 // --------------------------------------------------------------- lane layout
 constexpr int kLaneTT = 128;
-constexpr int kLaneCols = kLaneTT / 32;
+constexpr int kLaneWarps = 4;                      // warps of a block
+constexpr int kLaneRays = 16;                      // rays of a warp
+constexpr int kLaneThreads = 32 * kLaneWarps;
+constexpr int kLaneSpan = kLaneWarps * kLaneRays;  // rays of a block
+constexpr int kLaneTile = kK * kLaneTT * 4;        // bytes of a tile
+// shared memory beside the ring: the block's features, the barriers
+constexpr int kLaneFixed = kLaneSpan * kK * 4 + 2 * kMaxStages * 8;
+static_assert(kSpan % kLaneSpan == 0, "ops/visit.py checks R against SPAN");
+static_assert(kLaneRays <= 32, "lane j of a warp writes its ray j");
 
-__global__ void __launch_bounds__(kSpan)
+// Dynamic shared memory: the ring (`stages` slots of one 16 x 128 tile as it
+// lies in the table), the block's features ray-major (16 floats a ray), then
+// the barriers full[kMaxStages] and empty[kMaxStages]; visit i lives in slot
+// i % stages with parity (i / stages) & 1, as in visit_min_kernel.  Lane l
+// takes columns 4l .. 4l + 3 of every tile (a float4 of each row) and keeps,
+// for each of its warp's kLaneRays rays, the running min over its own
+// columns of every visit, in static shared memory (acc: a word of its own a
+// lane and ray); the min across the lanes is taken once, after the last
+// visit.  A warp leaves a slot as soon as its columns are in registers.
+__global__ void __launch_bounds__(kLaneThreads)
 visit_lane_kernel(const float* __restrict__ tab,
                   const float* __restrict__ feats, float* __restrict__ t_out,
-                  float* __restrict__ o_out, int r, int n_tiles,
-                  int n_visits) {
+                  float* __restrict__ o_out, int r, int n_tiles, int n_visits,
+                  int stages) {
   extern __shared__ float4 smem4[];
-  float* s = reinterpret_cast<float*>(smem4);       // the tile, 16 x 128
-  __shared__ float4 sf[kSpan * kK / 4];             // features, ray-major
+  float* ring = reinterpret_cast<float*>(smem4);
+  float4* sf = smem4 + stages * (kLaneTile / 16);
+  const uint32_t ring_a = smem_addr(ring);
+  const uint32_t full_a = smem_addr(sf + kLaneSpan * (kK / 4));
+  const uint32_t empty_a = full_a + 8 * kMaxStages;
   const int b = blockIdx.y;
-  const int r0 = blockIdx.x * kSpan;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * kLaneSpan;
+  const bool producer = threadIdx.x == 0;
+
+  const auto load_tile = [&](int j) {  // the tile of visit j
+    const int s = j % stages;
+    bulk_load(ring_a + s * kLaneTile,
+              tab + static_cast<size_t>(tile_of<kDynamic>(j, n_tiles)) * kK *
+                        kLaneTT,
+              kLaneTile, full_a + 8 * s);
+  };
+  if (producer) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full_a + 8 * s, 1);
+      mbar_init(empty_a + 8 * s, kLaneWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   {
     float* sff = reinterpret_cast<float*>(sf);
     const float* fb = feats + static_cast<size_t>(b) * kK * r + r0;
-#pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      sff[threadIdx.x * kK + k] = fb[static_cast<size_t>(k) * r + threadIdx.x];
+    for (int e = threadIdx.x; e < kLaneSpan * kK; e += kLaneThreads) {
+      const int k = e / kLaneSpan, ray = e - k * kLaneSpan;
+      sff[ray * kK + k] = fb[static_cast<size_t>(k) * r + ray];
     }
   }
-  float acc = kBig;  // of ray r0 + warp * 32 + lane
+  __syncthreads();
+  if (producer) {
+    for (int j = 0; j < stages && j < n_visits; ++j) load_tile(j);
+  }
+
+  const float4* fw = sf + warp * kLaneRays * (kK / 4);
+  // this lane's running min of each ray of the warp: its own words, which
+  // no other thread reads or writes, so no barrier orders them
+  __shared__ float acc[kLaneWarps][kLaneRays][32];
+  for (int j = 0; j < kLaneRays; ++j) acc[warp][j][lane] = kBig;
+  int s = 0;             // visit i's slot, i % stages, and
+  uint32_t parity = 0;   // the parity of its use of it, (i / stages) & 1
   for (int i = 0; i < n_visits; ++i) {
-    __syncthreads();
-    stage<false>(s, tab, tile_of<kDynamic>(i, n_tiles), kLaneTT, kLaneTT);
-    __syncthreads();
-    float a[kLaneCols][kK];
+    mbar_wait(full_a + 8 * s, parity);
+    float4 a[kK];  // columns 4 lane .. 4 lane + 3, row by row
+    const float4* tile =
+        reinterpret_cast<const float4*>(ring + s * (kLaneTile / 4)) + lane;
 #pragma unroll
-    for (int c = 0; c < kLaneCols; ++c) {
-#pragma unroll
-      for (int k = 0; k < kK; ++k) a[c][k] = s[k * kLaneTT + lane + 32 * c];
+    for (int k = 0; k < kK; ++k) a[k] = tile[k * (kLaneTT / 4)];
+    // this warp has left slot s; when all have, the producer refills it
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_a + 8 * s);
+    if (producer && i + stages < n_visits) {
+      mbar_wait(empty_a + 8 * s, parity);
+      // the warps' reads of the slot before the copy engine's writes
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      load_tile(i + stages);
     }
-    for (int j = 0; j < 32; ++j) {
-      const float4* fr = sf + (warp * 32 + j) * (kK / 4);
+    if (++s == stages) {
+      s = 0;
+      parity ^= 1;
+    }
+#pragma unroll 2
+    for (int j = 0; j < kLaneRays; ++j) {  // 2 rays a step
       float f[kK];
 #pragma unroll
-      for (int k4 = 0; k4 < kK / 4; ++k4) {
-        const float4 v = fr[k4];
+      for (int k4 = 0; k4 < kK / 4; ++k4) {  // a broadcast load a float4
+        const float4 v = fw[j * (kK / 4) + k4];
         f[4 * k4] = v.x; f[4 * k4 + 1] = v.y;
         f[4 * k4 + 2] = v.z; f[4 * k4 + 3] = v.w;
       }
-      float m = kBig;
+      float s0 = a[0].x * f[0], s1 = a[0].y * f[0];
+      float s2 = a[0].z * f[0], s3 = a[0].w * f[0];
 #pragma unroll
-      for (int c = 0; c < kLaneCols; ++c) {
-        float sum = a[c][0] * f[0];
-#pragma unroll
-        for (int k = 1; k < kK; ++k) sum = sum + a[c][k] * f[k];
-        m = fminf(m, sum);
+      for (int k = 1; k < kK; ++k) {
+        s0 = s0 + a[k].x * f[k];
+        s1 = s1 + a[k].y * f[k];
+        s2 = s2 + a[k].z * f[k];
+        s3 = s3 + a[k].w * f[k];
       }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      }
-      if (lane == j) acc = fminf(acc, m);
+      float& m = acc[warp][j][lane];
+      m = fminf(m, fminf(fminf(s0, s1), fminf(s2, s3)));
     }
   }
-  const int ray = r0 + warp * 32 + lane;
-  t_out[static_cast<size_t>(b) * r + ray] = acc;
-  write_feature_sum(feats, o_out, b, r, ray);
+
+  // The min across the lanes, once: a 5-step butterfly a ray, lane j keeps
+  // ray j's.  A min is exact in any grouping; where a ray's least value is
+  // a zero, the grouping may pick -0.0 where the plain version has +0.0 (or
+  // the reverse), which compare equal.
+  float mine = kBig;
+#pragma unroll
+  for (int j = 0; j < kLaneRays; ++j) {
+    float m = acc[warp][j][lane];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    }
+    if (lane == j) mine = m;
+  }
+  if (lane < kLaneRays) {
+    t_out[static_cast<size_t>(b) * r + r0 + warp * kLaneRays + lane] = mine;
+  }
+  for (int ray = threadIdx.x; ray < kLaneSpan; ray += kLaneThreads) {
+    write_feature_sum(feats, o_out, b, r, r0 + ray);
+  }
 }
 
 // ---------------------------------------------------------------------- TF32
@@ -811,6 +900,18 @@ int launch_min(int blocks, cudaStream_t stream, const float* tab,
                 n_tiles, n_visits, static_cast<int>(stages));
 }
 
+// The lane visit: as many ring slots as fit beside kLaneFixed in half of an
+// SM's shared memory, at most kMaxStages (the tile is 8 KB: kMaxStages).
+int launch_lane(int blocks, cudaStream_t stream, const float* tab,
+                const float* feats, float* t, float* o, int r, int n_tiles,
+                int n_visits) {
+  int stages = (kRingBudget - kLaneFixed) / kLaneTile;
+  stages = stages < 1 ? 1 : (stages > kMaxStages ? kMaxStages : stages);
+  return launch(visit_lane_kernel, dim3(r / kLaneSpan, blocks), kLaneThreads,
+                stages * kLaneTile + kLaneFixed, stream, tab, feats, t, o, r,
+                n_tiles, n_visits, stages);
+}
+
 }  // namespace
 
 // The visit kernel of variant `variant` (ops/visit.py, VARIANTS order) over
@@ -842,8 +943,8 @@ extern "C" int visit_run(int variant, const float* tab, const float* feats,
       return launch(visit_ray_kernel<kFirst8>, grid, kSpan, tile, stream, tab,
                     feats, t, o, r, tt, n_tiles, n_visits);
     case 5:
-      return launch(visit_lane_kernel, grid, kSpan, tile, stream, tab, feats,
-                    t, o, r, n_tiles, n_visits);
+      return launch_lane(blocks, stream, tab, feats, t, o, r, n_tiles,
+                         n_visits);
     case 6:
       return launch_min<kBatched8>(blocks, stream, tab, feats, t, o, r, tt,
                                    n_tiles, n_visits);

@@ -5,10 +5,11 @@ versions.
 Counterpart of raytracingrenderer_tpu/ops/bvh_kernel.py, whose Pallas
 kernels `_kernel` (binary) and `_kernel_wide` (4-wide), both launched by
 `traverse_packet`, walk the tree once for a whole block of rays on the
-TPU.  Here both kernels are in csrc/bvh_kernel.cu, written for Hopper:
-one ray per thread at a time, each with its own stack (the binary walk
-with persistent warps that take their next rays from a counter, leaves
-tested after nodes, rows read 16 bytes a load; see the source's header).
+TPU.  Here both walks are one kernel template in csrc/bvh_kernel.cu,
+written for Hopper: one ray per thread at a time, each with its own
+stack, persistent warps that take their next rays from a counter,
+leaves tested after nodes, rows read 16 bytes a load (see the source's
+header).
 They compute what the TPU kernels compute, over the same tables:
 
 - binary nodes (I, 16) f32, one row per internal node holding both
@@ -70,7 +71,7 @@ launches: Dict[str, int] = {"closest_hit": 0, "any_hit": 0,
 # so on the same rays these are the kernel's visits too
 plain_visits: Dict[str, int] = {"internal": 0, "leaf": 0, "slots": 0}
 _lib = None
-# (device index, stream handle) -> the binary kernel's ray counter there
+# (device index, stream handle) -> the kernels' ray counter there
 _counters: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -714,11 +715,12 @@ def traverse_plain(bvh: BVH, tris: Triangles, o: V3, d: V3, t_init,
     return _finish(t, tri, u, v, t_init, n)
 
 
-# (tables, rays and seeds, outputs, n / init_code / max_iters / any_hit);
-# the binary walk adds leaf16 and the ray counter
+# (tables, rays and seeds, outputs, n / init_code / max_iters / any_hit,
+# then the ray counter); the binary walk adds leaf16 before the counter
 SIGNATURES = {
     "bvh_traverse": [PTR] * 2 + [PTR] * 7 + [PTR] * 4 + [I32] * 5 + [PTR],
-    "bvh_traverse_wide": [PTR] * 2 + [PTR] * 7 + [PTR] * 4 + [I32] * 4}
+    "bvh_traverse_wide": [PTR] * 2 + [PTR] * 7 + [PTR] * 4 + [I32] * 4
+    + [PTR]}
 
 
 def _library():
@@ -758,7 +760,7 @@ def _check(nodes, leaves, leaf16: bool, wide: bool, arrays, n: int) -> None:
 
 
 def _counter(dev: torch.device) -> torch.Tensor:
-    """The binary kernel's scratch on the current stream of `dev`: one
+    """The kernels' scratch on the current stream of `dev`: one
     int32, the next ray a persistent warp takes, which the launcher
     zeroes on the stream before the kernel.  Kept, so that a launch
     allocates nothing; one per stream, because launches on two streams
@@ -807,11 +809,11 @@ def traverse_packet(bvh: BVH, tris: Triangles, o: V3, d: V3, t_init,
             n, _init_code(bvh), max_iters(bvh), int(any_hit))
     name = ("wide_" if wide else "") + ("any_hit" if any_hit
                                          else "closest_hit")
+    counter = _counter(dev).data_ptr()
     if wide:
-        launch(_library()["bvh_traverse_wide"], dev, *ptrs)
+        launch(_library()["bvh_traverse_wide"], dev, *ptrs, counter)
     else:
-        launch(_library()["bvh_traverse"], dev, *ptrs, int(leaf16),
-               _counter(dev).data_ptr())
+        launch(_library()["bvh_traverse"], dev, *ptrs, int(leaf16), counter)
     launches[name] += 1
     return _finish(t, tri, u, v, t_init, n)
 

@@ -59,7 +59,11 @@ The fp32 min visit (reduce="min", layout="ray", precision="highest", in
 the three tile modes) runs 4 rays a thread and splits a tile's columns
 over the MIN_WARPS warps of a block, whose mins meet after the last
 visit; its tiles come through a ring of `ring_stages` slots in shared
-memory (csrc/visit_kernel.cu).  `_smem_bytes` is the launcher's layout.
+memory (csrc/visit_kernel.cu).  The lane visit takes its tiles through
+such a ring too; each lane keeps a running min of each of its warp's
+LANE_RAYS rays over its own 4 columns of every visit, and the min across
+the lanes is taken once, after the last.  `_smem_bytes` is the
+launchers' layout of dynamic shared memory.
 """
 from __future__ import annotations
 
@@ -83,6 +87,11 @@ MAX_STAGES = 3          # tiles its ring holds at most
 RING_BUDGET = (228 // 2 - 1) * 1024
 # its shared memory beside the ring: the warps' mins and the barriers
 MIN_FIXED = MIN_WARPS * SPAN * 4 + 2 * MAX_STAGES * 8
+LANE_WARPS = 4          # warps of a block of the lane visit
+LANE_RAYS = 16          # rays of a warp of it, a running min each a lane
+LANE_SPAN = LANE_WARPS * LANE_RAYS
+# its shared memory beside its ring: the block's features and the barriers
+LANE_FIXED = LANE_SPAN * K * 4 + 2 * MAX_STAGES * 8
 
 # (tile, reduce, layout, precision) of each kernel the probes run, in the
 # order of the CUDA launcher's variant ids
@@ -332,22 +341,28 @@ def _aligned(**tensors: torch.Tensor) -> None:
                              f"kernel, its data_ptr is {x.data_ptr():#x}")
 
 
-def ring_stages(tt: int, tile: str) -> int:
-    """Slots of the fp32 min visit's ring of tiles, as the launcher
-    chooses them: as many as fit RING_BUDGET, so that two blocks stay
-    resident on an SM, at most MAX_STAGES, at least the one it cannot do
-    without; the static tile is brought in once and needs one.  (A
-    batched step goes through the ring as 8 visits of one tile.)"""
+def ring_stages(tt: int, tile: str, layout: str = "ray") -> int:
+    """Slots of the ring of tiles of the fp32 min visit (layout "ray") or
+    of the lane visit, as the launchers choose them: as many as fit
+    RING_BUDGET beside the kernel's other shared memory (MIN_FIXED,
+    LANE_FIXED), so that two blocks stay resident on an SM, at most
+    MAX_STAGES, at least the one it cannot do without; the static tile is
+    brought in once and needs one.  (A batched step goes through the ring
+    as 8 visits of one tile.)"""
     if tile == "static":
         return 1
-    return max(1, min(MAX_STAGES, (RING_BUDGET - MIN_FIXED) // (K * tt * 4)))
+    fixed = LANE_FIXED if layout == "lane" else MIN_FIXED
+    return max(1, min(MAX_STAGES, (RING_BUDGET - fixed) // (K * tt * 4)))
 
 
 def _smem_bytes(tt: int, variant: tuple) -> int:
     """Dynamic shared memory of the visit kernel of `variant`: for the
-    fp32 min visit the ring and MIN_FIXED; else the staged tile, its rows
-    padded by 8 floats for the TF32 fragments' bank pattern."""
+    fp32 min visit and the lane visit the ring and MIN_FIXED or
+    LANE_FIXED; else the staged tile, its rows padded by 8 floats for the
+    TF32 fragments' bank pattern."""
     tile, reduce, layout, precision = variant
+    if layout == "lane":
+        return ring_stages(tt, tile, layout) * K * tt * 4 + LANE_FIXED
     if (reduce, layout, precision) == ("min", "ray", "highest"):
         return ring_stages(tt, tile) * K * tt * 4 + MIN_FIXED
     return K * (tt + (8 if precision == "default" else 0)) * 4

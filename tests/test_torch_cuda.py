@@ -15,12 +15,13 @@ plain version bit for bit on the 5,156-triangle spheres scene
 the batches its schedule could break: 100,003 rays with 10% dead lanes,
 1 ray, 33 rays, 2^16 + 77 rays with half the lanes dead, and rays that
 all miss the scene's box.
-The 4-wide BVH kernel (same rays) and the
+The 4-wide BVH kernel is held to its plain version bit for bit on the
+same batches, and launched back to back on a side stream.  The
 treelet pair-test kernel (the pairs of the treelet route on the same
 rays; synthetic pairs at the edges of its partition: one treelet for
 all, a new one every pair, runs of 1 to 5, ids out of range at the tail
 and in the middle, equal t at several columns; launches back to back on
-a side stream) are held to their plain versions bit for bit.  Renders
+a side stream) is held to its plain version bit for bit.  Renders
 on "cuda" (the cornell box, and the spheres scene through the BVH and the
 wavefront integrator, by the packet route and by the treelet route) are
 held against the same renders on "cpu" per pixel: >= 99% of pixels
@@ -30,11 +31,12 @@ fp32 visits, the fp32 dot and the relayout bit for bit, the TF32 visit
 and dot within visit.TF32_KERNEL_BOUND of the sum of the products'
 magnitudes; the fp32 min visit also at the shapes its partition could
 break (TT 32 to 512, 0 to 64 visits, 1 and 64 tiles, 128 and 4096 rays)
-and launched back to back on a side stream; the fp32 dot at TT 16, 48
-and 128 and R 128 and 4096; a refused launch raises and leaves no error
-behind; a launch with the tensors' device already current, or on a side
-stream, stays correct; binary walks back to back share one ray
-counter."""
+and launched back to back on a side stream; the lane visit at 0 to 64
+visits, 1 and 64 tiles, 128 and 4096 rays, 1 and 8 blocks; the fp32 dot
+at TT 16, 48 and 128 and R 128 and 4096; a refused launch raises and
+leaves no error behind; a launch with the tensors' device already
+current, or on a side stream, stays correct; binary walks back to back
+share one ray counter."""
 import numpy as np
 import pytest
 import torch
@@ -232,10 +234,13 @@ def test_spheres_render_cuda_matches_cpu(cuda, spheres_dir):
     _agree(a, _render(spheres_dir, "cpu"))
 
 
+@pytest.mark.parametrize("case", ["full", "one", "33", "half_dead", "miss"])
 @pytest.mark.parametrize("any_hit", [False, True])
-def test_wide_kernel_matches_plain(cuda, spheres_dir, any_hit):
+def test_wide_kernel_matches_plain(cuda, spheres_dir, any_hit, case):
+    """The 4-wide walk on the binary walk's batches: bit for bit (t, tri,
+    u, v), no dead lane hits, a miss keeps its seed."""
     scene = load_scene(spheres_dir, cuda)
-    o, d, t0, max_t, dead = _rays(cuda, 19)
+    o, d, t0, max_t, dead = _b2_batch(cuda, case)
     t_init = max_t if any_hit else t0
     key = "wide_any_hit" if any_hit else "wide_closest_hit"
     before = bvh_kernel.launches[key]
@@ -245,10 +250,43 @@ def test_wide_kernel_matches_plain(cuda, spheres_dir, any_hit):
     assert bvh_kernel.launches[key] == before + 1
     hp = bvh_kernel.traverse_plain(scene.bvh, scene.triangles, o, d,
                                    t_init, any_hit=any_hit, wide=True)
-    assert torch.equal(hk.tri, hp.tri)
-    assert torch.equal(hk.t, hp.t)
-    assert not (hk.tri.cpu().numpy()[dead] >= 0).any()
-    assert 0.1 < (hk.tri >= 0).float().mean().item()
+    for k, p in zip(hk, hp):
+        assert torch.equal(k, p)
+    tk = hk.tri.cpu().numpy()
+    assert not (tk[dead] >= 0).any()
+    if case == "full":
+        assert 0.1 < (tk >= 0).mean()
+    if case == "miss":
+        assert not (tk >= 0).any()
+        assert torch.equal(hk.t, t_init)
+
+
+def test_wide_kernel_back_to_back_on_a_side_stream(cuda, spheres_dir):
+    """Launches of the 4-wide walk back to back on a stream that is not
+    the default one, of different widths and variants, beside binary
+    walks: the stream's one ray counter is zeroed by each launcher, so
+    every result equals the plain version bit for bit."""
+    scene = load_scene(spheres_dir, cuda)
+    runs = []
+    for case, any_hit, wide in (("full", False, True), ("33", True, True),
+                                ("half_dead", False, False),
+                                ("one", True, True), ("full", True, True),
+                                ("miss", False, True)):
+        o, d, t0, max_t, _ = _b2_batch(cuda, case)
+        runs.append((o, d, max_t if any_hit else t0, any_hit, wide))
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    for _ in range(2):
+        with torch.cuda.stream(side):
+            got = [bvh_kernel.traverse_packet(scene.bvh, scene.triangles, o,
+                                              d, t, any_hit=a, wide=w)
+                   for o, d, t, a, w in runs]
+        side.synchronize()
+        for (o, d, t, a, w), hk in zip(runs, got):
+            hp = bvh_kernel.traverse_plain(scene.bvh, scene.triangles, o, d,
+                                           t, any_hit=a, wide=w)
+            for x, y in zip(hk, hp):
+                assert torch.equal(x, y)
 
 
 def test_pair_kernel_matches_plain(cuda, spheres_dir):
@@ -380,6 +418,30 @@ def test_visit_min_kernel_edge_shapes(cuda, tile, tt, n_visits, n_tiles, r):
     kw = dict(n_visits=n_visits, n_tiles=n_tiles, tile=tile)
     tk, ok = visit.visit(tab, feats, **kw)
     torch.cuda.synchronize()
+    tp, op = visit.visit_plain(tab, feats, **kw)
+    assert torch.equal(tk, tp) and torch.equal(ok, op)
+
+
+LANE_SHAPES = [(n_visits, n_tiles, r, blocks)
+               for n_visits in (0, 1, 2, 7, 64) for n_tiles in (1, 64)
+               for r in (128, 4096) for blocks in (1, 8)]
+
+
+@pytest.mark.parametrize("n_visits,n_tiles,r,blocks", LANE_SHAPES)
+def test_visit_lane_kernel_edge_shapes(cuda, n_visits, n_tiles, r, blocks):
+    """The lane visit where its partition could break: a ring never,
+    partly or often refilled; one tile visited every time; one block of
+    rays or many; one batch of rays or eight."""
+    g = np.random.default_rng(n_visits + n_tiles)
+    tab = torch.from_numpy(g.normal(size=(n_tiles * 16, visit.LANE_TT))
+                           .astype(np.float32)).to(cuda)
+    feats = torch.from_numpy(g.normal(size=(blocks * 16, r)).astype(
+        np.float32)).to(cuda)
+    kw = dict(n_visits=n_visits, n_tiles=n_tiles, layout="lane")
+    before = visit.launches["visit/dynamic-min-lane-highest"]
+    tk, ok = visit.visit(tab, feats, **kw)
+    torch.cuda.synchronize()
+    assert visit.launches["visit/dynamic-min-lane-highest"] == before + 1
     tp, op = visit.visit_plain(tab, feats, **kw)
     assert torch.equal(tk, tp) and torch.equal(ok, op)
 

@@ -25,8 +25,12 @@ cannot run here; a torch model of its partition (4 rays a thread, a
 tile's columns split over 8 warps whose mins meet at the end, the steps
 through a ring of slots with its barriers' parities) is held to
 `visit_plain` with no tolerance, bit for bit: the argument for the
-kernel's parity, run.  `_smem_bytes` is held to `visit`'s refusal, and
-the probes' operation count to the numbers written by hand."""
+kernel's parity, run.  So is a model of the lane visit's kernel
+(visit_lane_kernel: lane l of a warp on columns 4l .. 4l + 3 of every
+tile, a running min of each of the warp's 16 rays in every lane across
+the visits, one butterfly of 5 steps after the last, the tiles through
+the ring).  `_smem_bytes` is held to `visit`'s refusal, and the probes'
+operation count to the numbers written by hand."""
 import functools
 import importlib.util
 import os
@@ -424,6 +428,106 @@ def test_min_model_ring_refuses_a_wrong_parity():
     assert b.passes(0) and not b.passes(1)
 
 
+def _ring(tab, visits, stages):
+    """The ring of `stages` slots as both kernels run it -> (wait(i): the
+    tile of visit i, after its slot's full barrier passes with parity
+    (i // stages) & 1; leave(i): the slot of visit i given back, refilled
+    with the tile of visit i + stages once its empty barrier passed)."""
+    ring, held = [None] * stages, [None] * stages
+    full = [_Barrier() for _ in range(stages)]
+    empty = [_Barrier() for _ in range(stages)]
+
+    def load(j):
+        ring[j % stages] = tab[visits[j] * 16:(visits[j] + 1) * 16]
+        held[j % stages] = j
+        full[j % stages].complete()
+
+    for j in range(min(stages, len(visits))):
+        load(j)
+
+    def wait(i):
+        s, parity = i % stages, (i // stages) & 1
+        assert full[s].passes(parity) and held[s] == i
+        return ring[s]
+
+    def leave(i):
+        s, parity = i % stages, (i // stages) & 1
+        empty[s].complete()
+        if i + stages < len(visits):
+            assert empty[s].passes(parity)
+            load(i + stages)
+
+    return wait, leave
+
+
+def _lane_model(tab, feats, n_visits, n_tiles):
+    """visit_lane_kernel's partition in torch -> t (blocks, R): per block
+    of LANE_SPAN rays, warp w on rays LANE_RAYS w .. LANE_RAYS (w + 1) - 1;
+    lane l takes columns 4l .. 4l + 3 of each tile (a float4 of each row)
+    and keeps, for each ray of its warp, the running min of its own
+    columns over the visits; a warp leaves a slot once its columns are
+    read; after the last visit a butterfly (min with the lane l ^ 16, ^ 8,
+    ^ 4, ^ 2, ^ 1) and lane j writes ray j of its warp."""
+    blocks, r = feats.shape[0] // 16, feats.shape[1]
+    tt = tab.shape[1]
+    stages = visit.ring_stages(tt, "dynamic", "lane")
+    visits = [t for step in visit.tile_steps(n_visits, n_tiles, "dynamic")
+              for t in step]
+    wait, leave = _ring(tab, visits, stages)
+    f = feats.view(blocks, 16, r)
+    acc = torch.full((blocks, 32, r), visit.BIG)     # (block, lane, ray)
+    for i in range(len(visits)):
+        cols = wait(i).clone()          # every lane's columns, in registers
+        leave(i)
+        sums = visit._contract(cols, f).view(blocks, 32, 4, r)
+        acc = torch.minimum(acc, torch.minimum(
+            torch.minimum(sums[:, :, 0], sums[:, :, 1]),
+            torch.minimum(sums[:, :, 2], sums[:, :, 3])))
+    lane = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        acc = torch.minimum(acc, acc[:, lane ^ off])
+    assert r % visit.LANE_SPAN == 0 and visit.LANE_RAYS <= 32
+    ray = torch.arange(r)
+    return acc[:, ray % visit.LANE_RAYS, ray]
+
+
+LANE_CASES = [(n_visits, n_tiles, r, blocks)
+              for n_visits in (0, 1, 2, 7, 64) for n_tiles in (1, 64)
+              for r in (128, 4096) for blocks in (1, 8)]
+
+
+@pytest.mark.parametrize("n_visits,n_tiles,r,blocks", LANE_CASES)
+def test_lane_partition_model_equals_plain(n_visits, n_tiles, r, blocks):
+    g = np.random.default_rng(n_visits + n_tiles)
+    tab = torch.from_numpy(g.normal(size=(n_tiles * 16, visit.LANE_TT))
+                           .astype(np.float32))
+    feats = torch.from_numpy(g.normal(size=(blocks * 16, r)).astype(
+        np.float32))
+    kw = dict(n_visits=n_visits, n_tiles=n_tiles, layout="lane")
+    want, _ = visit.visit_plain(tab, feats, **kw)
+    got = _lane_model(tab, feats, n_visits, n_tiles)
+    assert torch.equal(got, want[:, 0])
+    assert (got < 3e38).all() if n_visits else (got == visit.BIG).all()
+
+
+def test_lane_model_ring_holds_each_visit_in_its_slot():
+    """Three slots over seven visits: visit i waits in slot i % 3 with
+    parity (i // 3) & 1; a wait on a slot that was not yet refilled is
+    caught."""
+    tab = torch.arange(8 * 16, dtype=torch.float32)[:, None].expand(
+        -1, 128).contiguous()
+    visits = visit.tile_steps(7, 8, "dynamic")
+    wait, leave = _ring(tab, [s[0] for s in visits], 3)
+    for i in range(7):
+        assert int(wait(i)[0, 0]) == 16 * visits[i][0]
+        leave(i)
+    wait, leave = _ring(tab, [s[0] for s in visits], 3)
+    for i in range(3):
+        wait(i)
+    with pytest.raises(AssertionError):
+        wait(3)
+
+
 @pytest.mark.parametrize("variant", visit.VARIANTS,
                          ids=[visit.variant_name(*v) for v in visit.VARIANTS])
 def test_smem_bytes_follow_the_refusal(variant, monkeypatch):
@@ -431,14 +535,14 @@ def test_smem_bytes_follow_the_refusal(variant, monkeypatch):
     `_smem_bytes` passes SMEM_MAX; below it, it goes on to the launch
     (here stopped at the library, which a CPU machine cannot build)."""
     tile, reduce, layout, precision = variant
-    fixed = visit.MIN_FIXED
     for tt in (32, 96, 128, 512, 1024, 2048, 3552, 3616, 3648, 4096):
         if layout == "lane" and tt != visit.LANE_TT:
             continue
         need = visit._smem_bytes(tt, variant)
-        if (reduce, layout, precision) == ("min", "ray", "highest"):
+        if layout == "lane" or (reduce, precision) == ("min", "highest"):
             step = 16 * tt * 4
-            stages = visit.ring_stages(tt, tile)
+            stages = visit.ring_stages(tt, tile, layout)
+            fixed = visit.LANE_FIXED if layout == "lane" else visit.MIN_FIXED
             assert need == stages * step + fixed
             assert stages == 1 or need <= visit.RING_BUDGET
             assert stages == (1 if tile == "static" else visit.MAX_STAGES) \
@@ -467,7 +571,8 @@ def test_smem_bytes_follow_the_refusal(variant, monkeypatch):
     assert visit.ring_stages(512, "dynamic") == 3
     assert visit.ring_stages(128, "batched8") == 3
     assert visit.ring_stages(1024, "dynamic") == 1
-    for v, tt in ((0, 128), (0, 512), (6, 128)):
+    assert visit.ring_stages(128, "dynamic", "lane") == 3
+    for v, tt in ((0, 128), (0, 512), (6, 128), (5, 128)):
         assert 2 * (visit._smem_bytes(tt, visit.VARIANTS[v]) + 1024) \
             <= 228 * 1024
 

@@ -15,11 +15,21 @@
   over the binary walk's constant-form leaves (edge-grazing rays may
   round apart);
 - the binary walk stays the default for every tree the loader builds,
-  and `BVH.to()` keeps every optional field.
+  and `BVH.to()` keeps every optional field;
+- a model of the CUDA kernel's schedule (persistent warps of 32 lanes
+  refilled from a counter below 16 live rays; each lane walks wide rows
+  until it holds a leaf or is done, then the warp tests every held leaf)
+  equals `_walk_wide` bit for bit (t, tri, u, v) and in its visits, on
+  the spheres scene and on a small tree, with `max_iters` that lets every
+  walk end and ones that cut walks short;
+- the launchers' C signatures in csrc/bvh_kernel.cu match `SIGNATURES`
+  (the 4-wide walk takes the ray counter).
 
 The CUDA kernel itself is checked against `traverse_plain` by
 tests/test_torch_cuda.py and chip_smoke.py on the card."""
 import dataclasses
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -262,3 +272,218 @@ def test_bvh_to_keeps_every_field(scenes):
                  moved.replace_treelets(*([np.zeros(1)] * 6))):
         assert not copy.cache and copy.wsel.dtype == torch.int32
         assert copy.tl_nodes is not None and copy.wsel is not None
+
+
+WARP = 32
+REFILL_BELOW = 16        # the kernel's kRefillBelow
+
+
+class _Lane:
+    """One lane's walk, as the kernel keeps it in registers."""
+
+    def __init__(self):
+        self.alive = self.have = self.leaf = False
+        self.idx = self.code = self.it = 0
+        self.tri = -1
+        self.te = self.t = self.u = self.v = 0.0
+        self.stack = []
+
+
+def _wide_model(nodes, leaves, o, d, t0, init_code, iters, any_hit,
+                warps=3):
+    """bvh_traverse_wide_kernel's schedule in torch -> ((t, tri, u, v) as
+    the kernel writes them, its visits, the walks that the cap ended).
+    `warps` persistent warps take turns through the kernel's outer loop:
+    a warp with fewer than 16 rays in flight hands its idle lanes the next
+    rays of a counter, in lane order; its lanes walk wide rows one a step
+    (pop where the entry is used up, end at an empty stack or at the cap,
+    prune by the best hit, stop at a leaf, else slab-test the 4 children,
+    take them far to near, push all live ones but the nearest) until each
+    holds a leaf or is done; then the warp tests every held leaf at once.
+    The arithmetic is the plain walk's (`_slab`, `_leaf9`): what this
+    holds is the schedule."""
+    n = t0.shape[0]
+    ray = (o.x, o.y, o.z, d.x, d.y, d.z)
+    inv = tbk._inv_dir(o, d)
+    t_out = torch.full((n,), float("nan"))
+    tri_out = torch.full((n,), -7, dtype=torch.int32)
+    u_out, v_out = torch.zeros(n), torch.zeros(n)
+    visits = {"internal": 0, "leaf": 0, "slots": 0}
+    counter, capped = [0], [0]
+    seeds = t0.tolist()
+
+    def node_phase(lanes):
+        walking = [ln for ln in lanes if ln.alive]
+        while walking:
+            visit = []
+            for ln in walking:
+                if not ln.have:
+                    if not ln.stack:
+                        ln.alive = False
+                        continue
+                    ln.code, ln.te = ln.stack.pop()
+                    ln.have = True
+                if ln.it >= iters:
+                    ln.alive = False
+                    capped[0] += 1
+                    continue
+                ln.it += 1
+                if not ln.te < ln.t:
+                    ln.have = False
+                elif ln.code < 0:
+                    ln.leaf = True
+                else:
+                    visit.append(ln)
+            if visit:
+                visits["internal"] += len(visit)
+                idx = torch.tensor([ln.idx for ln in visit])
+                rows = nodes[torch.tensor([ln.code for ln in visit])]
+                t_b = torch.tensor([ln.t for ln in visit],
+                                   dtype=torch.float32)
+                inv_i = tuple(c[idx] for c in inv)
+                tes = torch.stack([tbk._slab(rows, 6 * k, inv_i, t_b)
+                                   for k in range(4)], dim=1)
+                live = (tes < tbk.INF).tolist()
+                tes, cds = tes.tolist(), rows[:, 24:28].long().tolist()
+                d_pos = tbk._d_pos(V3(d.x[idx], d.y[idx], d.z[idx]),
+                                   rows[:, 28].long()).tolist()
+                for i, ln in enumerate(visit):
+                    ln.have = False
+                    for j in range(4):
+                        k = 3 - j if d_pos[i] else j
+                        if not live[i][k]:
+                            continue
+                        if ln.have and len(ln.stack) < tbk.MAX_STACK:
+                            ln.stack.append((ln.code, ln.te))
+                        ln.code, ln.te, ln.have = cds[i][k], tes[i][k], True
+            walking = [ln for ln in walking if ln.alive and not ln.leaf]
+
+    def leaf_phase(lanes):
+        held = [ln for ln in lanes if ln.leaf]
+        if not held:
+            return
+        idx = torch.tensor([ln.idx for ln in held])
+        rows = leaves[torch.tensor([-ln.code - 1 for ln in held])]
+        hit, j, t_h, u_h, v_h = tbk._leaf9(
+            rows, tuple(c[idx] for c in ray),
+            torch.tensor([ln.t for ln in held], dtype=torch.float32),
+            any_hit)
+        visits["leaf"] += len(held)
+        visits["slots"] += tbk._slots_needed(rows[:, tbk.LANE_START + 1],
+                                             hit, j, any_hit)
+        base = rows[:, tbk.LANE_START].int()
+        for i, ln in enumerate(held):
+            ln.leaf = ln.have = False
+            if bool(hit[i]):
+                ln.tri = int(base[i] + j[i])
+                if any_hit:
+                    ln.t = -1.0
+                    ln.alive = False      # occluded: done
+                else:
+                    ln.t, ln.u, ln.v = (float(t_h[i]), float(u_h[i]),
+                                        float(v_h[i]))
+
+    def outer(w):
+        """One pass of the kernel's outer loop -> False once the warp is
+        done."""
+        lanes = w["lanes"]
+        live = sum(ln.alive for ln in lanes)
+        if not w["exhausted"] and live < REFILL_BELOW:
+            idle = [ln for ln in lanes if not ln.alive]
+            first = counter[0]
+            counter[0] += len(idle)
+            w["exhausted"] = first + len(idle) >= n
+            for rank, ln in enumerate(idle):
+                if first + rank < n:
+                    ln.__init__()
+                    ln.idx, ln.code, ln.t = first + rank, init_code, \
+                        seeds[first + rank]
+                    ln.have = ln.alive = True
+        was_alive = [ln.alive for ln in lanes]
+        if not any(was_alive):
+            return False
+        node_phase(lanes)
+        leaf_phase(lanes)
+        for ln, was in zip(lanes, was_alive):
+            if was and not ln.alive:
+                t_out[ln.idx], tri_out[ln.idx] = ln.t, ln.tri
+                u_out[ln.idx], v_out[ln.idx] = ln.u, ln.v
+        return True
+
+    active = [{"lanes": [_Lane() for _ in range(WARP)], "exhausted": False}
+              for _ in range(warps)]
+    while active:
+        active = [w for w in active if outer(w)]
+    return (t_out, tri_out, u_out, v_out), visits, capped[0]
+
+
+def _small_tree():
+    """40 random triangles in leaves of at most 2: a tree deep enough that
+    wide rows hold leaves and inner rows side by side."""
+    g = np.random.default_rng(11)
+    tp = (g.uniform(-1, 1, (40, 1, 3)) + g.uniform(-0.6, 0.6, (40, 3, 3))
+          ).astype(np.float32)
+    bvh, order = tbvh.build(tp, max_leaf=2)
+    tp = tp[order]
+    tris = Triangles(_tv(tp[:, 0]), _tv(tp[:, 1] - tp[:, 0]),
+                     _tv(tp[:, 2] - tp[:, 0]), *([None] * 7),
+                     area=torch.ones(40), mat_id=None, light_id=None)
+    return tbk.widen(bvh), tris
+
+
+@pytest.mark.parametrize("cap", ["full", "cut"])
+@pytest.mark.parametrize("any_hit", [False, True],
+                         ids=["closest-hit", "any-hit"])
+@pytest.mark.parametrize("tree", ["spheres", "small"])
+def test_wide_schedule_model_equals_plain(scenes, rays, tree, any_hit, cap):
+    """The kernel's schedule (leaves after nodes, persistent warps) visits
+    what the lockstep plain walk visits, ray by ray: equal t, tri, u, v and
+    equal visit counts; with the cap cut to a few visits, some walks end
+    early and still agree."""
+    o, d, dead, t_closest, t_any = rays
+    if tree == "spheres":
+        bvh, tris = scenes[1].bvh, scenes[1].triangles
+    else:
+        bvh, tris = _small_tree()
+        # from the small tree's box, so that most rays enter it
+        o = (o - [0, 1, 0.5]) * 2.0
+    t_init = torch.from_numpy(t_any if any_hit else t_closest)
+    nodes, leaves = tbk.tables(bvh, tris, False, wide=True)
+    n = t_init.shape[0]
+    t0 = tbk._seed(t_init, n)
+    iters = tbk.max_iters(bvh) if cap == "full" else 5
+    args = (nodes, leaves, _tv(o.astype(np.float32)), _tv(d), t0,
+            tbk._init_code(bvh), iters, any_hit)
+    before = dict(tbk.plain_visits)
+    want = tbk._walk_wide(*args)
+    want_visits = {k: tbk.plain_visits[k] - before[k] for k in before}
+    got, visits, capped = _wide_model(*args)
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_)
+    assert visits == want_visits
+    assert not (got[1].numpy()[dead] >= 0).any()
+    assert (capped > 0) == (cap == "cut")
+    if cap == "full":
+        assert visits["leaf"] > n // 4 and (got[1] >= 0).float().mean() > 0.1
+
+
+def _c_params(src, name):
+    """The parameter types of the `extern "C"` function `name` in `src`,
+    each as the ctypes type `launch` binds it with."""
+    m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+    params = [p.strip() for p in m.group(1).split(",")]
+    return [tbk.PTR if ("*" in p or "cudaStream_t" in p) else tbk.I32
+            for p in params]
+
+
+def test_launcher_signatures_match_the_source():
+    """SIGNATURES (then the stream) is what csrc/bvh_kernel.cu's launchers
+    take: the 4-wide walk's ends with the ray counter, as the binary
+    walk's does, and takes no leaf16."""
+    src = open(os.path.join(os.path.dirname(tbk.__file__), os.pardir,
+                            "csrc", "bvh_kernel.cu")).read()
+    for name, sig in tbk.SIGNATURES.items():
+        assert _c_params(src, name) == list(sig) + [tbk.PTR], name
+    wide, binary = (tbk.SIGNATURES[k] for k in ("bvh_traverse_wide",
+                                                "bvh_traverse"))
+    assert wide == binary[:-2] + [tbk.PTR]
