@@ -101,7 +101,27 @@ Phases (any failure exits non-zero):
      relayout loop, which must equal x + n_iter exactly; for the dot and
      the relayout also `floor_ms`, the device time of an empty kernel of
      the same grid and block: what the card takes for any launch of that
-     size.
+     size;
+ 13. main path 5, training (diff.train_steps / train_step, zero target,
+     lr 0.01, RenderConfig(mis=True, jitter=True, max_depth=4)): (a) the
+     cornell box at 1024x1024, a warm-up train_steps(n=1), then
+     train_steps(n=8) timed (fwdbwd_pps, and the forward render's
+     pixel-paths/s over it): B1 must have launched, and no kernel inside
+     any torch.autograd.grad call (the backward replays the recorded
+     hits); finite losses and parameters, and the trained scene's loss on
+     the first step's key below that step's loss; one more step profiled
+     by halves (forward and backward wall and device time, the
+     backward's device time by operator) with finite gradients; the peak
+     memory of a step with remat on and off; (b) the spheres scene at
+     1024x1024 through the wavefront backward: a warm-up train_step, one
+     timed, B1 and both B2 variants launched and none in the backward,
+     finite loss and parameters, then refit and the repacking of B2's
+     tables and the pre-pass's triangles timed, and a step profiled by
+     halves; (c) loss and gradients of one step on "cuda" and on "cpu",
+     same key, for the cornell box at 128x128 (scan) and the
+     5,156-triangle scene at 128x128 (wavefront): loss within rel 1e-4,
+     each material and light array within rtol 1e-3 / atol 1e-3 *
+     max|g|, tri_p0 within a relative L2 error of 1e-2.
 
 Each kernel's line carries its bound: the least time the card could
 take for the same work, the larger of its operations over the peak rate
@@ -117,6 +137,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import math
 import os
 import subprocess
 import sys
@@ -131,6 +152,8 @@ N_CHECK = (1 << 20) + 77          # not a multiple of the 256-thread block
 N_BVH_CHECK = (1 << 20) + 77      # B2: the render's primary width + a tail
 BENCH_CFG = dict(mis=True, jitter=True, max_depth=4)
 SPP = 8
+TRAIN_STEPS = 8         # bench.py's training call: 8 SGD steps, lr 0.01
+TRAIN_LR = 0.01
 PEAK_FP32 = 67e12       # FLOP/s, FP32 outside the tensor cores
 PEAK_TF32 = 495e12      # FLOP/s, dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12    # B/s of device memory
@@ -1304,6 +1327,269 @@ def gpu_vs_cpu(name, scene_dir, treelets=False):
                imgs["cpu"])
 
 
+class WatchBackward:
+    """Counts of the kernels' launches made inside each torch.autograd.grad
+    call (the backward of a training step), with that function wrapped
+    for the block: [(B1 launches, {B2 variant: launches})] a call."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls = []
+
+    def __enter__(self):
+        from raytracingrenderer_tpu_torch.ops import bvh_kernel, mt_kernel
+        self.real = real = self.torch.autograd.grad
+
+        def grad(*args, **kwargs):
+            mt0, b0 = mt_kernel.launches, dict(bvh_kernel.launches)
+            out = real(*args, **kwargs)
+            self.calls.append((mt_kernel.launches - mt0,
+                               {k: bvh_kernel.launches[k] - b0[k]
+                                for k in b0}))
+            return out
+
+        self.torch.autograd.grad = grad
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.autograd.grad = self.real
+
+    def launches(self) -> dict:
+        """Launches summed over the calls: {"mt": B1, B2 variant: ...}."""
+        out = {"mt": sum(mt for mt, _ in self.calls)}
+        for _, b in self.calls:
+            for k, n in b.items():
+                out[k] = out.get(k, 0) + n
+        return out
+
+
+def finite_params(torch, scene) -> bool:
+    from raytracingrenderer_tpu_torch import diff
+    params, _ = diff._split_scene(scene)
+    return all(bool(torch.isfinite(p).all()) for p in diff._leaves(params))
+
+
+def profile_step(torch, card, name, scene, cfg, target, key):
+    """One training step's two halves under torch.profiler
+    (probes.profile_train_step): prints each half's wall time, device
+    busy time and idle share, and the backward's device time by operator
+    (the host rows' own kernels); returns (gradients by key, the
+    numbers)."""
+    from raytracingrenderer_tpu_torch.probes import profile_train_step
+    grads, prof = profile_train_step(scene, cfg, target, key)
+    fwd_ms, bwd_ms = prof["fwd_ms"], prof["bwd_ms"]
+    busy = prof["fwd_busy_ms"], prof["bwd_busy_ms"]
+    log(f"training {name}, one step under torch.profiler [{card}]: forward "
+        f"wall {fwd_ms:.1f} ms, device busy {busy[0]:.2f} ms (idle "
+        f"{1 - busy[0] / fwd_ms:.1%}); backward wall {bwd_ms:.1f} ms, "
+        f"device busy {busy[1]:.2f} ms (idle {1 - busy[1] / bwd_ms:.1%}); "
+        f"backward / forward wall {bwd_ms / fwd_ms:.3f}")
+    if busy[1]:
+        log(f"training {name}, backward device time by operator: " + "; ".join(
+            f"{k} {ms:.3f} ms x{n} ({ms / busy[1]:.1%})"
+            for k, ms, n in prof["bwd_ops"]))
+    return grads, prof
+
+
+def train_cornell(torch, card, cornell, fwd_pps):
+    """Phase 13 (a): the cornell box at 1024x1024, zero target, lr 0.01:
+    a warm-up train_steps(n=1), then train_steps(n=TRAIN_STEPS) timed,
+    with the kernels' launches counted and the backward watched; one
+    step profiled by halves; the peak memory of a step with remat on and
+    off."""
+    import dataclasses
+    from raytracingrenderer_tpu_torch import diff
+    from raytracingrenderer_tpu_torch.config import RenderConfig
+    from raytracingrenderer_tpu_torch.ops import mt_kernel
+    from raytracingrenderer_tpu_torch.sampling import rng
+    cfg = RenderConfig(**BENCH_CFG)
+    cam = cornell.camera
+    target = torch.zeros((cam.height, cam.width, 3), device="cuda")
+    diff.train_steps(cornell, target, rng.PRNGKey(0), cfg, TRAIN_LR, 1)
+    torch.cuda.synchronize()
+    reset_counts()
+    base = rng.PRNGKey(1)
+    with WatchBackward(torch) as bwd:
+        t0 = time.perf_counter()
+        trained, losses = diff.train_steps(cornell, target, base, cfg,
+                                           TRAIN_LR, TRAIN_STEPS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = mt_kernel.launches
+    pps = cam.width * cam.height * TRAIN_STEPS / dt
+    losses = losses.cpu().numpy()
+    log(f"training cornell {cam.width}x{cam.height}, train_steps "
+        f"n={TRAIN_STEPS}, lr {TRAIN_LR}, zero target, mis+jitter, max_depth "
+        f"{cfg.max_depth} (scan): {dt:.3f} s, fwdbwd_pps {pps:.6g} [{card}]; forward "
+        f"render {fwd_pps:.6g} pixel-paths/s, fwd_over_fwdbwd "
+        f"{fwd_pps / pps:.3f}; B1 launches {launches} (backward calls "
+        f"{len(bwd.calls)}, launches in them {bwd.calls}); losses "
+        f"{losses.tolist()}")
+    if launches == 0:
+        fail("the cornell training steps never launched B1")
+    if len(bwd.calls) != TRAIN_STEPS or any(bwd.launches().values()):
+        fail("a cornell backward launched a kernel (or did not run)")
+    if not (all(map(math.isfinite, losses)) and finite_params(torch,
+                                                              trained)):
+        fail("non-finite cornell losses or parameters")
+    # descent, with common random numbers: the trained scene against the
+    # first step's loss on that step's key (fresh keys' Monte Carlo noise
+    # is larger than 8 steps' descent at this rate)
+    with torch.no_grad():
+        p1, _ = diff._split_scene(trained)
+        after = diff.render_loss(p1, trained, target, rng.fold_in(base, 0),
+                                 diff._diff_cfg(cfg, trained)).item()
+    log(f"training cornell: loss on the first step's key {losses[0]:.7f} "
+        f"before, {after:.7f} after the {TRAIN_STEPS} steps (rel "
+        f"{after / losses[0] - 1:+.3e}); last step's loss below the "
+        f"first's: {bool(losses[-1] < losses[0])}")
+    if not after < losses[0]:
+        fail("the cornell training steps did not lower the loss")
+    grads, prof = profile_step(torch, card, "cornell", trained, cfg, target,
+                               rng.fold_in(base, TRAIN_STEPS))
+    if not all(bool(torch.isfinite(g).all())
+               for g in diff._leaves(grads)):
+        fail("non-finite cornell gradients")
+    mem = {}
+    for remat in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        diff.train_step(trained, target, rng.PRNGKey(2),
+                        dataclasses.replace(cfg, remat=remat), TRAIN_LR)
+        torch.cuda.synchronize()
+        mem[remat] = (torch.cuda.max_memory_allocated(), held)
+    log("training cornell, one step's peak memory (max_memory_allocated; "
+        "held before the step): " + "; ".join(
+            f"remat={r} {peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB)"
+            for r, (peak, held) in mem.items()) + f" [{card}]")
+    return dict(fwdbwd_pps=pps, fwd_over_fwdbwd=fwd_pps / pps,
+                b1_launches=launches, bwd_launches=bwd.launches(),
+                losses=losses.tolist(),
+                peak_bytes_remat=mem[True][0],
+                peak_bytes_no_remat=mem[False][0], **prof)
+
+
+def train_spheres(torch, card, spheres, fwd_pps):
+    """Phase 13 (b): the spheres scene at 1024x1024 through the wavefront
+    backward: a warm-up train_step, then one timed, with the launches
+    counted and the backward watched; refit and the repacking of the
+    tables timed; one step profiled by halves."""
+    from raytracingrenderer_tpu_torch import diff
+    from raytracingrenderer_tpu_torch.config import RenderConfig
+    from raytracingrenderer_tpu_torch.geometry import intersect
+    from raytracingrenderer_tpu_torch.geometry.refit import refit
+    from raytracingrenderer_tpu_torch.ops import bvh_kernel, mt_kernel
+    from raytracingrenderer_tpu_torch.render import _use_wavefront
+    from raytracingrenderer_tpu_torch.sampling import rng
+    cfg = RenderConfig(**BENCH_CFG)
+    if not _use_wavefront(spheres, cfg):
+        fail("the spheres scene does not take the wavefront")
+    cam = spheres.camera
+    target = torch.zeros((cam.height, cam.width, 3), device="cuda")
+    diff.train_step(spheres, target, rng.PRNGKey(0), cfg, TRAIN_LR)
+    torch.cuda.synchronize()
+    reset_counts()
+    with WatchBackward(torch) as bwd:
+        t0 = time.perf_counter()
+        stepped, loss = diff.train_step(spheres, target, rng.PRNGKey(1), cfg,
+                                        TRAIN_LR)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = dict(mt=mt_kernel.launches, **{
+        k: bvh_kernel.launches[k] for k in ("closest_hit", "any_hit")})
+    pps = cam.width * cam.height / dt
+    log(f"training spheres {cam.width}x{cam.height}, one train_step through "
+        f"the wavefront backward, lr {TRAIN_LR}: {dt:.3f} s, fwdbwd_pps "
+        f"{pps:.6g} [{card}]; forward render {fwd_pps:.6g} pixel-paths/s, "
+        f"fwd_over_fwdbwd {fwd_pps / pps:.3f}; loss {loss.item():.7f}; "
+        f"launches {launches} "
+        f"(backward calls {len(bwd.calls)}, launches in them {bwd.calls}); "
+        f"stackless walks {intersect.stackless_calls}")
+    if min(launches.values()) == 0:
+        fail("the spheres training step did not launch B1 and both B2 "
+             "variants")
+    if len(bwd.calls) != 1 or any(bwd.launches().values()):
+        fail("the spheres backward launched a kernel (or did not run)")
+    moved = sum((a != b) for a, b in zip(stepped.triangles.p0,
+                                         spheres.triangles.p0)).gt(0)
+    moved = int(moved.sum())
+    if not (math.isfinite(loss.item()) and finite_params(torch, stepped)
+            and moved):
+        fail("non-finite spheres loss or parameters, or no vertex moved")
+    t0 = time.perf_counter()
+    fitted = refit(stepped)
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for leaf16 in (False, True):
+        bvh_kernel.tables(fitted.bvh, fitted.triangles, leaf16)
+    intersect._proxy_tris(fitted)
+    torch.cuda.synchronize()
+    repack_s = time.perf_counter() - t0
+    log(f"training spheres: refit (host numpy, {fitted.bvh.n_nodes} nodes) "
+        f"{refit_s * 1e3:.1f} ms; repacking B2's tables (both leaf forms) "
+        f"and the pre-pass's triangles {repack_s * 1e3:.1f} ms; {moved} of "
+        f"{spheres.triangles.count} anchor vertices moved [{card}]")
+    grads, prof = profile_step(torch, card, "spheres", fitted, cfg, target,
+                               rng.PRNGKey(2))
+    if not all(bool(torch.isfinite(g).all()) for g in diff._leaves(grads)):
+        fail("non-finite spheres gradients")
+    return dict(fwdbwd_pps=pps, fwd_over_fwdbwd=fwd_pps / pps,
+                launches=launches, bwd_launches=bwd.launches(),
+                refit_ms=refit_s * 1e3,
+                repack_ms=repack_s * 1e3, **prof)
+
+
+def grads_gpu_vs_cpu(torch, name, scene_dir, wave):
+    """Phase 13 (c): loss and gradients of one step on "cuda" (kernels)
+    and "cpu" (plain versions), same key: loss within rel 1e-4; each
+    material and light array within rtol 1e-3 / atol 1e-3 * max|g|;
+    tri_p0 within a relative L2 error of 1e-2."""
+    import numpy as np
+    from raytracingrenderer_tpu_torch import diff
+    from raytracingrenderer_tpu_torch.config import RenderConfig
+    from raytracingrenderer_tpu_torch.integrators import wavefront_diff
+    from raytracingrenderer_tpu_torch.sampling import rng
+    from raytracingrenderer_tpu_torch.scene.loader import load_scene
+    cfg = RenderConfig(**BENCH_CFG)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        sc = load_scene(scene_dir, device=dev)
+        cam = sc.camera
+        target = torch.zeros((cam.height, cam.width, 3), device=dev)
+        key = rng.PRNGKey(3)
+        if wave:
+            loss, g = wavefront_diff.loss_and_grads(sc, target, key, cfg)
+        else:
+            loss, g = diff.value_and_grad(sc, target, key,
+                                          diff._diff_cfg(cfg, sc))
+        got[dev] = (loss.item(), {
+            k: (v.stacked() if hasattr(v, "stacked") else v).cpu().numpy()
+            for k, v in g.items()})
+    (lg, gg), (lc, gc) = got["cuda"], got["cpu"]
+    rel = abs(lg - lc) / max(abs(lc), 1e-30)
+    ok = rel <= 1e-4
+    parts = [f"loss {lg:.7f} vs {lc:.7f} (rel {rel:.2e})"]
+    for k in diff.PARAM_KEYS:
+        a, b = gg[k], gc[k]
+        if not np.isfinite(a).all():
+            ok = False
+        if k == "tri_p0":
+            err = np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
+            ok &= bool(err <= 1e-2)
+            parts.append(f"{k} relative L2 {err:.2e}")
+        else:
+            m = float(np.abs(b).max())
+            ok &= bool(np.allclose(a, b, rtol=1e-3, atol=1e-3 * m))
+            parts.append(f"{k} max|dg| {float(np.abs(a - b).max()):.3e} "
+                         f"(max|g| {m:.3e})")
+    log(f"gradients {name}, cuda vs cpu: " + "; ".join(parts))
+    if not ok:
+        fail(f"gradients {name}: cuda and cpu disagree")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -1400,7 +1686,8 @@ def main() -> None:
     b2, b2_batches = check_bvh_kernel(torch, spheres)
 
     # -- 5. main path 1: cornell (brute force, B1) --------------------------
-    render_full(torch, cornell, "cornell", card, out_dir)
+    _, cornell_s = render_full(torch, cornell, "cornell", card, out_dir)
+    cornell_pps = cornell.camera.width * cornell.camera.height * SPP / cornell_s
     mt_cornell = mt_kernel.launches
     log(f"cornell launches: mt_kernel {mt_cornell}, bvh_kernel "
         f"{bvh_kernel.launches}")
@@ -1409,6 +1696,7 @@ def main() -> None:
 
     # -- 6. main path 2: spheres (BVH, wavefront, B2 + B1) ------------------
     wave_img, wave_s = render_full(torch, spheres, "spheres", card, out_dir)
+    spheres_pps = spheres.camera.width * spheres.camera.height * SPP / wave_s
     b2_launches = dict(bvh_kernel.launches)
     mt_spheres = mt_kernel.launches
     log(f"spheres launches: bvh_kernel {b2_launches}, mt_kernel (proxy "
@@ -1471,6 +1759,18 @@ def main() -> None:
     # -- 12. main path 4: the matrix-unit probes (visit_kernel.cu) ----------
     probes = check_probes(torch, card)
 
+    # -- 13. main path 5: training (diff.train_steps / train_step) ----------
+    tr_a = train_cornell(torch, card, cornell, cornell_pps)
+    tr_b = train_spheres(torch, card, spheres, spheres_pps)
+    grads_gpu_vs_cpu(torch, "cornell 128x128 (scan)", scenes.write_cornell(
+        os.path.join(tmp, "cornell128g"), 128, 128), wave=False)
+    grads_gpu_vs_cpu(torch, "spheres-5156 128x128 (wavefront)", spheres128,
+                     wave=True)
+
+    log("training " + json.dumps({
+        "card": card, "cornell": {k: v for k, v in tr_a.items()
+                                  if k != "bwd_ops"},
+        "spheres": {k: v for k, v in tr_b.items() if k != "bwd_ops"}}))
     bvh_src = dict(route="cuda",
                    source="raytracingrenderer_tpu_torch/csrc/bvh_kernel.cu",
                    replaces="raytracingrenderer_tpu/ops/bvh_kernel.py:65")
@@ -1499,9 +1799,18 @@ def main() -> None:
         "issue_ms_4096_tris": bound_c["issue_ms"],
         "issue_share_4096_tris": bound_c["issue_share"],
         "launches_treelet_path": tl_launches["mt"],
+        "launches_training_cornell": tr_a["b1_launches"],
+        "launches_training_spheres_prepass": tr_b["launches"]["mt"],
+        "launches_training_backward": (tr_a["bwd_launches"]["mt"]
+                                       + tr_b["bwd_launches"]["mt"]),
     }] + [dict(name=f"bvh_traverse/{v}", **bvh_src,
                launches=b2_launches[v],
-               launches_treelet_path=tl_launches[v], library_ms=None,
+               launches_treelet_path=tl_launches[v],
+               launches_training_spheres=tr_b["launches"][v],
+               launches_training_backward=(
+                   tr_a["bwd_launches"].get(v, 0)
+                   + tr_b["bwd_launches"].get(v, 0)),
+               library_ms=None,
                **b2[v])
           for v in ("closest_hit", "any_hit")]
         + [dict(name=f"bvh_traverse_wide/{v}", **dict(

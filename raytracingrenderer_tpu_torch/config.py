@@ -3,12 +3,16 @@ raytracingrenderer_tpu/config.py, so one RenderConfig reads alike in both
 packages.
 
 Fields that belong to slices this package has not ported yet are kept
-(so configurations carry over) and `render.render` refuses them:
-`geom_grads`, `boundary_grads` and any `integrator` other than "path".
-`wavefront` picks the integrator as in the JAX package (None: the
-wavefront one for BVH scenes of more than 4096 triangles).
-`batch_rays` and `remat` have no effect here: the port renders one full
-frame per sample pass and has no backward yet.
+(so configurations carry over) and `render.render` and the gradient
+entry points (diff.py) refuse them: `boundary_grads` and any
+`integrator` other than "path".  `geom_grads` attaches the hit-point
+reparameterisation (diff.py turns it on).  `wavefront` picks the
+integrator as in the JAX package (None: the wavefront one for BVH scenes
+of more than 4096 triangles).  `remat`, when autograd is recording,
+checkpoints every bounce (integrators/path.step): the backward runs a
+bounce again with its recorded hits and occlusion bits instead of
+keeping its intermediates, so it traverses nothing.  `batch_rays` has no
+effect here: the port renders one full frame per sample pass.
 """
 from __future__ import annotations
 
@@ -46,11 +50,11 @@ class RenderConfig:
     mat_types: Optional[Tuple[int, ...]] = None
     # Power-weighted NEE light selection (lights.selection_pmf).
     power_lights: bool = False
-    # Later slices (render() raises NotImplementedError when set):
-    geom_grads: bool = False
+    geom_grads: bool = False         # hit-point reparameterisation
+    # a later slice (render() raises NotImplementedError when set):
     boundary_grads: bool = False
     boundary_samples: int = 4
     # Compacting wavefront integrator: None = automatic (BVH scenes of
     # more than 4096 triangles), True/False force it on or off.
     wavefront: Optional[bool] = None
-    remat: bool = True
+    remat: bool = True               # checkpoint the bounces (backward)

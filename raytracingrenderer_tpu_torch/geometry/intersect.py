@@ -237,19 +237,21 @@ def _sorted_call(scene, o: V3, d: V3, active, payload, fn):
 def _proxy_tris(scene):
     """(ids, triangles) of the _PREPASS_K largest triangles, by a stable
     descending sort of the areas (lax.top_k's tie order: lower id
-    first); built once per scene and kept in the tree's cache."""
+    first).  Kept in the tree's cache, keyed on the areas and on every
+    vertex component the triangles are gathered from: a geometry step
+    that keeps the areas still gathers the moved triangles."""
     tris = scene.triangles
-    key = ("proxy", id(tris.area))
-    hit = scene.bvh.cache.get(key)
-    if hit is None or hit[0] is not tris.area:
+
+    def build():
         k = min(_PREPASS_K, tris.count)
         idx = torch.sort(tris.area, descending=True, stable=True
                          ).indices[:k]
         sub = Triangles(*(f.gather(idx) if isinstance(f, V3) else f[idx]
                           for f in tris))
-        hit = (tris.area, idx.int(), sub)
-        scene.bvh.cache[key] = hit
-    return hit[1], hit[2]
+        return idx.int(), sub
+
+    return scene.bvh.cached(
+        "proxy", (tris.area, *tris.p0, *tris.e1, *tris.e2), build)
 
 
 def _proxy_prepass(scene, o: V3, d: V3, t_init) -> Hit:

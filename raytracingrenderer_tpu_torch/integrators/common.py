@@ -16,7 +16,7 @@ import torch
 from ..config import EPSILON
 from ..core.frame import Frame
 from ..core.vec import V3, vwhere
-from ..geometry.intersect import Hit, occluded
+from ..geometry.intersect import Hit, _mt_test, occluded
 from ..imaging import texture as tex_mod
 from ..lights import lights as lights_mod
 from ..materials import bsdf as bsdf_mod
@@ -41,14 +41,31 @@ def shading_data(scene: Scene, hit: Hit, o: V3, d: V3,
                  geom_grads: bool = False) -> Shading:
     """Interpolate attributes at the hit: barycentric normal and uv,
     two-sided flip toward wo, frame build.  Missed lanes read triangle 0
-    and are masked by the caller."""
-    if geom_grads:
-        raise NotImplementedError("geometry gradients are not ported yet")
+    and are masked by the caller.
+
+    With `geom_grads`, the hit (t, beta, gamma) is solved again by
+    Moller-Trumbore from the (detached) triangle id on the vertex arrays
+    and the rays, which carry gradients, and attached straight-through:
+    the values stay the kernel's bit for bit, while gradients see
+    d(t, beta, gamma)/d(vertex positions), the hit-point
+    reparameterisation of the JAX package (interior term only)."""
     tris = scene.triangles
     m = scene.materials
     tri = torch.clamp(hit.tri, min=0).long()
     beta = hit.u
     gamma = hit.v
+    t_hit = hit.t
+    if geom_grads:
+        t_r, u_r, v_r, ok = _mt_test(tris, tri, o, d)
+        # only real hits: a missed lane (triangle 0) would feed its
+        # derivatives into the backward
+        val = (hit.tri >= 0) & ok
+
+        def att(a, r):
+            return a + torch.where(val, r - r.detach(), 0.0)
+        t_hit = att(t_hit, t_r)
+        beta = att(beta, u_r)
+        gamma = att(gamma, v_r)
     alpha = 1.0 - beta - gamma
     n = (tris.n0.gather(tri) * alpha + tris.n1.gather(tri) * beta
          + tris.n2.gather(tri) * gamma).normalize()
@@ -59,7 +76,7 @@ def shading_data(scene: Scene, hit: Hit, o: V3, d: V3,
     gn = tris.gn.gather(tri)
     light_id = tris.light_id[tri]
     # missed lanes carry the BIG_T sentinel: clamp so x stays finite
-    x = o + d * torch.clamp(hit.t, max=1e12)
+    x = o + d * torch.clamp(t_hit, max=1e12)
     wo = -d
     mid = tris.mat_id[tri].long()
     tid = m.albedo_tex[mid]
@@ -101,11 +118,16 @@ def balance_heuristic(pdf_a, pdf_b):
 
 def compute_direct(scene: Scene, sh: Shading, active, r_pick, r1, r2,
                    mis: bool, types=None, r3=None, presorted: bool = False,
-                   geom_grads: bool = False, power: bool = False):
+                   geom_grads: bool = False, saved_occ=None,
+                   power: bool = False):
     """One-light one-sample NEE; with `mis` the light-strategy term is
     balance-weighted against the BSDF pdf (computeDirectMIS light half).
     The BSDF-strategy half lives in the bounce loop (emission weighting).
     `presorted` is handed to the shadow rays' `occluded`.
+
+    Returns (contribution, occlusion mask).  `saved_occ` replays a mask
+    recorded earlier instead of tracing the shadow rays (the backward's
+    recompute, path.bounce_step).
     """
     ls = lights_mod.sample_one(scene, sh.x, sh.sn, r_pick, r1, r2, r3,
                                geom_grads=geom_grads, power=power)
@@ -118,18 +140,25 @@ def compute_direct(scene: Scene, sh: Shading, active, r_pick, r1, r2,
         pdf_b = bsdf_mod.pdf_fn(sh.mp, sh.wo_local, wi_local, types)
         contrib = contrib * balance_heuristic(ls.pdf_solid, pdf_b)
     worth = cand & (contrib.max_comp() > 0.0)
-    # Shadow ray (RTBase Scene::visible: epsilon pullback at both ends).
-    # Finite-light lanes trace from the light toward the surface, as the
-    # JAX package does; infinite lights keep the surface-out direction.
-    finite = ls.dist < lights_mod.INF_DIST
-    max_t = torch.where(finite, ls.dist - 2.0 * EPSILON, 1e30)
-    shadow_o = vwhere(finite, sh.x + ls.wi * (ls.dist - EPSILON),
-                      sh.x + ls.wi * EPSILON)
-    shadow_d = vwhere(finite, -ls.wi, ls.wi)
-    # inactive lanes: a fixed direction and a negative radius (no test)
-    occ = occluded(
-        scene, shadow_o,
-        vwhere(worth, shadow_d, V3(0.0, 0.0, 1.0)),
-        torch.where(worth, max_t, -1.0), presorted=presorted)
+    if saved_occ is not None:
+        occ = saved_occ
+    else:
+        # Shadow ray (RTBase Scene::visible: epsilon pullback at both
+        # ends).  Finite-light lanes trace from the light toward the
+        # surface, as the JAX package does; infinite lights keep the
+        # surface-out direction.  Built without autograd: the occlusion
+        # bits are detached, and a replaying recompute (saved_occ) must
+        # record the same graph as this forward.
+        with torch.no_grad():
+            finite = ls.dist < lights_mod.INF_DIST
+            max_t = torch.where(finite, ls.dist - 2.0 * EPSILON, 1e30)
+            shadow_o = vwhere(finite, sh.x + ls.wi * (ls.dist - EPSILON),
+                              sh.x + ls.wi * EPSILON)
+            shadow_d = vwhere(finite, -ls.wi, ls.wi)
+            # inactive lanes: a fixed direction, a negative radius (no test)
+            occ = occluded(
+                scene, shadow_o,
+                vwhere(worth, shadow_d, V3(0.0, 0.0, 1.0)),
+                torch.where(worth, max_t, -1.0), presorted=presorted)
     lit = worth & ~occ
-    return vwhere(lit, contrib, 0.0)
+    return vwhere(lit, contrib, 0.0), occ

@@ -16,6 +16,7 @@ so the same key gives the same path in both packages.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import EPSILON, RenderConfig
 from ..core.vec import V3, vwhere
@@ -44,17 +45,26 @@ def init_state(o: V3, d: V3) -> dict:
 
 
 def bounce_step(scene: Scene, state: dict, depth: int, key: rng.Key,
-                cfg: RenderConfig, presorted: bool = False) -> dict:
+                cfg: RenderConfig, presorted: bool = False, saved=None,
+                return_saved: bool = False):
     """One bounce over the whole (possibly compacted) ray batch.  With
     `presorted` the batch is already coherence-sorted (wavefront mode),
-    and the closest-hit dispatch skips its own sort and unsort."""
+    and the closest-hit dispatch skips its own sort and unsort.
+
+    `saved` = {"hit": Hit, "occ": bool tensor} replays traversal results
+    recorded earlier instead of walking the scene: the backward's
+    recompute (`step`) passes them, so it launches no kernel.
+    `return_saved` makes the bounce return (state, saved) to record."""
     o, d = state["o"], state["d"]
     ids = state["ids"]
     alive = state["alive"]
     beta = state["throughput"]
     radiance = state["radiance"]
 
-    hit = intersect.closest_hit(scene, o, d, alive, presorted=presorted)
+    if saved is not None:
+        hit = saved["hit"]
+    else:
+        hit = intersect.closest_hit(scene, o, d, alive, presorted=presorted)
     found = hit.valid & alive
     missed = alive & ~hit.valid
 
@@ -98,17 +108,20 @@ def bounce_step(scene: Scene, state: dict, depth: int, key: rng.Key,
     r_aux = rng.uniform_ids(key, depth, rng.LIGHT_AUX, ids)
     # shadow rays are not presorted, even in wavefront mode: their key
     # holds the direction toward the light, not the bounce direction
-    direct = compute_direct(scene, sh, shade, r_pick, r_lu, r_lv, cfg.mis,
-                            cfg.mat_types, r3=r_aux,
-                            geom_grads=cfg.geom_grads,
-                            power=cfg.power_lights)
+    direct, occ = compute_direct(
+        scene, sh, shade, r_pick, r_lu, r_lv, cfg.mis, cfg.mat_types,
+        r3=r_aux, geom_grads=cfg.geom_grads,
+        saved_occ=None if saved is None else saved["occ"],
+        power=cfg.power_lights)
     if not cfg.debug_no_nee:
         radiance = radiance + beta * direct
 
     # ---- depth cutoff / RR / BSDF continuation -------------------------
     cont = shade & (depth <= cfg.max_depth)
     if cfg.rr:
-        rr_p = torch.clamp(beta.lum(), max=cfg.rr_cap)
+        # the survival probability belongs to the sampling distribution:
+        # detached, else its 1/p weight leaks a spurious gradient term
+        rr_p = torch.clamp(beta.lum(), max=cfg.rr_cap).detach()
         r_rr = rng.uniform_ids(key, depth, rng.RR, ids)
         survive = cont & (r_rr < rr_p)
         beta = vwhere(survive, beta / torch.clamp(rr_p, min=1e-9), beta)
@@ -130,7 +143,7 @@ def bounce_step(scene: Scene, state: dict, depth: int, key: rng.Key,
 
     wi = sh.frame.to_world(wi_local)
     new_o = sh.x + wi * EPSILON
-    return dict(
+    out = dict(
         o=vwhere(alive_next, new_o, o),
         d=vwhere(alive_next, wi, d),
         ids=ids,
@@ -141,6 +154,34 @@ def bounce_step(scene: Scene, state: dict, depth: int, key: rng.Key,
                                   state["can_hit_light"]),
         prev_pdf=torch.where(alive_next, pdf, state["prev_pdf"]),
     )
+    if return_saved:
+        return out, {"hit": hit, "occ": occ}
+    return out
+
+
+def step(scene: Scene, state: dict, depth: int, key: rng.Key,
+         cfg: RenderConfig, presorted: bool = False) -> dict:
+    """bounce_step, checkpointed when gradients are being recorded and
+    cfg.remat is set: the bounce keeps only its inputs and its traversal
+    results (hits and occlusion bits) for the backward, which runs the
+    bounce again with those results replayed, so it never traverses.
+    The counterpart of the JAX package's jax.checkpoint with
+    save_only_these_names("ray_hit", "ray_occ"); the random numbers are
+    keyed by pixel id, so the recompute draws the same ones."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return bounce_step(scene, state, depth, key, cfg, presorted)
+    rec = {}
+
+    def body(st):
+        if "saved" in rec:
+            return bounce_step(scene, st, depth, key, cfg, presorted,
+                               saved=rec["saved"])
+        out, rec["saved"] = bounce_step(scene, st, depth, key, cfg,
+                                        presorted, return_saved=True)
+        return out
+
+    return checkpoint(body, state, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def trace_radiance(scene: Scene, o: V3, d: V3, key: rng.Key,
@@ -148,5 +189,5 @@ def trace_radiance(scene: Scene, o: V3, d: V3, key: rng.Key,
     """Estimate radiance along a batch of primary rays (one sample/ray)."""
     state = init_state(o, d)
     for depth in range(cfg.max_depth + 2):  # depths 0..max_depth+1
-        state = bounce_step(scene, state, depth, key, cfg)
+        state = step(scene, state, depth, key, cfg)
     return state["radiance"]

@@ -97,7 +97,7 @@ def sample_image_wavefront(scene: Scene, key: rng.Key, cfg: RenderConfig
             if w2 < w:
                 state = _map(state, lambda a: a[:w2])
                 w = w2
-        state = path_mod.bounce_step(scene, state, depth, key, cfg,
-                                     presorted=True)
+        state = path_mod.step(scene, state, depth, key, cfg,
+                              presorted=True)
     img = _final_flush(img, state)
     return img.reshape(cam.height, cam.width, 3)

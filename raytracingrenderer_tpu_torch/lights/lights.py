@@ -96,10 +96,13 @@ def sample_one(scene: Scene, x: V3, sn: V3, r_pick, r1, r2,
     and sample a direction to it.  Area lights are sampled uniformly by
     area (pdf 1/area, one-sided emission through the cos_light clamp);
     the background uniformly over the sphere.  `r3` is the envmap's
-    auxiliary sample and is unused until envmaps are ported;
-    `geom_grads` belongs to the gradient slice and is refused."""
-    if geom_grads:
-        raise NotImplementedError("geometry gradients are not ported yet")
+    auxiliary sample and is unused until envmaps are ported.
+
+    With `geom_grads`, emitter geometry is gathered from the triangle
+    arrays through LightTable.tri instead of the table's detached copy,
+    so vertex-position gradients flow through the NEE geometry term (the
+    sampled point and cos/d2).  The values are the copy's bit for bit
+    (the loader and geometry.refit copy them from the triangles)."""
     n_area = scene.num_lights
     has_bg = background_enabled(scene)
     n_total = n_area + (1 if has_bg else 0)
@@ -132,9 +135,17 @@ def sample_one(scene: Scene, x: V3, sn: V3, r_pick, r1, r2,
         li = torch.clamp(pick, max=n_area - 1)
         lt = scene.lights
         a, b, g = warps.uniform_triangle(r1, r2)
-        # point = p0 + e1*beta + e2*gamma, from the light table's copy
-        p0g, e1g, e2g = lt.p0.gather(li), lt.e1.gather(li), lt.e2.gather(li)
-        ln = lt.gn.gather(li)
+        # point = p0 + e1*beta + e2*gamma
+        if geom_grads:
+            ti = lt.tri[li].long()
+            tr = scene.triangles
+            p0g, e1g, e2g = tr.p0.gather(ti), tr.e1.gather(ti), \
+                tr.e2.gather(ti)
+            ln = tr.gn.gather(ti)
+        else:
+            p0g, e1g, e2g = (lt.p0.gather(li), lt.e1.gather(li),
+                             lt.e2.gather(li))
+            ln = lt.gn.gather(li)
         p = p0g + e1g * b + e2g * g
         le = lt.le.gather(li)
         area = lt.area[li]
@@ -206,5 +217,10 @@ def hit_light_pdf_solid(scene: Scene, light_id, x: V3, hit_p: V3,
     d2 = torch.clamp(to_l.length_sq(), min=1e-12)
     wi = to_l * torch.rsqrt(d2)
     cos_l = torch.clamp(-wi.dot(light_gn), min=0.0)
-    pdf = pmf * d2 / torch.clamp(area * cos_l, min=1e-12)
-    return torch.where((light_id >= 0) & (cos_l > 1e-9), pdf, 0.0)
+    # double-where: torch's division backward forms (a / b) / b, which
+    # overflows to inf on a masked lane whose x lies at the 1e12 miss
+    # clamp (d2 ~ 1e24) and whose cos_l is tiny; times the mask's zero
+    # that is NaN (the JAX package's -g * a * b^-2 stays finite there)
+    ok = (light_id >= 0) & (cos_l > 1e-9)
+    den = torch.where(ok, torch.clamp(area * cos_l, min=1e-12), 1.0)
+    return torch.where(ok, pmf * d2 / den, 0.0)

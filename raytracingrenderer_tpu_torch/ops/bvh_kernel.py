@@ -301,16 +301,18 @@ def pack_tables_wide(bvh: BVH, tris: Triangles
 def tables(bvh: BVH, tris: Triangles, leaf16: bool, wide: bool = False
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`pack_tables` (or `pack_tables_wide`), built once per (tree,
-    triangles, leaf form) and kept in the tree's cache."""
+    triangles, leaf form) and kept in the tree's cache, keyed on every
+    vertex component and the node bounds it was packed from."""
     key = ("wide",) if wide else ("packet", leaf16)
-    key += (id(tris.p0.x),)
-    hit = bvh.cache.get(key)
-    if hit is None or hit[0] is not tris.p0.x:
-        packed = (pack_tables_wide(bvh, tris) if wide
-                  else pack_tables(bvh, tris, leaf16=leaf16))
-        hit = (tris.p0.x, packed)
-        bvh.cache[key] = hit
-    return hit[1]
+    return bvh.cached(key, geometry_deps(bvh, tris), lambda: (
+        pack_tables_wide(bvh, tris) if wide
+        else pack_tables(bvh, tris, leaf16=leaf16)))
+
+
+def geometry_deps(bvh: BVH, tris: Triangles) -> Tuple[torch.Tensor, ...]:
+    """The tensors a packed table is made from: the node bounds and the
+    nine vertex components (p0, e1, e2)."""
+    return (bvh.lo, bvh.hi, *tris.p0, *tris.e1, *tris.e2)
 
 
 def _init_code(bvh: BVH) -> int:

@@ -128,14 +128,16 @@ def pack_constants(bvh: BVH, tris: Triangles) -> torch.Tensor:
     """(K*16, T_LEAF) f32 per-treelet constants: rows [N(3) e1(3) e2(3)
     P1(3) P2(3) c0] of each treelet, one column per triangle; empty
     columns are zero (det = 0 fails |det| >= eps).  Built once per
-    (tree, triangles) and kept in the tree's cache.  The cross products
-    are rounded as XLA rounds the JAX package's (an FMA each), so the
-    table equals JAX's bit for bit."""
+    (tree, triangles) and kept in the tree's cache, keyed on every vertex
+    component.  The cross products are rounded as XLA rounds the JAX
+    package's (an FMA each), so the table equals JAX's bit for bit."""
+    from .bvh_kernel import geometry_deps
+    return bvh.cached("treelet", geometry_deps(bvh, tris),
+                      lambda: _pack_constants(bvh, tris))
+
+
+def _pack_constants(bvh: BVH, tris: Triangles) -> torch.Tensor:
     from .bvh_kernel import _cross_fused
-    key = ("treelet", id(tris.p0.x))
-    hit = bvh.cache.get(key)
-    if hit is not None and hit[0] is tris.p0.x:
-        return hit[1]
     k = bvh.tl_nodes.shape[0]
     s = bvh.tl_start.long()
     c = bvh.tl_count.long()
@@ -151,9 +153,7 @@ def pack_constants(bvh: BVH, tris: Triangles) -> torch.Tensor:
                          p1.x, p1.y, p1.z, p2.x, p2.y, p2.z, c0],
                         dim=-1).float()                   # (T, 16)
     g = torch.where(valid[..., None], tri16[ti], 0.0)     # (K, T_LEAF, 16)
-    consts = g.transpose(1, 2).reshape(k * 16, T_LEAF).contiguous()
-    bvh.cache[key] = (tris.p0.x, consts)
-    return consts
+    return g.transpose(1, 2).reshape(k * 16, T_LEAF).contiguous()
 
 
 # --------------------------------------------------------------------------

@@ -181,3 +181,40 @@ def device_ms(fn: Callable, iters: int = 50):
         if rows:
             return sum(us / n * -(-n // iters) for us, n in rows) / 1e3
     return None
+
+
+def profile_train_step(scene, cfg, target, key) -> Tuple:
+    """One training step (diff.loss_and_grads, dispatched as train_step
+    does) with each half under torch.profiler: the forward (render_loss,
+    recording for autograd) and the backward (torch.autograd.grad) ->
+    (gradients by key, dict of fwd_ms / bwd_ms, the wall times,
+    fwd_busy_ms / bwd_busy_ms, the device rows' time, and bwd_ops,
+    [(host operator, its own device ms, calls)] of the backward by device
+    time)."""
+    import contextlib
+    import time
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from raytracingrenderer_tpu_torch import diff
+    profs, wall = {}, {}
+
+    @contextlib.contextmanager
+    def around(half):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as profs[half]:
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            wall[half] = (time.perf_counter() - t0) * 1e3
+
+    _, grads = diff.loss_and_grads(scene, target, key, cfg, around)
+    busy = {h: sum(us for _, us, _ in device_rows(p)) / 1e3
+            for h, p in profs.items()}
+    ops = sorted(((e.key, (getattr(e, "self_device_time_total", 0) or 0)
+                  / 1e3, e.count) for e in profs["backward"].key_averages()
+                  if e.device_type == DeviceType.CPU), key=lambda r: -r[1])
+    return grads, dict(
+        fwd_ms=wall["forward"], bwd_ms=wall["backward"],
+        fwd_busy_ms=busy["forward"], bwd_busy_ms=busy["backward"],
+        bwd_ops=[r for r in ops if r[1] > 0][:10])

@@ -40,14 +40,13 @@ def specialize_config(cfg: RenderConfig, scene: Scene) -> RenderConfig:
 
 def _check_supported(cfg: RenderConfig) -> None:
     later = [name for name, on in (
-        ("geom_grads", cfg.geom_grads),
         ("boundary_grads", cfg.boundary_grads),
         (f"integrator={cfg.integrator!r}", cfg.integrator != "path"))
         if on]
     if later:
         raise NotImplementedError(
-            f"not ported yet: {', '.join(later)} (only the forward path "
-            f"tracer is)")
+            f"not ported yet: {', '.join(later)} (only the path tracer "
+            f"and its interior gradients are)")
 
 
 def _use_wavefront(scene: Scene, cfg: RenderConfig) -> bool:

@@ -151,7 +151,9 @@ class BVH:
     `cache` holds tables derived from the tree (the kernel's packed
     rows, the proxy pre-pass's triangles), built once per scene; the
     JAX package gets the same effect from jit hoisting them out of its
-    loops.  Every copy (`to`, `replace_*`) starts with an empty one."""
+    loops.  Every copy (`to`, `replace_*`) starts with an empty one.
+    `cached` keys each table on the tensors it was made from, so a
+    geometry step (new tensors, or an in-place update) repacks it."""
     lo: torch.Tensor       # (B, 3) f32
     hi: torch.Tensor       # (B, 3) f32
     right: torch.Tensor    # (B,) int32: right-child index, -1 for a leaf
@@ -174,6 +176,18 @@ class BVH:
     @property
     def n_nodes(self) -> int:
         return self.right.shape[0]
+
+    def cached(self, key, deps, build):
+        """build() kept in the cache under `key`, made again when a tensor
+        of `deps` is another object or was changed in place (its
+        `_version`) since; one entry a key, so stale tables are freed."""
+        hit = self.cache.get(key)
+        if hit is not None and len(hit[0]) == len(deps) and all(
+                a is b and a._version == v for a, (b, v) in zip(deps, hit[0])):
+            return hit[1]
+        value = build()
+        self.cache[key] = (tuple((a, a._version) for a in deps), value)
+        return value
 
     def _copy(self, **arrays) -> "BVH":
         fields = {f.name: getattr(self, f.name)
