@@ -94,7 +94,11 @@ Phases (any failure exits non-zero):
      half the peak rate); the fp32 min visit, in its three tile modes,
      bit for bit at 200 edge shapes (TT 32 to 512, 0 to 64 visits, 1 and
      64 tiles, 128 and 4096 rays), the lane visit at 40 (0 to 64 visits,
-     1 and 64 tiles, 128 and 4096 rays, 1 and 8 blocks); the dot (P1b) in both precisions
+     1 and 64 tiles, 128 and 4096 rays, 1 and 8 blocks), the MT visit at
+     80 (TT 32 to 512, 0 to 64 visits, 1 and 64 tiles, 128 and 4096 rays)
+     and the TF32 visit within its bound at the same 80; the TF32 visit's
+     line also carries `min_issue_ms`, its mins alone at the FP32 issue
+     rate beside the tensor cores' bound; the dot (P1b) in both precisions
      against its plain version and float64, timed beside torch.matmul
      with TF32 off and on (a yardstick the port never calls), a call and
      on the device, with the host's microseconds a call by stage; the
@@ -905,11 +909,17 @@ def visit_bound(cfg, ms):
     tensor cores.  A fp32 run also gets `issue_ms`: built without FMA a
     multiply-add is two instructions, so its operations are as many FP32
     instructions, and the card issues PEAK_FP32 / 2 of them a second;
-    `issue_share` is that floor over the measured time."""
+    `issue_share` is that floor over the measured time.  A TF32 run gets
+    `min_issue_ms`, its mins alone (one a column) at that rate beside the
+    tensor cores' `bound_ms`: which of the two limits the kernel stands
+    against."""
     from raytracingrenderer_tpu_torch.probes import visit_work
     w = visit_work(cfg)
     if cfg["precision"] == "default":
-        return bound(ms, w["other"], w["bytes"], tf32_ops=w["mac"])
+        mins = issue(ms, w["other"])
+        return dict(bound(ms, w["other"], w["bytes"], tf32_ops=w["mac"]),
+                    min_issue_ms=mins["issue_ms"],
+                    min_issue_share=mins["issue_share"])
     ops = w["mac"] + w["other"]
     return dict(bound(ms, ops, w["bytes"]), **issue(ms, ops))
 
@@ -949,6 +959,53 @@ def check_visit_edges(torch):
                         n[tile] += 1
     torch.cuda.synchronize()
     return n
+
+
+def check_mt_tf32_edges(torch):
+    """The MT visit against its plain version bit for bit, and the TF32
+    visit within visit.TF32_KERNEL_BOUND, at the shapes their partitions
+    could break: TT 32, 96, 128 and 512 (a warp with no group of 4
+    triangles, one or four; 1 to 4 wgmma steps a visit), 0, 1, 2, 7 and
+    64 visits (a ring never, partly or often refilled; the MT visit's
+    exchange never used), 1 and 64 tiles, 128 and 4096 rays.  -> the
+    number of shapes checked, and the TF32 visit's largest |dt| over sum
+    |a f|."""
+    import numpy as np
+    from raytracingrenderer_tpu_torch.ops import visit
+    n, worst = 0, 0.0
+    for tt in (32, 96, 128, 512):
+        for n_tiles in (1, 64):
+            g = np.random.default_rng(tt + n_tiles)
+            tab = torch.from_numpy(g.normal(size=(n_tiles * 16, tt))
+                                   .astype(np.float32)).cuda()
+            for r in (128, 4096):
+                feats = torch.from_numpy(g.normal(size=(2 * 16, r))
+                                         .astype(np.float32)).cuda()
+                for n_visits in (0, 1, 2, 7, 64):
+                    kw = dict(n_visits=n_visits, n_tiles=n_tiles)
+                    what = f"TT={tt} V={n_visits} tiles={n_tiles} R={r}"
+                    tk, ok = visit.visit(tab, feats, reduce="mt", **kw)
+                    tp, op = visit.visit_plain(tab, feats, reduce="mt", **kw)
+                    if not (torch.equal(tk, tp) and torch.equal(ok, op)):
+                        fail(f"visit/dynamic-mt-ray-highest {what}: differs "
+                             f"from the plain version (bit for bit "
+                             f"expected)")
+                    tk, ok = visit.visit(tab, feats, precision="default",
+                                         **kw)
+                    tp, op = visit.visit_plain(tab, feats,
+                                               precision="default", **kw)
+                    scale = visit.visit_tf32_scale(tab, feats, **kw)
+                    ratio = ((tk - tp).abs() / scale).max().item()
+                    if not torch.equal(ok, op) or \
+                            ratio > visit.TF32_KERNEL_BOUND:
+                        fail(f"visit/dynamic-min-ray-default {what}: |dt| "
+                             f"reaches {ratio:.3e} of sum |a f| (bound "
+                             f"{visit.TF32_KERNEL_BOUND:.3e}), or the "
+                             f"feature sums differ")
+                    worst = max(worst, ratio)
+                    n += 1
+    torch.cuda.synchronize()
+    return n, worst
 
 
 def check_lane_edges(torch):
@@ -1071,6 +1128,9 @@ def check_probes(torch, card):
                 f"{b['bound_share']:.4f}"
                 + (f"; issue floor without FMA {b['issue_ms']:.4f} ms, share "
                    f"{b['issue_share']:.4f}" if "issue_ms" in b else "")
+                + (f"; the mins' FP32 issue floor {b['min_issue_ms']:.4f} ms,"
+                   f" share {b['min_issue_share']:.4f}"
+                   if "min_issue_ms" in b else "")
                 + f" [{card}]")
             size = dict(tt=cfg["tt"], n_visits=cfg["n_visits"],
                         n_tiles=cfg["n_tiles"], blocks=cfg["blocks"], ms=ms,
@@ -1100,6 +1160,16 @@ def check_probes(torch, card):
         f"and 64 tiles, 128 and 4096 rays, 1 and 8 blocks) equal the plain "
         f"version bit for bit, {time.perf_counter() - t0:.2f} s")
     entries["visit/dynamic-min-lane-highest"]["edge_shapes_checked"] = n
+    t0 = time.perf_counter()
+    n, worst = check_mt_tf32_edges(torch)
+    log(f"visit/dynamic-mt-ray-highest: {n} edge shapes (TT 32..512, 0..64 "
+        f"visits, 1 and 64 tiles, 128 and 4096 rays) equal the plain version "
+        f"bit for bit; visit/dynamic-min-ray-default at the same shapes "
+        f"within {worst:.3e} of sum |a f| (bound "
+        f"{visit.TF32_KERNEL_BOUND:.3e}), {time.perf_counter() - t0:.2f} s")
+    entries["visit/dynamic-mt-ray-highest"]["edge_shapes_checked"] = n
+    entries["visit/dynamic-min-ray-default"].update(
+        edge_shapes_checked=n, edge_tf32_err_ratio=worst)
 
     # the dot (P1b) in both precisions; torch.matmul as the yardstick
     a, b_in = probe_mxu.precision_inputs("cuda")

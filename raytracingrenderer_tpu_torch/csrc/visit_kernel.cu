@@ -5,7 +5,8 @@
 //
 // Replaces the TPU kernels of the probe scripts (Pallas, one program per
 // block of R = 4096 rays, on the TPU's matrix unit):
-//   visit_run       scripts/probe_mxu.py::visit_kernel (:51, call :106),
+//   visit_run,      scripts/probe_mxu.py::visit_kernel (:51, call :106),
+//   visit_tf32
 //                   scripts/probe_mxu2.py::k_full, k_static_tile,
 //                   k_no_reduce, k_rays_major, k_batched8 (:58-126, call
 //                   :40) and scripts/probe_mxu3.py::k_full (:29, call :52);
@@ -75,29 +76,52 @@
 // outgrows the instruction caches); 16 rays a warp then give the card twice
 // the warps to hide latency with, 3.5% more.
 //
-// The other visit kernels keep their first design: one thread block over
-// 128 rays, the visited tile staged in dynamic shared memory by the whole
-// block, float4 by float4, between two barriers.
-//   ray layout (visit_ray_kernel: the MT epilogue, whose test needs the
-//     ray's best t as it stood before the visit, and reduce "first8", 8
-//     columns a visit): one thread per ray, its 16 features in registers,
-//     the tile read as float4 broadcasts.
-//   TF32 (precision "default"): mma.sync.m16n8k8 with TF32 operands, two
-//     k-steps for K = 16; what XLA does on a GPU for an f32 dot at DEFAULT
-//     precision.  A warp takes 32 rays (4 n-tiles of 8).  The features
-//     are rounded (cvt.rna.tf32.f32) into B fragments once; the tile is
-//     rounded as it is staged, its rows padded to TT + 8 floats so that
-//     the A-fragment loads of a warp fall in 32 distinct banks; per
-//     16-triangle m-tile each lane folds its accumulator rows into a
-//     running min, and the min across the 8 lanes of a fragment column is
-//     taken once, after the last visit.  It runs its multiply-adds on the
-//     tensor cores (495 TFLOP/s dense, through wgmma; mma.sync reaches
-//     less) and its min on the FP32 pipes.
+// The MT visit (visit_mt_kernel: reduce "mt", fp32) tests each visit's
+// tt / 4 triangles (the columns [det | tdet | udet | vdet]) against the
+// ray's best t as it stood before the visit.  Its operations bound it as
+// the min visit's do (2 x 16 a column, 15 a triangle), and its first design,
+// one ray a thread and the tile staged by the whole block between two
+// barriers, reached 56% of that issue floor.  Now it takes the min visit's
+// shape, with one thing added:
+//   - 2 rays a thread, 8 warps over the same 64 rays, warp w on the groups
+//     of 4 triangles w, w + 8, ...: a float4 of a quarter feeds 16
+//     instructions; the tiles come through the ring of bulk copies.  (4
+//     rays a thread, as the min visit has, need more than 128 registers:
+//     spilled at two blocks an SM, or one block an SM, both slower; the
+//     times are in PERF.md.)
+//   - A warp-private best t would not be exact: a warp whose own best is
+//     above the ray's can accept a hit with st == fl(tb ad) that the plain
+//     version rejects, and fl(st / ad) may be an ulp below tb.  So the
+//     warps exchange their partial bests through shared memory once a visit
+//     (two buffers and two mbarriers, arrive and wait split), and each
+//     holds visit i against the best after visit i - 1.  Only `st < tb ad`
+//     needs tb: a warp contracts its first group of visit i and runs every
+//     other term of the test before it waits for visit i - 1's exchange.
+//   - The sums of a group go quarter by quarter (det, udet, vdet, tdet),
+//     which keeps 48 sums live, not 64; the division runs on a hit only.
+// The TF32 visit (visit_tf32_kernel, precision "default", reduce "min")
+// runs its contraction on wgmma, the only path to the tensor cores' 495
+// TFLOP/s, and its min (one a column, 268 M at the probes' size, about half
+// the contraction's time at the FP32 issue rate) on the FP32 pipes: rays
+// are wgmma's M (a warpgroup's 64, their features rounded once into shared
+// memory), triangles its N (128 a step), K = 16 two k8 wgmmas.  wgmma
+// takes TF32 operands K-major only, and the table lies triangle-contiguous,
+// so the wrapper's call first packs the visited tiles, rounded, in the
+// layout wgmma reads (pack_tf32_kernel, made anew on every call); a
+// producer warp brings them into a ring of bulk copies.  A step is waited
+// on and folded before the next is issued: while one warpgroup folds, the
+// SM's other warpgroups keep the tensor cores busy.  The first design's
+// mma.sync.m16n8k8 stays in the TF32 dot.
+// first8 (visit_first8_kernel) keeps its first design: one thread block
+// over 128 rays, one ray a thread, the visited tile staged in dynamic
+// shared memory by the whole block, float4 by float4, between two
+// barriers.  The dot's TF32 kernel keeps mma.sync.m16n8k8 (one warp per
+// 16 x 32 tile of the output).
 // The fp32 kernels sum K left to right, every product and sum rounded,
 // and min is exact, so they equal the plain version bit for bit in any
-// layout.  The TF32 kernel differs from its plain version only in the
+// layout.  The TF32 kernels differ from their plain versions only in the
 // tensor core's accumulation order and rounding (ops/visit.py,
-// TF32_KERNEL_BOUND).
+// TF32_KERNEL_BOUND: per k8 step, 8 exact products and the accumulator).
 //
 // The dot kernel (P1b) writes the whole (TT, R) product, 2 MB for 17
 // MFLOP at the probe's size: bytes bound it (0.7 us), but a launch of
@@ -139,7 +163,6 @@ constexpr float kDetEps = 1e-12f;
 constexpr int kRingBudget = (228 / 2 - 1) * 1024;
 
 enum TileMode { kDynamic, kStatic, kBatched8 };
-enum Reduce { kFirst8, kMt };
 
 // The tile that visit i reads; in a batched run, whose step i / 8 reads 8
 // consecutive tiles, the (i % 8)-th of them.
@@ -156,27 +179,15 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return r;
 }
 
-// Stage tile `tile` of the table into s as a 16 x tt row-major matrix with
-// a row stride of `stride` floats; with kRound, rounded to TF32.
+// Stage tile `tile` of the table into s as a 16 x tt row-major matrix.
 // Consecutive threads of the 128 read consecutive float4s of the table.
-template <bool kRound>
 __device__ __forceinline__ void stage(float* s, const float* __restrict__ tab,
-                                      int tile, int tt, int stride) {
+                                      int tile, int tt) {
   const int q4 = tt / 4;
   const float4* src = reinterpret_cast<const float4*>(tab) +
                       static_cast<size_t>(tile) * kK * q4;
-  for (int e = threadIdx.x; e < kK * q4; e += kSpan) {
-    const int row = e / q4;
-    const int j4 = e - row * q4;
-    float4 v = __ldg(src + e);
-    if (kRound) {
-      v.x = __uint_as_float(to_tf32(v.x));
-      v.y = __uint_as_float(to_tf32(v.y));
-      v.z = __uint_as_float(to_tf32(v.z));
-      v.w = __uint_as_float(to_tf32(v.w));
-    }
-    *reinterpret_cast<float4*>(s + row * stride + 4 * j4) = v;
-  }
+  float4* dst = reinterpret_cast<float4*>(s);
+  for (int e = threadIdx.x; e < kK * q4; e += kSpan) dst[e] = __ldg(src + e);
 }
 
 __device__ __forceinline__ float4 ld4(const float* s) {
@@ -399,15 +410,249 @@ visit_min_kernel(const float* __restrict__ tab,
   }
 }
 
-// ---------------------------------------------------------------- ray layout
-// One thread per ray, visit i reads tile (i * 7) % n_tiles: reduce "first8"
-// and the MT epilogue.
-template <int kReduce>
+// --------------------------------------------------------- the MT visit (P1a)
+constexpr int kMtWarps = 8;    // warps of a block: the triangle slices
+constexpr int kMtThreads = 32 * kMtWarps;
+constexpr int kMtRays = 2;     // consecutive rays a thread
+constexpr int kMtSpan = 32 * kMtRays;  // rays of a block
+constexpr int kMtTris = 4;     // triangles of a group: a float4 a quarter
+// shared memory beside the ring: the exchange (2 buffers of each warp's
+// partial best t of the block's rays), the full barriers and the
+// exchange's two
+constexpr int kMtFixed = 2 * kMtWarps * kMtSpan * 4 + (kMaxStages + 2) * 8;
+static_assert(kSpan % kMtSpan == 0, "ops/visit.py checks R against SPAN");
+static_assert(kMtRays == 2, "a thread's rays are one float2 of the exchange");
+
+// The kMtTris floats of a group at p, one float4 load.
+__device__ __forceinline__ void ld_tris(float (&v)[kMtTris],
+                                        const float* p) {
+  const float4 a = ld4(p);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+
+// The 16-deep sums of quarter h (0 det, 1 tdet, 2 udet, 3 vdet) of triangles
+// c .. c + kMtTris - 1 of a tile (rows of tt floats, quarters of q) for a
+// thread's rays, left to right, every product and sum rounded.
+__device__ __forceinline__ void mt_quarter(float (&sum)[kMtRays][kMtTris],
+                                           const float* tile, int tt, int q,
+                                           int h, int c,
+                                           const float (&f)[kMtRays][kK]) {
+  const float* p = tile + h * q + c;
+  float a[kMtTris];
+  ld_tris(a, p);
+#pragma unroll
+  for (int j = 0; j < kMtRays; ++j) {
+#pragma unroll
+    for (int e = 0; e < kMtTris; ++e) sum[j][e] = a[e] * f[j][0];
+  }
+#pragma unroll
+  for (int k = 1; k < kK; ++k) {
+    p += tt;
+    ld_tris(a, p);
+#pragma unroll
+    for (int j = 0; j < kMtRays; ++j) {
+#pragma unroll
+      for (int e = 0; e < kMtTris; ++e) sum[j][e] = sum[j][e] + a[e] * f[j][k];
+    }
+  }
+}
+
+// The part of the MT test of a group's triangles that needs no best t:
+// -> st (tdet * sgn where it is > 0, else NaN) and ad (det * sgn where
+// ad >= kDetEps, su >= 0, sv >= 0 and su + sv <= ad, else NaN).  The test
+// `st < tb * ad` is then false wherever the plain version's conjunction
+// fails before it, and is its last term elsewhere.
+__device__ __forceinline__ void mt_group(float (&st)[kMtRays][kMtTris],
+                                         float (&ad)[kMtRays][kMtTris],
+                                         const float* tile, int tt, int q,
+                                         int c,
+                                         const float (&f)[kMtRays][kK]) {
+  const float nan = __int_as_float(0x7fffffff);
+  float det[kMtRays][kMtTris], su[kMtRays][kMtTris], w[kMtRays][kMtTris];
+  mt_quarter(det, tile, tt, q, 0, c, f);
+  mt_quarter(w, tile, tt, q, 2, c, f);
+#pragma unroll
+  for (int j = 0; j < kMtRays; ++j) {
+#pragma unroll
+    for (int e = 0; e < kMtTris; ++e) {
+      su[j][e] = w[j][e] * (det[j][e] < 0.0f ? -1.0f : 1.0f);
+    }
+  }
+  mt_quarter(w, tile, tt, q, 3, c, f);
+#pragma unroll
+  for (int j = 0; j < kMtRays; ++j) {
+#pragma unroll
+    for (int e = 0; e < kMtTris; ++e) {
+      const float sgn = det[j][e] < 0.0f ? -1.0f : 1.0f;
+      const float a = det[j][e] * sgn;
+      const float sv = w[j][e] * sgn;
+      const bool ok = a >= kDetEps && su[j][e] >= 0.0f && sv >= 0.0f &&
+                      su[j][e] + sv <= a;
+      ad[j][e] = ok ? a : nan;
+    }
+  }
+  mt_quarter(w, tile, tt, q, 1, c, f);
+#pragma unroll
+  for (int j = 0; j < kMtRays; ++j) {
+#pragma unroll
+    for (int e = 0; e < kMtTris; ++e) {
+      const float s = w[j][e] * (det[j][e] < 0.0f ? -1.0f : 1.0f);
+      st[j][e] = s > 0.0f ? s : nan;
+    }
+  }
+}
+
+// The hits of a group against the best t as it stood before the visit.
+__device__ __forceinline__ void mt_hits(float (&m)[kMtRays],
+                                        const float (&st)[kMtRays][kMtTris],
+                                        const float (&ad)[kMtRays][kMtTris],
+                                        const float (&tb)[kMtRays]) {
+#pragma unroll
+  for (int j = 0; j < kMtRays; ++j) {
+#pragma unroll
+    for (int e = 0; e < kMtTris; ++e) {
+      if (st[j][e] < tb[j] * ad[j][e]) m[j] = fminf(m[j], st[j][e] / ad[j][e]);
+    }
+  }
+}
+
+// Dynamic shared memory: the ring (`stages` slots of one tile as it lies in
+// the table; visit i in slot i % stages with parity (i / stages) & 1, as in
+// visit_min_kernel), the exchange xch[2][kMtWarps][32] float2 (a thread's
+// partial best t of its 2 rays), then the barriers full[kMaxStages] and
+// xbar[2].  The tile's q = tt / 4 triangles are taken in groups of 4 (a
+// float4 of each quarter); warp w takes groups w, w + kMtWarps, ...  Every
+// warp holds visit i against the same best t, the one the warps' partial
+// bests of visit i - 1 give: a warp writes its partial bests of visit i
+// into xch[i & 1] and arrives on xbar[i & 1]; at visit i + 1 it contracts
+// its first group, and only then waits on xbar[i & 1] (parity (i >> 1) & 1)
+// and takes the min of the kMtWarps partials.  A warp writes xch[i & 1]
+// again at visit i + 2, after every warp has arrived for visit i + 1, which
+// each does after its read of visit i's.  Each warp arrives on the exchange
+// after its last read of the visit's slot, so the exchange also tells the
+// producer thread that visit i - 1's slot is free: it refills that slot at
+// visit i, and no warp waits on the producer's wait.  Visit i's tile was
+// asked for at visit i - stages + 1 at the latest: the ring needs 2 slots.
+__global__ void __launch_bounds__(kMtThreads, 2)
+visit_mt_kernel(const float* __restrict__ tab,
+                const float* __restrict__ feats, float* __restrict__ t_out,
+                float* __restrict__ o_out, int r, int tt, int n_tiles,
+                int n_visits, int stages) {
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
+  const int tile_floats = kK * tt;
+  float2* xch = reinterpret_cast<float2*>(ring + static_cast<size_t>(stages) *
+                                                     tile_floats);
+  const uint32_t ring_a = smem_addr(ring);
+  const uint32_t full_a = smem_addr(xch + 2 * kMtWarps * 32);
+  const uint32_t xbar_a = full_a + 8 * kMaxStages;
+  const uint32_t tile_bytes = static_cast<uint32_t>(tile_floats) * 4;
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int ray0 = blockIdx.x * kMtSpan;
+  const bool producer = threadIdx.x == 0;
+
+  const auto load_tile = [&](int j) {  // the tile of visit j
+    const int s = j % stages;
+    bulk_load(ring_a + s * tile_bytes,
+              tab + static_cast<size_t>(tile_of<kDynamic>(j, n_tiles)) *
+                        tile_floats,
+              tile_bytes, full_a + 8 * s);
+  };
+  if (producer) {
+    for (int s = 0; s < stages; ++s) mbar_init(full_a + 8 * s, 1);
+    mbar_init(xbar_a, kMtWarps);
+    mbar_init(xbar_a + 8, kMtWarps);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (producer) {
+    for (int j = 0; j < stages && j < n_visits; ++j) load_tile(j);
+  }
+
+  // the features of rays ray0 + kMtRays lane .. + kMtRays - 1
+  float f[kMtRays][kK];
+  {
+    const float* fb =
+        feats + static_cast<size_t>(b) * kK * r + ray0 + kMtRays * lane;
+#pragma unroll
+    for (int k = 0; k < kK; ++k) {
+#pragma unroll
+      for (int j = 0; j < kMtRays; ++j) {
+        f[j][k] = __ldg(fb + static_cast<size_t>(k) * r + j);
+      }
+    }
+  }
+  const int q = tt / 4;
+  const int groups = q / kMtTris;  // tt % 32 == 0: q is a multiple of 8
+  // the best t before the visit, the same in every warp
+  float tb[kMtRays] = {kBig, kBig};
+  // the block's best t after visit x, from the warps' partials
+  const auto exchanged = [&](int x) {
+    mbar_wait(xbar_a + 8 * (x & 1), (x >> 1) & 1);
+    const float2* p = xch + (x & 1) * kMtWarps * 32 + lane;
+    float2 v = p[0];
+#pragma unroll
+    for (int w = 1; w < kMtWarps; ++w) {
+      const float2 u = p[w * 32];
+      v = make_float2(fminf(v.x, u.x), fminf(v.y, u.y));
+    }
+    tb[0] = v.x;
+    tb[1] = v.y;
+  };
+
+  int s = 0;             // visit i's slot, i % stages, and
+  uint32_t parity = 0;   // the parity of its use of it, (i / stages) & 1
+  for (int i = 0; i < n_visits; ++i) {
+    mbar_wait(full_a + 8 * s, parity);
+    const float* tile = ring + static_cast<size_t>(s) * tile_floats;
+    float st[kMtRays][kMtTris], ad[kMtRays][kMtTris];
+    // the first group's sums while the other warps finish visit i - 1
+    if (warp < groups) mt_group(st, ad, tile, tt, q, kMtTris * warp, f);
+    if (i > 0) {
+      exchanged(i - 1);
+      if (producer && i - 1 + stages < n_visits) {
+        // the warps' reads of visit i - 1's slot before the copy engine's
+        // writes
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        load_tile(i - 1 + stages);
+      }
+    }
+    float m[kMtRays] = {tb[0], tb[1]};
+    if (warp < groups) mt_hits(m, st, ad, tb);
+    for (int g = warp + kMtWarps; g < groups; g += kMtWarps) {
+      mt_group(st, ad, tile, tt, q, kMtTris * g, f);
+      mt_hits(m, st, ad, tb);
+    }
+    xch[(i & 1) * kMtWarps * 32 + warp * 32 + lane] = make_float2(m[0], m[1]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(xbar_a + 8 * (i & 1));
+    if (++s == stages) {
+      s = 0;
+      parity ^= 1;
+    }
+  }
+  if (warp == 0) {
+    if (n_visits > 0) exchanged(n_visits - 1);
+    *reinterpret_cast<float2*>(t_out + static_cast<size_t>(b) * r + ray0 +
+                               kMtRays * lane) = make_float2(tb[0], tb[1]);
+  }
+  if (threadIdx.x < kMtSpan) {
+    write_feature_sum(feats, o_out, b, r, ray0 + threadIdx.x);
+  }
+}
+
+// ------------------------------------------------------------------ first8
+// One thread per ray, its 16 features in registers; visit i's tile (i * 7)
+// % n_tiles staged in dynamic shared memory by the whole block between two
+// barriers and read as float4 broadcasts; rows 0..7 of the product kept
+// apart, a running min each.
 __global__ void __launch_bounds__(kSpan)
-visit_ray_kernel(const float* __restrict__ tab,
-                 const float* __restrict__ feats, float* __restrict__ t_out,
-                 float* __restrict__ o_out, int r, int tt, int n_tiles,
-                 int n_visits) {
+visit_first8_kernel(const float* __restrict__ tab,
+                    const float* __restrict__ feats, float* __restrict__ t_out,
+                    float* __restrict__ o_out, int r, int tt, int n_tiles,
+                    int n_visits) {
   extern __shared__ float4 smem4[];
   float* s = reinterpret_cast<float*>(smem4);
   const int b = blockIdx.y;
@@ -416,82 +661,35 @@ visit_ray_kernel(const float* __restrict__ tab,
   float f[kK];
 #pragma unroll
   for (int k = 0; k < kK; ++k) f[k] = fb[static_cast<size_t>(k) * r];
-  constexpr int kAcc = kReduce == kFirst8 ? kRows : 1;
-  float acc[kAcc];
+  float acc[kRows];
 #pragma unroll
-  for (int j = 0; j < kAcc; ++j) acc[j] = kBig;
+  for (int j = 0; j < kRows; ++j) acc[j] = kBig;
 
   for (int i = 0; i < n_visits; ++i) {
     __syncthreads();  // every thread is done with the previous tile
-    stage<false>(s, tab, tile_of<kDynamic>(i, n_tiles), tt, tt);
+    stage(s, tab, tile_of<kDynamic>(i, n_tiles), tt);
     __syncthreads();
-    if (kReduce == kFirst8) {
-      // rows 0..7 of the product: the tile's first 8 columns
-      float sum[kRows];
-      float4 a = ld4(s), a2 = ld4(s + 4);
-      sum[0] = a.x * f[0]; sum[1] = a.y * f[0]; sum[2] = a.z * f[0];
-      sum[3] = a.w * f[0]; sum[4] = a2.x * f[0]; sum[5] = a2.y * f[0];
-      sum[6] = a2.z * f[0]; sum[7] = a2.w * f[0];
+    // rows 0..7 of the product: the tile's first 8 columns
+    float sum[kRows];
+    float4 a = ld4(s), a2 = ld4(s + 4);
+    sum[0] = a.x * f[0]; sum[1] = a.y * f[0]; sum[2] = a.z * f[0];
+    sum[3] = a.w * f[0]; sum[4] = a2.x * f[0]; sum[5] = a2.y * f[0];
+    sum[6] = a2.z * f[0]; sum[7] = a2.w * f[0];
 #pragma unroll
-      for (int k = 1; k < kK; ++k) {
-        a = ld4(s + k * tt);
-        a2 = ld4(s + k * tt + 4);
-        sum[0] = sum[0] + a.x * f[k]; sum[1] = sum[1] + a.y * f[k];
-        sum[2] = sum[2] + a.z * f[k]; sum[3] = sum[3] + a.w * f[k];
-        sum[4] = sum[4] + a2.x * f[k]; sum[5] = sum[5] + a2.y * f[k];
-        sum[6] = sum[6] + a2.z * f[k]; sum[7] = sum[7] + a2.w * f[k];
-      }
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) acc[j] = fminf(acc[j], sum[j]);
-    } else {
-      // the constant-form MT epilogue: columns [det | tdet | udet | vdet]
-      // of q = tt / 4 triangles, every one held to the ray's best t as
-      // it stood before this visit
-      const int q = tt / 4;
-      const float tb = acc[0];
-      float m = acc[0];
-      // two groups of 4 triangles in flight: without it the compiler leaves
-      // the loads of a group one step ahead of their use
-#pragma unroll 2
-      for (int c = 0; c < q; c += 4) {
-        float sm[4][4];  // [quarter][triangle]
-#pragma unroll
-        for (int h = 0; h < 4; ++h) {
-          const float4 a = ld4(s + h * q + c);
-          sm[h][0] = a.x * f[0]; sm[h][1] = a.y * f[0];
-          sm[h][2] = a.z * f[0]; sm[h][3] = a.w * f[0];
-        }
-#pragma unroll
-        for (int k = 1; k < kK; ++k) {
-#pragma unroll
-          for (int h = 0; h < 4; ++h) {
-            const float4 a = ld4(s + k * tt + h * q + c);
-            sm[h][0] = sm[h][0] + a.x * f[k];
-            sm[h][1] = sm[h][1] + a.y * f[k];
-            sm[h][2] = sm[h][2] + a.z * f[k];
-            sm[h][3] = sm[h][3] + a.w * f[k];
-          }
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float det = sm[0][e];
-          const float sgn = det < 0.0f ? -1.0f : 1.0f;
-          const float ad = det * sgn;
-          const float st = sm[1][e] * sgn;
-          const float su = sm[2][e] * sgn;
-          const float sv = sm[3][e] * sgn;
-          if (ad >= kDetEps && su >= 0.0f && sv >= 0.0f && su + sv <= ad &&
-              st > 0.0f && st < tb * ad) {
-            m = fminf(m, st / ad);
-          }
-        }
-      }
-      acc[0] = m;
+    for (int k = 1; k < kK; ++k) {
+      a = ld4(s + k * tt);
+      a2 = ld4(s + k * tt + 4);
+      sum[0] = sum[0] + a.x * f[k]; sum[1] = sum[1] + a.y * f[k];
+      sum[2] = sum[2] + a.z * f[k]; sum[3] = sum[3] + a.w * f[k];
+      sum[4] = sum[4] + a2.x * f[k]; sum[5] = sum[5] + a2.y * f[k];
+      sum[6] = sum[6] + a2.z * f[k]; sum[7] = sum[7] + a2.w * f[k];
     }
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) acc[j] = fminf(acc[j], sum[j]);
   }
 #pragma unroll
-  for (int j = 0; j < kAcc; ++j) {
-    t_out[(static_cast<size_t>(b) * kAcc + j) * r + ray] = acc[j];
+  for (int j = 0; j < kRows; ++j) {
+    t_out[(static_cast<size_t>(b) * kRows + j) * r + ray] = acc[j];
   }
   write_feature_sum(feats, o_out, b, r, ray);
 }
@@ -657,79 +855,229 @@ __device__ __forceinline__ void a_fragment(uint32_t (&a)[4], Load load,
   a[3] = load(ks * 8 + q + 4, m0 + g + 8);
 }
 
-__global__ void __launch_bounds__(kSpan)
-visit_tf32_kernel(const float* __restrict__ tab,
+// The TF32 visit on wgmma (m64n128k8, A and B from shared memory).  wgmma
+// takes TF32 operands K-major only, so the wrapper's copy of the table
+// (`packed`, made by pack_tf32_kernel on every call) holds each visited
+// tile rounded to TF32 and laid out as wgmma reads B: triangle n, feature
+// k at float (n / 8) * 128 + (k / 4) * 32 + (n % 8) * 4 + k % 4, core
+// matrices of 8 triangles x 4 features (128 bytes), the four of a group of
+// 8 triangles side by side along K (LBO 128 bytes), groups 512 bytes apart
+// (SBO); a warpgroup's A, its rays' features, lies the same way.  A tile is
+// padded to a multiple of kTfN triangles with copies of its last one: a min
+// over columns taken twice is the same.  Tile p of the copy is the tile of
+// visits p, p + n_packed, ...
+constexpr int kTfWarpgroups = 2;          // consumer warpgroups of a block
+constexpr int kTfSpan = 64 * kTfWarpgroups;  // rays of a block: kSpan
+constexpr int kTfThreads = 128 * kTfWarpgroups + 32;  // and a producer warp
+constexpr int kTfConsumerWarps = 4 * kTfWarpgroups;
+constexpr int kTfN = 128;                 // triangles of a wgmma
+constexpr int kTfStages = 8;              // tiles the ring holds at most
+// beside the ring: the full and empty barriers, each warpgroup's features
+constexpr int kTfFixed = 2 * kTfStages * 8 + kTfWarpgroups * 64 * kK * 4;
+static_assert(kTfSpan == kSpan, "ops/visit.py checks R against SPAN");
+
+// tt rounded up to whole wgmma steps: the packed tile's triangles
+__host__ __device__ __forceinline__ int tf32_width(int tt) {
+  return (tt + kTfN - 1) / kTfN * kTfN;
+}
+
+__device__ __forceinline__ int packed_offset(int n, int k) {
+  return (n >> 3) * 128 + (k >> 2) * 32 + (n & 7) * 4 + (k & 3);
+}
+
+// packed[p] = the tile of visit p (p < n_packed), rounded to TF32, padded
+// and laid out as above; a block a tile.
+__global__ void __launch_bounds__(256)
+pack_tf32_kernel(const float* __restrict__ tab, float* __restrict__ packed,
+                 int tt, int n_tiles) {
+  const int p = blockIdx.x;
+  const int w = tf32_width(tt);
+  const float* src =
+      tab + static_cast<size_t>(tile_of<kDynamic>(p, n_tiles)) * kK * tt;
+  float* dst = packed + static_cast<size_t>(p) * kK * w;
+  for (int e = threadIdx.x; e < kK * w; e += 256) {
+    const int k = e / w, n = e - k * w;
+    dst[packed_offset(n, k)] =
+        __uint_as_float(to_tf32(__ldg(src + k * tt + min(n, tt - 1))));
+  }
+}
+
+// The shared-memory descriptor of a K-major, unswizzled operand (A or B)
+// at shared address `addr`, in the layout above.
+__device__ __forceinline__ uint64_t operand_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32);
+}
+
+// d (+)= A B for the warpgroup's 64 rays and 128 triangles, K = 8: A and B
+// from shared memory through their descriptors; scale_d = 0 drops d's old
+// value.  d[4 j ..]: row g, columns 8 j + 2q, + 1; row g + 8, the same (g =
+// lane / 4, q = lane % 4).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t adesc,
+                                         uint64_t bdesc, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(adesc), "l"(bdesc), "r"(scale_d));
+}
+
+// v[0] = the min of v[0..15], in 4 levels.
+__device__ __forceinline__ void min_tree16(float (&v)[16]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = fminf(v[j], v[j + 8]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = fminf(v[j], v[j + 4]);
+  v[0] = fminf(fminf(v[0], v[2]), fminf(v[1], v[3]));
+}
+
+// Dynamic shared memory: the ring (`stages` slots of one packed tile; visit
+// i in slot i % stages with parity (i / stages) & 1), the barriers
+// full[kTfStages] and empty[kTfStages], then each warpgroup's A.  Warp
+// kTfConsumerWarps is the producer: one lane keeps the ring full by bulk
+// copies.  Warpgroup g takes rays 64 g .. 64 g + 63 of the block's 128, their
+// features rounded once into its A.  A visit is tf32_width(tt) / 128 steps,
+// each two k8 wgmmas into one accumulator, committed, waited on and folded
+// into the thread's running mins (rows g and g + 8 of its warp's 16).  (Two
+// accumulators in turn, one step's fold beside the next step's wgmma, make
+// ptxas serialize every wgmma; A in registers ran 37% slower than from
+// shared memory: PERF.md.)  A warp leaves a slot after its visit's
+// last step.  The min across the 4 lanes that share a row is taken once,
+// after the last visit.
+__global__ void __launch_bounds__(kTfThreads)
+visit_tf32_kernel(const float* __restrict__ packed,
                   const float* __restrict__ feats, float* __restrict__ t_out,
-                  float* __restrict__ o_out, int r, int tt, int n_tiles,
-                  int n_visits) {
+                  float* __restrict__ o_out, int r, int tt, int n_packed,
+                  int n_visits, int stages) {
   extern __shared__ float4 smem4[];
-  float* s = reinterpret_cast<float*>(smem4);
-  const int stride = tt + 8;
+  const int width = tf32_width(tt);
+  const uint32_t tile_bytes = static_cast<uint32_t>(kK * width) * 4;
+  const uint32_t ring_a = smem_addr(smem4);
+  const uint32_t full_a = ring_a + stages * tile_bytes;
+  const uint32_t empty_a = full_a + 8 * kTfStages;
   const int b = blockIdx.y;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const int r_w = blockIdx.x * kSpan + warp * 32;  // the warp's first ray
-  const float* fb = feats + static_cast<size_t>(b) * kK * r + r_w;
-  // B fragments (k x n = feature x ray): b0 (k = q, n = g), b1 (k = q+4)
-  uint32_t bf[4][2][2];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      bf[nt][ks][0] =
-          to_tf32(fb[static_cast<size_t>(ks * 8 + q) * r + nt * 8 + g]);
-      bf[nt][ks][1] =
-          to_tf32(fb[static_cast<size_t>(ks * 8 + q + 4) * r + nt * 8 + g]);
+  // one value for the whole warp, as the compiler can see: a wgmma after a
+  // branch on a value it cannot see to be warp-uniform is serialized
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full_a + 8 * s, 1);
+      mbar_init(empty_a + 8 * s, kTfConsumerWarps);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  float mn[4][2];  // [n-tile][column 2q, 2q+1 of it]
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) mn[nt][0] = mn[nt][1] = kBig;
-  const auto load = [&](int k, int m) {
-    return __float_as_uint(s[k * stride + m]);
-  };
+  __syncthreads();
 
+  if (warp == kTfConsumerWarps) {  // the producer
+    if (lane == 0) {
+      for (int j = 0; j < n_visits; ++j) {
+        const int s = j % stages;
+        if (j >= stages) mbar_wait(empty_a + 8 * s, (j / stages - 1) & 1);
+        bulk_load(ring_a + s * tile_bytes,
+                  packed + static_cast<size_t>(j % n_packed) * kK * width,
+                  tile_bytes, full_a + 8 * s);
+      }
+    }
+    return;
+  }
+
+  const int g = lane >> 2, q = lane & 3;
+  // the warp's 16 rays: rows 16 (warp % 4) .. of its warpgroup's 64
+  const int r_w = blockIdx.x * kTfSpan + 64 * (warp >> 2) + 16 * (warp & 3);
+  // the warpgroup's A: its 64 rays' features rounded to TF32, K-major in
+  // the layout of the packed tiles, written once and made visible to the
+  // tensor cores' reads
+  const uint32_t fa_a = empty_a + 8 * kTfStages + (warp >> 2) * 64 * kK * 4;
+  {
+    float* fa = reinterpret_cast<float*>(smem4) + (fa_a - ring_a) / 4;
+    const float* fw = feats + static_cast<size_t>(b) * kK * r +
+                      blockIdx.x * kTfSpan + 64 * (warp >> 2);
+    for (int e = threadIdx.x & 127; e < 64 * kK; e += 128) {
+      const int m = e & 63, k = e >> 6;
+      fa[packed_offset(m, k)] =
+          __uint_as_float(to_tf32(fw[static_cast<size_t>(k) * r + m]));
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + (warp >> 2)) : "memory");
+  }
+  float acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+  float lo = kBig, hi = kBig;  // running mins of rows g and g + 8
   for (int i = 0; i < n_visits; ++i) {
-    __syncthreads();
-    stage<true>(s, tab, tile_of<kDynamic>(i, n_tiles), tt, stride);
-    __syncthreads();
-    for (int m0 = 0; m0 < tt; m0 += 16) {
-      uint32_t a0[4], a1[4];
-      a_fragment(a0, load, 0, m0, g, q);
-      a_fragment(a1, load, 1, m0, g, q);
+    const int s = i % stages;
+    mbar_wait(full_a + 8 * s, (i / stages) & 1);
+    for (int c = 0; c < width; c += kTfN) {
+      const uint32_t base = ring_a + s * tile_bytes + c / 8 * 512;
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+      wgmma_tf32(acc, operand_desc(fa_a), operand_desc(base), 0);
+      wgmma_tf32(acc, operand_desc(fa_a + 256), operand_desc(base + 256), 1);
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      // the accumulators as written here: no read of them moves above the
+      // wait
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_tf32(d, a0, bf[nt][0][0], bf[nt][0][1]);
-        mma_tf32(d, a1, bf[nt][1][0], bf[nt][1][1]);
-        // d0, d1: rows g, columns 2q, 2q+1; d2, d3: rows g + 8
-        mn[nt][0] = fminf(mn[nt][0], fminf(d[0], d[2]));
-        mn[nt][1] = fminf(mn[nt][1], fminf(d[1], d[3]));
+      for (int e = 0; e < 64; ++e) asm volatile("" : "+f"(acc[e])::"memory");
+      // each row's 32 columns of the step, as a tree of mins
+      float l[16], h[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        l[j] = fminf(acc[4 * j], acc[4 * j + 1]);
+        h[j] = fminf(acc[4 * j + 2], acc[4 * j + 3]);
       }
+      min_tree16(l);
+      min_tree16(h);
+      lo = fminf(lo, l[0]);
+      hi = fminf(hi, h[0]);
     }
+    // this warp has left slot s; when all have, the producer refills it
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_a + 8 * s);
   }
-  // the min over the 8 lanes (g) that share a fragment column
+
+  // the min across the 4 lanes (q) of a row; lane q == 0 writes it
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        mn[nt][e] =
-            fminf(mn[nt][e], __shfl_xor_sync(0xffffffffu, mn[nt][e], off));
-      }
-    }
+  for (int off = 1; off < 4; off <<= 1) {
+    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = fminf(hi, __shfl_xor_sync(0xffffffffu, hi, off));
   }
-  if (g == 0) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      float* out = t_out + static_cast<size_t>(b) * r + r_w + nt * 8 + 2 * q;
-      out[0] = mn[nt][0];
-      out[1] = mn[nt][1];
-    }
+  if (q == 0) {
+    float* out = t_out + static_cast<size_t>(b) * r + r_w + g;
+    out[0] = lo;
+    out[8] = hi;
   }
-  write_feature_sum(feats, o_out, b, r, blockIdx.x * kSpan + threadIdx.x);
+  if (threadIdx.x < kTfSpan) {
+    write_feature_sum(feats, o_out, b, r, blockIdx.x * kTfSpan + threadIdx.x);
+  }
 }
 
 // ----------------------------------------------------------------------- dot
@@ -881,35 +1229,39 @@ Shape relayout_shape(int n) {
 
 __global__ void empty_kernel() {}
 
-// The min visit in tile mode kMode: as many ring slots as fit in half of
-// an SM's shared memory, so that two blocks stay resident, at most
-// kMaxStages, at least the one it cannot do without (a launch that does not
-// fit even that is refused by the card).
+// Ring slots of `tile` bytes: as many as fit beside `fixed` bytes in half
+// of an SM's shared memory, so that two blocks stay resident, at most
+// `most`, at least the `least` a kernel cannot do without (a launch that
+// does not fit even those is refused by the card).
+long long ring_slots(long long tile, int fixed, int least, int most) {
+  const long long n = (kRingBudget - fixed) / tile;
+  return n < least ? least : (n > most ? most : n);
+}
+
+// Launch `kernel` over the ring's slots and `fixed` bytes of shared memory
+// with the arguments that follow, then `stages`.
+template <typename... Params, typename... Args>
+int launch_ring(void (*kernel)(Params...), dim3 grid, int block,
+                long long stages, long long tile, int fixed,
+                cudaStream_t stream, Args... args) {
+  const long long smem = stages * tile + fixed;
+  if (smem > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(kernel, grid, block, static_cast<int>(smem), stream, args...,
+                static_cast<int>(stages));
+}
+
+// The min visit in tile mode kMode (the static tile is brought in once and
+// needs one slot).
 template <int kMode>
 int launch_min(int blocks, cudaStream_t stream, const float* tab,
                const float* feats, float* t, float* o, int r, int tt,
                int n_tiles, int n_visits) {
-  const dim3 grid(r / kMinSpan, blocks);
   const long long tile = static_cast<long long>(kK) * tt * 4;
-  long long stages = kMode == kStatic ? 1 : (kRingBudget - kMinFixed) / tile;
-  stages = stages < 1 ? 1 : (stages > kMaxStages ? kMaxStages : stages);
-  const long long smem = stages * tile + kMinFixed;
-  if (smem > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(visit_min_kernel<kMode>, grid, kMinThreads,
-                static_cast<int>(smem), stream, tab, feats, t, o, r, tt,
-                n_tiles, n_visits, static_cast<int>(stages));
-}
-
-// The lane visit: as many ring slots as fit beside kLaneFixed in half of an
-// SM's shared memory, at most kMaxStages (the tile is 8 KB: kMaxStages).
-int launch_lane(int blocks, cudaStream_t stream, const float* tab,
-                const float* feats, float* t, float* o, int r, int n_tiles,
-                int n_visits) {
-  int stages = (kRingBudget - kLaneFixed) / kLaneTile;
-  stages = stages < 1 ? 1 : (stages > kMaxStages ? kMaxStages : stages);
-  return launch(visit_lane_kernel, dim3(r / kLaneSpan, blocks), kLaneThreads,
-                stages * kLaneTile + kLaneFixed, stream, tab, feats, t, o, r,
-                n_tiles, n_visits, stages);
+  const long long stages =
+      kMode == kStatic ? 1 : ring_slots(tile, kMinFixed, 1, kMaxStages);
+  return launch_ring(visit_min_kernel<kMode>, dim3(r / kMinSpan, blocks),
+                     kMinThreads, stages, tile, kMinFixed, stream, tab, feats,
+                     t, o, r, tt, n_tiles, n_visits);
 }
 
 }  // namespace
@@ -919,38 +1271,66 @@ int launch_lane(int blocks, cudaStream_t stream, const float* tab,
 // for reduce "first8", else (blocks, 1, r), and o (blocks, 1, r).  The
 // caller guarantees r % 128 == 0, tt % 32 == 0 (tt == 128 for the lane
 // layout), n_tiles >= 8 for the batched variant and a 16-byte aligned tab
-// and feats.  Launches on `stream` and returns the CUDA error (0 = launched).
+// and feats.  The TF32 visit (variant 1) needs a packed copy of the table:
+// visit_tf32.  Launches on `stream` and returns the CUDA error (0 =
+// launched).
 extern "C" int visit_run(int variant, const float* tab, const float* feats,
                          float* t, float* o, int blocks, int r, int tt,
                          int n_tiles, int n_visits, cudaStream_t stream) {
   if (blocks <= 0 || r <= 0) return 0;
-  const dim3 grid(r / kSpan, blocks);
-  const int tile = kK * tt * 4;
+  const long long tile = static_cast<long long>(kK) * tt * 4;
   switch (variant) {
     case 0:
       return launch_min<kDynamic>(blocks, stream, tab, feats, t, o, r, tt,
                                   n_tiles, n_visits);
-    case 1:
-      return launch(visit_tf32_kernel, grid, kSpan, kK * (tt + 8) * 4, stream,
-                    tab, feats, t, o, r, tt, n_tiles, n_visits);
     case 2:
-      return launch(visit_ray_kernel<kMt>, grid, kSpan, tile, stream, tab,
-                    feats, t, o, r, tt, n_tiles, n_visits);
+      return launch_ring(visit_mt_kernel, dim3(r / kMtSpan, blocks),
+                         kMtThreads,
+                         ring_slots(tile, kMtFixed, 2, kMaxStages), tile,
+                         kMtFixed, stream, tab, feats, t, o, r, tt, n_tiles,
+                         n_visits);
     case 3:
       return launch_min<kStatic>(blocks, stream, tab, feats, t, o, r, tt,
                                  n_tiles, n_visits);
     case 4:
-      return launch(visit_ray_kernel<kFirst8>, grid, kSpan, tile, stream, tab,
-                    feats, t, o, r, tt, n_tiles, n_visits);
+      return launch(visit_first8_kernel, dim3(r / kSpan, blocks), kSpan,
+                    static_cast<int>(tile), stream, tab, feats, t, o, r, tt,
+                    n_tiles, n_visits);
     case 5:
-      return launch_lane(blocks, stream, tab, feats, t, o, r, n_tiles,
-                         n_visits);
+      return launch_ring(visit_lane_kernel, dim3(r / kLaneSpan, blocks),
+                         kLaneThreads,
+                         ring_slots(kLaneTile, kLaneFixed, 1, kMaxStages),
+                         kLaneTile, kLaneFixed, stream, tab, feats, t, o, r,
+                         n_tiles, n_visits);
     case 6:
       return launch_min<kBatched8>(blocks, stream, tab, feats, t, o, r, tt,
                                    n_tiles, n_visits);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The TF32 visit (variant 1 of visit_run, the same contract) through
+// `packed`, the wrapper's scratch of n_packed * 16 * tf32_width(tt) floats:
+// its tile p is made here, from tab, for visits p, p + n_packed, ...
+// (n_packed: the number of distinct tiles the visits read in order, n_tiles
+// / gcd(7, n_tiles), at most n_visits).  Two launches on `stream`; returns
+// the CUDA error of the first that failed (0 = launched).
+extern "C" int visit_tf32(const float* tab, float* packed, const float* feats,
+                          float* t, float* o, int blocks, int r, int tt,
+                          int n_tiles, int n_visits, int n_packed,
+                          cudaStream_t stream) {
+  if (blocks <= 0 || r <= 0) return 0;
+  if (n_packed > 0) {
+    const int e = launch(pack_tf32_kernel, dim3(n_packed), 256, 0, stream,
+                         tab, packed, tt, n_tiles);
+    if (e != 0) return e;
+  }
+  const long long tile = static_cast<long long>(kK) * tf32_width(tt) * 4;
+  return launch_ring(visit_tf32_kernel, dim3(r / kTfSpan, blocks),
+                     kTfThreads, ring_slots(tile, kTfFixed, 1, kTfStages),
+                     tile, kTfFixed, stream, static_cast<const float*>(packed),
+                     feats, t, o, r, tt, n_packed, n_visits);
 }
 
 // out (tt, r) = a^T b for a (16, tt), b (16, r), in fp32 (tf32 = 0) or

@@ -46,8 +46,9 @@ XLA gives an f32 dot at DEFAULT precision on a GPU (the TPU's
 single-pass bf16 has no counterpart here).  The operands are rounded to
 TF32 (round to nearest, ties away from zero: the low 13 mantissa bits
 cleared), their products are exact in fp32, and the plain version sums
-them left to right; the kernels run them through mma.sync on the tensor
-cores, whose accumulation order and rounding differ.  Their difference
+them left to right; the kernels run them on the tensor cores (the visit
+through wgmma, the dot through mma.sync, two k8 steps each), whose
+accumulation order and rounding differ.  Their difference
 per output is at most TF32_KERNEL_BOUND * sum_k |a_k b_k| (`tf32_scale`
 computes that sum, the max of it where a min was taken).
 
@@ -62,11 +63,19 @@ visit; its tiles come through a ring of `ring_stages` slots in shared
 memory (csrc/visit_kernel.cu).  The lane visit takes its tiles through
 such a ring too; each lane keeps a running min of each of its warp's
 LANE_RAYS rays over its own 4 columns of every visit, and the min across
-the lanes is taken once, after the last.  `_smem_bytes` is the
-launchers' layout of dynamic shared memory.
+the lanes is taken once, after the last.  The MT visit (reduce="mt")
+has the fp32 min visit's shape (MT_RAYS rays a thread, groups of 4
+triangles split over MT_WARPS warps, the ring), and its warps exchange
+each ray's best t once a visit, so that every warp holds a visit against
+the same best.  The TF32 visit runs on wgmma through a ring of packed
+tiles: `visit` hands its kernel a scratch copy of the visited tiles,
+rounded, K-major and padded to whole steps of TF32_N triangles
+(`tf32_packed_tiles` of them), made anew on every call.  `_smem_bytes`
+is the launchers' layout of dynamic shared memory.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Tuple
 
 import torch
@@ -92,6 +101,15 @@ LANE_RAYS = 16          # rays of a warp of it, a running min each a lane
 LANE_SPAN = LANE_WARPS * LANE_RAYS
 # its shared memory beside its ring: the block's features and the barriers
 LANE_FIXED = LANE_SPAN * K * 4 + 2 * MAX_STAGES * 8
+MT_WARPS = 8            # warps of a block of the MT visit: triangle slices
+MT_RAYS = 2             # consecutive rays a thread of it
+MT_SPAN = 32 * MT_RAYS  # rays of a block of it
+# its shared memory beside its ring: the exchange's two buffers of each
+# warp's partial best t, the ring's full barriers and the exchange's two
+MT_FIXED = 2 * MT_WARPS * MT_SPAN * 4 + (MAX_STAGES + 2) * 8
+TF32_STAGES = 8         # tiles the TF32 visit's ring holds at most
+TF32_FIXED = 2 * TF32_STAGES * 8  # its shared memory beside its ring
+TF32_N = 128            # triangles of its wgmma steps: packed tiles pad to it
 
 # (tile, reduce, layout, precision) of each kernel the probes run, in the
 # order of the CUDA launcher's variant ids
@@ -109,7 +127,8 @@ LANE_TT = 128           # the lane layout holds TT / 32 columns a lane
 # Bound on |kernel - plain| of a TF32 output, per unit of sum_k |a_k b_k|
 # (exact products of the TF32-rounded operands).  The plain sum of 16
 # products in fp32 errs by at most 15 u of that sum (u = 2^-24).  Each
-# mma.sync sums 8 products and its accumulator input; aligning 9 terms
+# k8 step of the tensor cores (wgmma, mma.sync) sums 8 products and its
+# accumulator input; aligning 9 terms
 # to the largest with truncation loses under 1 ulp (2 u) of each, and
 # the result is rounded once more: at most 20 u of its terms' magnitude,
 # so 40 u over the two k-steps.  55 u in all; 64 u is stated.
@@ -314,6 +333,7 @@ def relayout_loop_plain(x: torch.Tensor, n_iter: int) -> torch.Tensor:
 # the launchers of csrc/visit_kernel.cu (the stream follows each list)
 SIGNATURES = {
     "visit_run": [I32] + [PTR] * 4 + [I32] * 5,
+    "visit_tf32": [PTR] * 5 + [I32] * 6,
     "visit_dot": [I32] + [PTR] * 3 + [I32] * 2,
     "visit_relayout": [PTR] * 2 + [I32] * 2,
     "visit_floor": [I32] * 3}
@@ -341,31 +361,59 @@ def _aligned(**tensors: torch.Tensor) -> None:
                              f"kernel, its data_ptr is {x.data_ptr():#x}")
 
 
-def ring_stages(tt: int, tile: str, layout: str = "ray") -> int:
-    """Slots of the ring of tiles of the fp32 min visit (layout "ray") or
-    of the lane visit, as the launchers choose them: as many as fit
-    RING_BUDGET beside the kernel's other shared memory (MIN_FIXED,
-    LANE_FIXED), so that two blocks stay resident on an SM, at most
-    MAX_STAGES, at least the one it cannot do without; the static tile is
-    brought in once and needs one.  (A batched step goes through the ring
-    as 8 visits of one tile.)"""
+def _ring_kernel(layout: str, reduce: str, precision: str
+                 ) -> Tuple[int, int, int]:
+    """(shared memory beside the ring, least slots, most slots) of a visit
+    kernel.  The MT visit refills a slot a visit after it was left, so
+    it needs two."""
+    if layout == "lane":
+        return LANE_FIXED, 1, MAX_STAGES
+    if reduce == "mt":
+        return MT_FIXED, 2, MAX_STAGES
+    if precision == "default":
+        return TF32_FIXED, 1, TF32_STAGES
+    return MIN_FIXED, 1, MAX_STAGES
+
+
+def _width(tt: int, precision: str) -> int:
+    """Columns of a tile in a visit kernel's ring: TT, or for the TF32
+    visit TT padded to whole wgmma steps of TF32_N (with copies of the
+    last triangle, which leave a min as it was)."""
+    return -(-tt // TF32_N) * TF32_N if precision == "default" else tt
+
+
+def ring_stages(tt: int, tile: str, layout: str = "ray",
+                reduce: str = "min", precision: str = "highest") -> int:
+    """Slots of the ring of tiles of a visit kernel, as the launchers
+    choose them: as many as fit RING_BUDGET beside the kernel's other
+    shared memory (MIN_FIXED, LANE_FIXED, MT_FIXED, TF32_FIXED), so that
+    two blocks stay resident on an SM, at most MAX_STAGES (TF32_STAGES for
+    the TF32 visit), at least the ones it cannot do without (`_ring_kernel`);
+    the static tile is brought in once and needs one.  (A batched step
+    goes through the ring as 8 visits of one tile.)  first8 has no ring."""
     if tile == "static":
         return 1
-    fixed = LANE_FIXED if layout == "lane" else MIN_FIXED
-    return max(1, min(MAX_STAGES, (RING_BUDGET - fixed) // (K * tt * 4)))
+    fixed, least, most = _ring_kernel(layout, reduce, precision)
+    slot = K * _width(tt, precision) * 4
+    return max(least, min(most, (RING_BUDGET - fixed) // slot))
 
 
 def _smem_bytes(tt: int, variant: tuple) -> int:
-    """Dynamic shared memory of the visit kernel of `variant`: for the
-    fp32 min visit and the lane visit the ring and MIN_FIXED or
-    LANE_FIXED; else the staged tile, its rows padded by 8 floats for the
-    TF32 fragments' bank pattern."""
+    """Dynamic shared memory of the visit kernel of `variant`: the ring
+    and the kernel's other shared memory; first8's, the staged tile."""
     tile, reduce, layout, precision = variant
-    if layout == "lane":
-        return ring_stages(tt, tile, layout) * K * tt * 4 + LANE_FIXED
-    if (reduce, layout, precision) == ("min", "ray", "highest"):
-        return ring_stages(tt, tile) * K * tt * 4 + MIN_FIXED
-    return K * (tt + (8 if precision == "default" else 0)) * 4
+    if reduce == "first8":
+        return K * tt * 4
+    return (ring_stages(tt, tile, layout, reduce, precision) * K
+            * _width(tt, precision) * 4
+            + _ring_kernel(layout, reduce, precision)[0])
+
+
+def tf32_packed_tiles(n_visits: int, n_tiles: int) -> int:
+    """Tiles of the TF32 visit's packed copy: the distinct tiles its
+    visits read in order, (i * 7) % n_tiles repeating every n_tiles /
+    gcd(7, n_tiles) visits, at most n_visits."""
+    return min(n_visits, n_tiles // math.gcd(7, n_tiles))
 
 
 def visit(tab: torch.Tensor, feats: torch.Tensor, *, n_visits: int,
@@ -393,9 +441,17 @@ def visit(tab: torch.Tensor, feats: torch.Tensor, *, n_visits: int,
     rows = ROWS if reduce == "first8" else 1
     t = torch.empty((blocks, rows, r), dtype=torch.float32, device=dev)
     o = torch.empty((blocks, 1, r), dtype=torch.float32, device=dev)
-    launch(_library()["visit_run"], dev,
-           VARIANTS.index(variant), tab.data_ptr(), feats.data_ptr(),
-           t.data_ptr(), o.data_ptr(), blocks, r, tt, n_tiles, n_visits)
+    if precision == "default":
+        n_packed = tf32_packed_tiles(n_visits, n_tiles)
+        packed = torch.empty((n_packed * K, _width(tt, precision)),
+                             dtype=torch.float32, device=dev)
+        launch(_library()["visit_tf32"], dev, tab.data_ptr(),
+               packed.data_ptr(), feats.data_ptr(), t.data_ptr(),
+               o.data_ptr(), blocks, r, tt, n_tiles, n_visits, n_packed)
+    else:
+        launch(_library()["visit_run"], dev,
+               VARIANTS.index(variant), tab.data_ptr(), feats.data_ptr(),
+               t.data_ptr(), o.data_ptr(), blocks, r, tt, n_tiles, n_visits)
     launches["visit/" + variant_name(*variant)] += 1
     shape = (blocks, ROWS, r)
     return t.expand(shape), o.expand(shape)

@@ -8,7 +8,9 @@ Runs: every distinct visit run of the three probes (the seven variants;
 the fp32 min visit also at TT = 512 and at 512 visits), the dot in both
 precisions and the relayout loop.  Each tree's kernels must equal the
 plain versions (fp32 bit for bit, TF32 within visit.TF32_KERNEL_BOUND of
-the sum of the products' magnitudes), or the script exits 1.  The visits
+the sum of the products' magnitudes): where this tree's do not, the
+script exits 1; a `--parent` whose do not is named and left out of the
+timing.  The visits
 are timed by CUDA events over 20 back-to-back launches into outputs
 allocated once; the dot, the relayout and the empty launch of their grid
 (`visit_floor`, where the tree has it) by their device time under
@@ -20,7 +22,10 @@ round.  The card's name and power limit are printed with the table.
 instance `git archive <commit> | tar -x -C build/parent`: its
 `raytracingrenderer_tpu_torch/csrc/visit_kernel.cu` is built beside this
 tree's and launched through this tree's wrappers' signatures, so both
-are timed in one call on one card.
+are timed in one call on one card.  A source with `visit_tf32` runs the
+TF32 visit through it (its packed copy of the tiles made inside the
+timed call, into scratch allocated once); one without, through
+`visit_run`.
 """
 from __future__ import annotations
 
@@ -63,8 +68,10 @@ def load(tree):
     tree's); a revision that lacks `visit_floor` is bound without it."""
     src = None if tree is None else Path(tree).resolve() / SOURCE
     sigs = dict(visit.SIGNATURES)
-    if src is not None and "visit_floor" not in src.read_text():
-        del sigs["visit_floor"]
+    text = "" if src is None else src.read_text()
+    for name in ("visit_floor", "visit_tf32"):
+        if src is not None and f'extern "C" int {name}(' not in text:
+            del sigs[name]
     return bind("visit_kernel", sigs, src)
 
 
@@ -100,10 +107,21 @@ def visit_case(name, cfg, dev):
             tab, feats, n_visits=cfg["n_visits"], n_tiles=cfg["n_tiles"],
             tile=cfg["tile"], layout=cfg["layout"])[:, :1]
 
+    n_packed = visit.tf32_packed_tiles(cfg["n_visits"], cfg["n_tiles"])
+    packed = torch.empty((n_packed * visit.K,
+                          visit._width(cfg["tt"], cfg["precision"])),
+                         device=dev)
+
     def call(lib):
-        launch(lib["visit_run"], dev, visit.VARIANTS.index(variant),
-               tab.data_ptr(), feats.data_ptr(), t.data_ptr(), o.data_ptr(),
-               blocks, r, cfg["tt"], cfg["n_tiles"], cfg["n_visits"])
+        if cfg["precision"] == "default" and "visit_tf32" in lib:
+            launch(lib["visit_tf32"], dev, tab.data_ptr(), packed.data_ptr(),
+                   feats.data_ptr(), t.data_ptr(), o.data_ptr(), blocks, r,
+                   cfg["tt"], cfg["n_tiles"], cfg["n_visits"], n_packed)
+        else:
+            launch(lib["visit_run"], dev, visit.VARIANTS.index(variant),
+                   tab.data_ptr(), feats.data_ptr(), t.data_ptr(),
+                   o.data_ptr(), blocks, r, cfg["tt"], cfg["n_tiles"],
+                   cfg["n_visits"])
 
     def check():
         if not torch.equal(o, op):
@@ -186,16 +204,21 @@ def main() -> None:
     cases = ([visit_case(n, cfg, dev) for n, cfg in visit_runs()]
              + [dot_case("highest", dev), dot_case("default", dev),
                 relayout_case(dev)] + floor_cases(dev))
-    for tree, lib in libs.items():
+    for tree, lib in list(libs.items()):
         for c in cases:
             for x in c.outs:
                 x.fill_(float("nan"))
             c.call(lib)
             torch.cuda.synchronize()
             fault = c.check()
-            if fault:
+            if fault and tree == "this tree":
                 sys.exit(f"{tree}: {c.name}: {fault} against the plain "
                          f"version")
+            if fault:
+                print(f"{tree}: {c.name}: {fault} against the plain "
+                      f"version; left out", flush=True)
+                del libs[tree]
+                break
     print(f"every kernel of {list(libs)} agrees with its plain version",
           flush=True)
     times = {c.name: {t: float("inf") for t in libs} for c in cases}

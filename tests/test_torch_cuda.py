@@ -32,7 +32,9 @@ and dot within visit.TF32_KERNEL_BOUND of the sum of the products'
 magnitudes; the fp32 min visit also at the shapes its partition could
 break (TT 32 to 512, 0 to 64 visits, 1 and 64 tiles, 128 and 4096 rays)
 and launched back to back on a side stream; the lane visit at 0 to 64
-visits, 1 and 64 tiles, 128 and 4096 rays, 1 and 8 blocks; the fp32 dot
+visits, 1 and 64 tiles, 128 and 4096 rays, 1 and 8 blocks; the MT visit
+(bit for bit) and the TF32 visit at TT 32 to 512, 0 to 64 visits, 1 and
+64 tiles, 128 and 4096 rays; the fp32 dot
 at TT 16, 48 and 128 and R 128 and 4096; a refused launch raises and
 leaves no error behind; a launch with the tensors' device already
 current, or on a side stream, stays correct; binary walks back to back
@@ -444,6 +446,42 @@ def test_visit_lane_kernel_edge_shapes(cuda, n_visits, n_tiles, r, blocks):
     assert visit.launches["visit/dynamic-min-lane-highest"] == before + 1
     tp, op = visit.visit_plain(tab, feats, **kw)
     assert torch.equal(tk, tp) and torch.equal(ok, op)
+
+
+MT_TF32_SHAPES = [(tt, n_visits, n_tiles, r)
+                  for tt in (32, 96, 128, 512)
+                  for n_visits in (0, 1, 2, 7, 64)
+                  for n_tiles in (1, 64)
+                  for r in (128, 4096)]
+
+
+@pytest.mark.parametrize("tt,n_visits,n_tiles,r", MT_TF32_SHAPES)
+def test_visit_mt_and_tf32_kernels_edge_shapes(cuda, tt, n_visits, n_tiles,
+                                               r):
+    """The MT visit bit for bit, and the TF32 visit within
+    visit.TF32_KERNEL_BOUND, where their partitions could break: a warp
+    with no group of triangles or several, a ring never, partly or often
+    refilled, one tile visited every time (the TF32 visit's packed copy of
+    one tile), one block of rays or many."""
+    g = np.random.default_rng(tt + n_visits + n_tiles)
+    tab = torch.from_numpy(g.normal(size=(n_tiles * 16, tt)).astype(
+        np.float32)).to(cuda)
+    feats = torch.from_numpy(g.normal(size=(2 * 16, r)).astype(
+        np.float32)).to(cuda)
+    kw = dict(n_visits=n_visits, n_tiles=n_tiles)
+    tk, ok = visit.visit(tab, feats, reduce="mt", **kw)
+    torch.cuda.synchronize()
+    tp, op = visit.visit_plain(tab, feats, reduce="mt", **kw)
+    assert torch.equal(tk, tp) and torch.equal(ok, op)
+    tk, ok = visit.visit(tab, feats, precision="default", **kw)
+    torch.cuda.synchronize()
+    tp, op = visit.visit_plain(tab, feats, precision="default", **kw)
+    assert torch.equal(ok, op)
+    if n_visits == 0:
+        assert (tk == visit.BIG).all() and torch.equal(tk, tp)
+    else:
+        scale = visit.visit_tf32_scale(tab, feats, **kw)
+        assert ((tk - tp).abs() <= visit.TF32_KERNEL_BOUND * scale).all()
 
 
 def test_visit_min_kernel_back_to_back_on_a_side_stream(cuda):

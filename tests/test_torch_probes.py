@@ -29,8 +29,17 @@ kernel's parity, run.  So is a model of the lane visit's kernel
 (visit_lane_kernel: lane l of a warp on columns 4l .. 4l + 3 of every
 tile, a running min of each of the warp's 16 rays in every lane across
 the visits, one butterfly of 5 steps after the last, the tiles through
-the ring).  `_smem_bytes` is held to `visit`'s refusal, and the probes'
-operation count to the numbers written by hand."""
+the ring).  So is one of the MT visit's (visit_mt_kernel: 2 rays a
+thread, groups of 4 triangles over 8 warps, the tb-free terms of the
+test first, the warps' partial best t exchanged once a visit through two
+buffers and their barriers' parities, the ring refilled after the
+exchange), at 80 shapes; with one-hot features a planted hit that a
+warp-private best would take and the plain version rejects shows the
+exchange is needed.  A model of the TF32 visit's accumulation (two k8
+steps, each 8 exact products and the accumulator aligned, truncated and
+rounded once) stays within TF32_KERNEL_BOUND of `visit_plain`.
+`_smem_bytes` is held to `visit`'s refusal, and the probes' operation
+count to the numbers written by hand."""
 import functools
 import importlib.util
 import os
@@ -528,27 +537,245 @@ def test_lane_model_ring_holds_each_visit_in_its_slot():
         wait(3)
 
 
+class _Arrivals(_Barrier):
+    """An mbarrier that completes its phase when `count` arrivals have
+    come (the MT visit's exchange: one a warp)."""
+
+    def __init__(self, count):
+        super().__init__()
+        self.count, self.arrived = count, 0
+
+    def arrive(self):
+        self.arrived += 1
+        if self.arrived == self.count:
+            self.arrived = 0
+            self.complete()
+
+
+def _mt_model(tab, feats, n_visits, n_tiles, exchange=True):
+    """visit_mt_kernel's partition in torch -> t (blocks, R): per block of
+    MT_SPAN rays (MT_RAYS consecutive rays a thread, which the float2s of
+    the exchange and of the last write keep in order), warp w on the groups
+    of 4 triangles w, w + MT_WARPS, ...; each group's sums quarter by
+    quarter, the terms of the test that need no best t run first (st
+    where > 0, ad where the others hold, NaN elsewhere), then `st < tb *
+    ad` against the best t before the visit; each warp's partial best of
+    visit i into buffer i & 1 of the exchange and an arrival on its
+    barrier, the partials folded at visit i + 1 after the first group's
+    sums (parity (i >> 1) & 1); the ring's slot of visit i - 1 refilled
+    once that exchange passed.  `exchange=False` keeps a private best a
+    warp instead, folded after the last visit: what the kernel must not
+    do."""
+    blocks, r = feats.shape[0] // 16, feats.shape[1]
+    tt = tab.shape[1]
+    q, warps = tt // 4, visit.MT_WARPS
+    stages = visit.ring_stages(tt, "dynamic", reduce="mt")
+    assert stages >= 2 and r % visit.MT_SPAN == 0
+    visits = [s[0] for s in visit.tile_steps(n_visits, n_tiles, "dynamic")]
+    ring, held = [None] * stages, [None] * stages
+    full = [_Barrier() for _ in range(stages)]
+
+    def load(j):
+        ring[j % stages] = tab[visits[j] * 16:(visits[j] + 1) * 16]
+        held[j % stages] = j
+        full[j % stages].complete()
+
+    for j in range(min(stages, len(visits))):
+        load(j)
+    f = feats.view(blocks, 16, r)
+    warp_of = torch.arange(q) // 4 % warps       # a triangle's warp
+    xch = [[None] * warps, [None] * warps]
+    xbar = [_Arrivals(warps), _Arrivals(warps)]
+
+    def exchanged(x):
+        assert xbar[x & 1].passes((x >> 1) & 1)
+        return torch.stack(xch[x & 1], 1).amin(1)
+
+    nan = torch.tensor(float("nan"))
+    tb = torch.full((blocks, r), visit.BIG)
+    own = torch.full((blocks, warps, r), visit.BIG)
+    for i in range(len(visits)):
+        s, parity = i % stages, (i // stages) & 1
+        assert full[s].passes(parity) and held[s] == i
+        det, tdet, udet, vdet = (visit._contract(ring[s][:, h * q:(h + 1) * q],
+                                                 f) for h in range(4))
+        sgn = torch.where(det < 0.0, -1.0, 1.0)
+        ad, su, sv, st = det * sgn, udet * sgn, vdet * sgn, tdet * sgn
+        ok = ((ad >= visit.DET_EPS) & (su >= 0.0) & (sv >= 0.0)
+              & (su + sv <= ad))
+        ad, st = torch.where(ok, ad, nan), torch.where(st > 0.0, st, nan)
+        if i > 0:
+            tb = exchanged(i - 1)
+            if i - 1 + stages < len(visits):
+                load(i - 1 + stages)
+        for w in range(warps):
+            best = tb if exchange else own[:, w]
+            mine = warp_of == w
+            hit = st[:, mine] < best[:, None] * ad[:, mine]
+            cand = torch.where(hit, st[:, mine] / torch.where(
+                hit, ad[:, mine], 1.0), visit.BIG)
+            m = torch.minimum(best, cand.amin(1)) if mine.any() else best
+            own[:, w] = m
+            xch[i & 1][w] = m
+            xbar[i & 1].arrive()
+    if visits:
+        tb = exchanged(len(visits) - 1)
+    return tb if exchange else own.amin(1)
+
+
+MT_CASES = [(tt, n_visits, n_tiles, r)
+            for tt in (32, 96, 128, 512)
+            for n_visits in (0, 1, 2, 7, 64)
+            for n_tiles in (1, 64)
+            for r in (128, 4096)]
+
+
+@pytest.mark.parametrize("tt,n_visits,n_tiles,r", MT_CASES)
+def test_mt_partition_model_equals_plain(tt, n_visits, n_tiles, r):
+    """The MT visit's partition, bit for bit, where it could break: a
+    warp with no group (TT 32, 96), one (128) or four (512); a ring never,
+    partly or often refilled; one tile visited every time."""
+    g = np.random.default_rng(tt + n_visits + n_tiles)
+    tab = torch.from_numpy(g.normal(size=(n_tiles * 16, tt)).astype(
+        np.float32))
+    feats = torch.from_numpy(g.normal(size=(2 * 16, r)).astype(np.float32))
+    want, _ = visit.visit_plain(tab, feats, n_visits=n_visits,
+                                n_tiles=n_tiles, reduce="mt")
+    got = _mt_model(tab, feats, n_visits, n_tiles)
+    assert torch.equal(got, want[:, 0])
+    assert (got < visit.BIG).any() if n_visits else (got == visit.BIG).all()
+
+
+def _planted_hit():
+    """(tb, ad, st) in float32 with st == fl(tb * ad), so that `st < tb *
+    ad` rejects it, and fl(st / ad) < tb: the hit a warp-private best
+    would take.  The first of a numpy search."""
+    g = np.random.default_rng(5)
+    while True:
+        tb, ad = g.uniform(0.5, 4.0, size=2).astype(np.float32)
+        st = np.float32(tb * ad)
+        if np.float32(st / ad) < tb:
+            return tb, ad, st
+
+
+def test_mt_exchange_planted_case():
+    """One-hot features make the contraction return row 0 of the tile.
+    Visit 0 (tile 0) gives every ray a hit at tb on triangle 0, warp 0's;
+    visit 1 (tile 1) offers triangle 4, warp 1's, with st == fl(tb * ad)
+    and fl(st / ad) one ulp below tb.  The plain version rejects it; the
+    model with the exchange does too, and a warp-private best (BIG in
+    warp 1 after visit 0) takes it."""
+    tb, ad, st = _planted_hit()
+    tab = np.zeros((2 * 16, 128), np.float32)
+    tab[0, [0, 32]] = 1.0, tb                  # det, tdet of triangle 0
+    tab[16, [4, 36]] = ad, st                  # of triangle 4, in tile 1
+    feats = np.zeros((16, 4096), np.float32)
+    feats[0] = 1.0
+    tab, feats = torch.from_numpy(tab), torch.from_numpy(feats)
+    want, _ = visit.visit_plain(tab, feats, n_visits=2, n_tiles=2,
+                                reduce="mt")
+    assert (want[:, 0] == torch.tensor(tb)).all()
+    got = _mt_model(tab, feats, 2, 2)
+    assert torch.equal(got, want[:, 0])
+    private = _mt_model(tab, feats, 2, 2, exchange=False)
+    assert (private == torch.tensor(np.float32(st / ad))).all()
+    assert (private < want[:, 0]).all()
+
+
+def test_mt_ring_needs_two_slots():
+    """The MT visit refills visit i - 1's slot at visit i, after the
+    exchange: with one slot, visit i would wait on a tile not yet asked
+    for.  Its launcher keeps two where the budget holds one."""
+    fixed, least, most = visit._ring_kernel("ray", "mt", "highest")
+    assert least == 2
+    for tt in (1024, 1536):
+        assert (visit.RING_BUDGET - fixed) // (16 * tt * 4) < 2
+        assert visit.ring_stages(tt, "dynamic", reduce="mt") == 2
+
+
+def _tf32_step(terms):
+    """One k8 step of the tensor cores as TF32_KERNEL_BOUND models it:
+    terms (exact products and the accumulator, float64, stacked on dim 0)
+    aligned to the largest with the bits below fp32's 24 truncated, summed
+    exactly and rounded once to fp32."""
+    big = terms.abs().amax(0)
+    _, e = torch.frexp(big)
+    ulp = torch.ldexp(torch.ones_like(big), e - 24)
+    return (torch.trunc(terms / ulp) * ulp).sum(0).float()
+
+
+def _tf32_model(tab, feats, n_visits, n_tiles):
+    """visit_tf32_kernel's arithmetic in torch -> t (blocks, R): both
+    operands rounded to TF32, their products exact, K = 16 as two k8
+    steps (the first without an accumulator, wgmma's scale-d = 0; the
+    second on the first's fp32 result), then the running min."""
+    blocks, r = feats.shape[0] // 16, feats.shape[1]
+    a = visit.tf32_round(tab).double()
+    f = visit.tf32_round(feats).double().view(blocks, 16, r)
+    t = torch.full((blocks, r), visit.BIG)
+    for (j,) in visit.tile_steps(n_visits, n_tiles, "dynamic"):
+        prods = a[j * 16:(j + 1) * 16][None, :, :, None] * f[:, :, None, :]
+        d = _tf32_step(prods[:, :8].transpose(0, 1))
+        d = _tf32_step(torch.cat([d.double()[None],
+                                  prods[:, 8:].transpose(0, 1)]))
+        t = torch.minimum(t, d.amin(1))
+    return t
+
+
+@pytest.mark.parametrize("tt,n_visits,n_tiles,r",
+                         [(32, 1, 1, 128), (128, 7, 64, 128),
+                          (96, 2, 64, 256), (128, 16, 16, 128)])
+def test_tf32_model_within_kernel_bound(tt, n_visits, n_tiles, r):
+    """The TF32 visit's accumulation order, modelled, stays within
+    TF32_KERNEL_BOUND of `visit_plain` (a left-to-right fp32 sum of the
+    same products), in units of the largest sum |a f| a ray's min took;
+    the two orders do differ."""
+    g = np.random.default_rng(tt + n_visits)
+    tab = torch.from_numpy(g.normal(size=(n_tiles * 16, tt)).astype(
+        np.float32))
+    feats = torch.from_numpy(g.normal(size=(2 * 16, r)).astype(np.float32))
+    kw = dict(n_visits=n_visits, n_tiles=n_tiles, precision="default")
+    want, _ = visit.visit_plain(tab, feats, **kw)
+    got = _tf32_model(tab, feats, n_visits, n_tiles)
+    scale = visit.visit_tf32_scale(tab, feats, n_visits=n_visits,
+                                   n_tiles=n_tiles)[:, 0]
+    ratio = (got - want[:, 0]).abs() / scale
+    assert ratio.max() <= visit.TF32_KERNEL_BOUND
+    assert ratio.max() > 0
+
+
 @pytest.mark.parametrize("variant", visit.VARIANTS,
                          ids=[visit.variant_name(*v) for v in visit.VARIANTS])
 def test_smem_bytes_follow_the_refusal(variant, monkeypatch):
     """`visit` on a CUDA tensor raises on shared memory exactly where
     `_smem_bytes` passes SMEM_MAX; below it, it goes on to the launch
-    (here stopped at the library, which a CPU machine cannot build)."""
+    (here stopped at the library, which a CPU machine cannot build).
+    Every kernel but first8 has a ring: its slots fill RING_BUDGET beside
+    the kernel's other shared memory, between the least it needs and the
+    most it takes; the TF32 visit's slots hold tiles padded to whole
+    wgmma steps."""
     tile, reduce, layout, precision = variant
-    for tt in (32, 96, 128, 512, 1024, 2048, 3552, 3616, 3648, 4096):
+    for tt in (32, 96, 128, 512, 1024, 1728, 1760, 2048, 3552, 3616, 3648,
+               4096):
         if layout == "lane" and tt != visit.LANE_TT:
             continue
         need = visit._smem_bytes(tt, variant)
-        if layout == "lane" or (reduce, precision) == ("min", "highest"):
-            step = 16 * tt * 4
-            stages = visit.ring_stages(tt, tile, layout)
-            fixed = visit.LANE_FIXED if layout == "lane" else visit.MIN_FIXED
-            assert need == stages * step + fixed
-            assert stages == 1 or need <= visit.RING_BUDGET
-            assert stages == (1 if tile == "static" else visit.MAX_STAGES) \
-                or (stages + 1) * step + fixed > visit.RING_BUDGET
+        step = 16 * visit._width(tt, precision) * 4
+        if reduce == "first8":
+            assert need == step
         else:
-            assert need == 16 * (tt + 8 * (precision == "default")) * 4
+            fixed, least, most = visit._ring_kernel(layout, reduce,
+                                                    precision)
+            stages = visit.ring_stages(tt, tile, layout, reduce,
+                                       precision)
+            assert need == stages * step + fixed
+            if tile == "static":
+                assert stages == 1
+            else:
+                assert least <= stages <= most
+                assert stages == least or need <= visit.RING_BUDGET
+                assert stages == most \
+                    or (stages + 1) * step + fixed > visit.RING_BUDGET
         tab = torch.zeros((8 * 16, tt), device="meta")
         feats = torch.zeros((16, 128), device="meta")
 
@@ -566,13 +793,21 @@ def test_smem_bytes_follow_the_refusal(variant, monkeypatch):
                            if need > visit.SMEM_MAX else None):
             visit.visit(tab, feats, n_visits=8, n_tiles=8, tile=tile,
                         reduce=reduce, layout=layout, precision=precision)
-    # the probes' sizes: three slots, two blocks an SM
+    # the probes' sizes: three slots (the TF32 visit eight), two blocks an
+    # SM; the MT visit keeps two slots where the budget holds one
     assert visit.ring_stages(128, "dynamic") == 3
     assert visit.ring_stages(512, "dynamic") == 3
     assert visit.ring_stages(128, "batched8") == 3
     assert visit.ring_stages(1024, "dynamic") == 1
     assert visit.ring_stages(128, "dynamic", "lane") == 3
-    for v, tt in ((0, 128), (0, 512), (6, 128), (5, 128)):
+    assert visit.ring_stages(128, "dynamic", reduce="mt") == 3
+    assert visit.ring_stages(1024, "dynamic", reduce="mt") == 2
+    assert visit.ring_stages(128, "dynamic", precision="default") == 8
+    assert visit.ring_stages(512, "dynamic", precision="default") == 3
+    assert [visit._width(tt, "default") for tt in (32, 128, 160, 512)] \
+        == [128, 128, 256, 512]
+    for v, tt in ((0, 128), (0, 512), (6, 128), (5, 128), (2, 128),
+                  (2, 512), (1, 128), (1, 512)):
         assert 2 * (visit._smem_bytes(tt, visit.VARIANTS[v]) + 1024) \
             <= 228 * 1024
 
