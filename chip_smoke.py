@@ -964,10 +964,11 @@ def check_visit_edges(torch):
 def check_mt_tf32_edges(torch):
     """The MT visit against its plain version bit for bit, and the TF32
     visit within visit.TF32_KERNEL_BOUND, at the shapes their partitions
-    could break: TT 32, 96, 128 and 512 (a warp with no group of 4
+    could break: TT 32, 96, 128 and 512 (a lane with no group of 4
     triangles, one or four; 1 to 4 wgmma steps a visit), 0, 1, 2, 7 and
     64 visits (a ring never, partly or often refilled; the MT visit's
-    exchange never used), 1 and 64 tiles, 128 and 4096 rays.  -> the
+    exchange of the best t never used), 1 and 64 tiles, 128 and 4096
+    rays.  -> the
     number of shapes checked, and the TF32 visit's largest |dt| over sum
     |a f|."""
     import numpy as np

@@ -81,24 +81,27 @@
 // ray's best t as it stood before the visit.  Its operations bound it as
 // the min visit's do (2 x 16 a column, 15 a triangle), and its first design,
 // one ray a thread and the tile staged by the whole block between two
-// barriers, reached 56% of that issue floor.  Now it takes the min visit's
-// shape, with one thing added:
-//   - 2 rays a thread, 8 warps over the same 64 rays, warp w on the groups
-//     of 4 triangles w, w + 8, ...: a float4 of a quarter feeds 16
-//     instructions; the tiles come through the ring of bulk copies.  (4
-//     rays a thread, as the min visit has, need more than 128 registers:
-//     spilled at two blocks an SM, or one block an SM, both slower; the
-//     times are in PERF.md.)
-//   - A warp-private best t would not be exact: a warp whose own best is
-//     above the ray's can accept a hit with st == fl(tb ad) that the plain
-//     version rejects, and fl(st / ad) may be an ulp below tb.  So the
-//     warps exchange their partial bests through shared memory once a visit
-//     (two buffers and two mbarriers, arrive and wait split), and each
-//     holds visit i against the best after visit i - 1.  Only `st < tb ad`
-//     needs tb: a warp contracts its first group of visit i and runs every
-//     other term of the test before it waits for visit i - 1's exchange.
+// barriers, reached 56% of that issue floor.  Now:
+//   - 2 rays a thread: a float4 of a quarter (4 triangles) feeds 16
+//     instructions.  (4 rays a thread, as the min visit has, need more than
+//     128 registers: spilled at two blocks an SM, or one block an SM, both
+//     slower; the times are in PERF.md.)
+//   - A warp takes 8 rays and all the tile's triangles: lane l on rays 2 (l
+//     % 4), + 1 and the groups of 4 triangles l / 4, l / 4 + 8, ...  The
+//     tiles come through the min visit's ring of bulk copies; a warp leaves
+//     a slot after its last group.
+//   - A best t private to a lane would not be exact: a lane whose own best
+//     is above the ray's can accept a hit with st == fl(tb ad) that the
+//     plain version rejects, and fl(st / ad) may be an ulp below tb.  So
+//     after each visit the 8 lanes of a ray take the min of their partial
+//     bests (a butterfly of 3 shuffles), and every lane holds the next
+//     visit against the same best.  The exchange stays inside a warp: no
+//     barrier between warps stands in the loop.  (Warps splitting the
+//     triangles, with the bests exchanged through shared memory on
+//     mbarriers, ran 1.5% slower.)
 //   - The sums of a group go quarter by quarter (det, udet, vdet, tdet),
-//     which keeps 48 sums live, not 64; the division runs on a hit only.
+//     which keeps 48 sums live, not 64; the terms of the test that need no
+//     best t run first, and the division runs on a hit only.
 // The TF32 visit (visit_tf32_kernel, precision "default", reduce "min")
 // runs its contraction on wgmma, the only path to the tensor cores' 495
 // TFLOP/s, and its min (one a column, 268 M at the probes' size, about half
@@ -411,17 +414,15 @@ visit_min_kernel(const float* __restrict__ tab,
 }
 
 // --------------------------------------------------------- the MT visit (P1a)
-constexpr int kMtWarps = 8;    // warps of a block: the triangle slices
+constexpr int kMtWarps = 8;    // warps of a block, each on rays of its own
 constexpr int kMtThreads = 32 * kMtWarps;
 constexpr int kMtRays = 2;     // consecutive rays a thread
-constexpr int kMtSpan = 32 * kMtRays;  // rays of a block
+constexpr int kMtWarpRays = 4 * kMtRays;         // rays of a warp: 4 slots
+constexpr int kMtSpan = kMtWarps * kMtWarpRays;  // rays of a block
 constexpr int kMtTris = 4;     // triangles of a group: a float4 a quarter
-// shared memory beside the ring: the exchange (2 buffers of each warp's
-// partial best t of the block's rays), the full barriers and the
-// exchange's two
-constexpr int kMtFixed = 2 * kMtWarps * kMtSpan * 4 + (kMaxStages + 2) * 8;
+constexpr int kMtFixed = 2 * kMaxStages * 8;  // the full and empty barriers
 static_assert(kSpan % kMtSpan == 0, "ops/visit.py checks R against SPAN");
-static_assert(kMtRays == 2, "a thread's rays are one float2 of the exchange");
+static_assert(kMtRays == 2, "a thread's rays are written as one float2");
 
 // The kMtTris floats of a group at p, one float4 load.
 __device__ __forceinline__ void ld_tris(float (&v)[kMtTris],
@@ -517,22 +518,9 @@ __device__ __forceinline__ void mt_hits(float (&m)[kMtRays],
 }
 
 // Dynamic shared memory: the ring (`stages` slots of one tile as it lies in
-// the table; visit i in slot i % stages with parity (i / stages) & 1, as in
-// visit_min_kernel), the exchange xch[2][kMtWarps][32] float2 (a thread's
-// partial best t of its 2 rays), then the barriers full[kMaxStages] and
-// xbar[2].  The tile's q = tt / 4 triangles are taken in groups of 4 (a
-// float4 of each quarter); warp w takes groups w, w + kMtWarps, ...  Every
-// warp holds visit i against the same best t, the one the warps' partial
-// bests of visit i - 1 give: a warp writes its partial bests of visit i
-// into xch[i & 1] and arrives on xbar[i & 1]; at visit i + 1 it contracts
-// its first group, and only then waits on xbar[i & 1] (parity (i >> 1) & 1)
-// and takes the min of the kMtWarps partials.  A warp writes xch[i & 1]
-// again at visit i + 2, after every warp has arrived for visit i + 1, which
-// each does after its read of visit i's.  Each warp arrives on the exchange
-// after its last read of the visit's slot, so the exchange also tells the
-// producer thread that visit i - 1's slot is free: it refills that slot at
-// visit i, and no warp waits on the producer's wait.  Visit i's tile was
-// asked for at visit i - stages + 1 at the latest: the ring needs 2 slots.
+// the table; visit i in slot i % stages with parity (i / stages) & 1), then
+// the barriers full[kMaxStages] and empty[kMaxStages], as in
+// visit_min_kernel.
 __global__ void __launch_bounds__(kMtThreads, 2)
 visit_mt_kernel(const float* __restrict__ tab,
                 const float* __restrict__ feats, float* __restrict__ t_out,
@@ -541,16 +529,16 @@ visit_mt_kernel(const float* __restrict__ tab,
   extern __shared__ float4 smem4[];
   float* ring = reinterpret_cast<float*>(smem4);
   const int tile_floats = kK * tt;
-  float2* xch = reinterpret_cast<float2*>(ring + static_cast<size_t>(stages) *
-                                                     tile_floats);
-  const uint32_t ring_a = smem_addr(ring);
-  const uint32_t full_a = smem_addr(xch + 2 * kMtWarps * 32);
-  const uint32_t xbar_a = full_a + 8 * kMaxStages;
   const uint32_t tile_bytes = static_cast<uint32_t>(tile_floats) * 4;
+  const uint32_t ring_a = smem_addr(ring);
+  const uint32_t full_a = ring_a + stages * tile_bytes;
+  const uint32_t empty_a = full_a + 8 * kMaxStages;
   const int b = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int ray0 = blockIdx.x * kMtSpan;
+  const int first = lane >> 2;  // the lane's first group of triangles
+  const int ray0 =
+      blockIdx.x * kMtSpan + warp * kMtWarpRays + (lane & 3) * kMtRays;
   const bool producer = threadIdx.x == 0;
 
   const auto load_tile = [&](int j) {  // the tile of visit j
@@ -561,9 +549,10 @@ visit_mt_kernel(const float* __restrict__ tab,
               tile_bytes, full_a + 8 * s);
   };
   if (producer) {
-    for (int s = 0; s < stages; ++s) mbar_init(full_a + 8 * s, 1);
-    mbar_init(xbar_a, kMtWarps);
-    mbar_init(xbar_a + 8, kMtWarps);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full_a + 8 * s, 1);
+      mbar_init(empty_a + 8 * s, kMtWarps);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -571,11 +560,10 @@ visit_mt_kernel(const float* __restrict__ tab,
     for (int j = 0; j < stages && j < n_visits; ++j) load_tile(j);
   }
 
-  // the features of rays ray0 + kMtRays lane .. + kMtRays - 1
+  // the features of rays ray0, ray0 + 1, while the first tiles arrive
   float f[kMtRays][kK];
   {
-    const float* fb =
-        feats + static_cast<size_t>(b) * kK * r + ray0 + kMtRays * lane;
+    const float* fb = feats + static_cast<size_t>(b) * kK * r + ray0;
 #pragma unroll
     for (int k = 0; k < kK; ++k) {
 #pragma unroll
@@ -586,60 +574,48 @@ visit_mt_kernel(const float* __restrict__ tab,
   }
   const int q = tt / 4;
   const int groups = q / kMtTris;  // tt % 32 == 0: q is a multiple of 8
-  // the best t before the visit, the same in every warp
+  // the best t before the visit, the same in the 8 lanes of a ray
   float tb[kMtRays] = {kBig, kBig};
-  // the block's best t after visit x, from the warps' partials
-  const auto exchanged = [&](int x) {
-    mbar_wait(xbar_a + 8 * (x & 1), (x >> 1) & 1);
-    const float2* p = xch + (x & 1) * kMtWarps * 32 + lane;
-    float2 v = p[0];
-#pragma unroll
-    for (int w = 1; w < kMtWarps; ++w) {
-      const float2 u = p[w * 32];
-      v = make_float2(fminf(v.x, u.x), fminf(v.y, u.y));
-    }
-    tb[0] = v.x;
-    tb[1] = v.y;
-  };
-
   int s = 0;             // visit i's slot, i % stages, and
   uint32_t parity = 0;   // the parity of its use of it, (i / stages) & 1
   for (int i = 0; i < n_visits; ++i) {
     mbar_wait(full_a + 8 * s, parity);
     const float* tile = ring + static_cast<size_t>(s) * tile_floats;
-    float st[kMtRays][kMtTris], ad[kMtRays][kMtTris];
-    // the first group's sums while the other warps finish visit i - 1
-    if (warp < groups) mt_group(st, ad, tile, tt, q, kMtTris * warp, f);
-    if (i > 0) {
-      exchanged(i - 1);
-      if (producer && i - 1 + stages < n_visits) {
-        // the warps' reads of visit i - 1's slot before the copy engine's
-        // writes
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        load_tile(i - 1 + stages);
-      }
-    }
     float m[kMtRays] = {tb[0], tb[1]};
-    if (warp < groups) mt_hits(m, st, ad, tb);
-    for (int g = warp + kMtWarps; g < groups; g += kMtWarps) {
+    for (int g = first; g < groups; g += 8) {
+      float st[kMtRays][kMtTris], ad[kMtRays][kMtTris];
       mt_group(st, ad, tile, tt, q, kMtTris * g, f);
       mt_hits(m, st, ad, tb);
     }
-    xch[(i & 1) * kMtWarps * 32 + warp * 32 + lane] = make_float2(m[0], m[1]);
+    // this warp has left slot s; when all have, the producer refills it
     __syncwarp();
-    if (lane == 0) mbar_arrive(xbar_a + 8 * (i & 1));
+    if (lane == 0) mbar_arrive(empty_a + 8 * s);
+    if (producer && i + stages < n_visits) {
+      mbar_wait(empty_a + 8 * s, parity);
+      // the warps' reads of the slot before the copy engine's writes
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      load_tile(i + stages);
+    }
+    // the 8 lanes of a ray (lane ^ 4, ^ 8, ^ 16) agree on its best t
+#pragma unroll
+    for (int j = 0; j < kMtRays; ++j) {
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        m[j] = fminf(m[j], __shfl_xor_sync(0xffffffffu, m[j], off));
+      }
+      tb[j] = m[j];
+    }
     if (++s == stages) {
       s = 0;
       parity ^= 1;
     }
   }
-  if (warp == 0) {
-    if (n_visits > 0) exchanged(n_visits - 1);
-    *reinterpret_cast<float2*>(t_out + static_cast<size_t>(b) * r + ray0 +
-                               kMtRays * lane) = make_float2(tb[0], tb[1]);
+  if (first == 0) {
+    *reinterpret_cast<float2*>(t_out + static_cast<size_t>(b) * r + ray0) =
+        make_float2(tb[0], tb[1]);
   }
   if (threadIdx.x < kMtSpan) {
-    write_feature_sum(feats, o_out, b, r, ray0 + threadIdx.x);
+    write_feature_sum(feats, o_out, b, r, blockIdx.x * kMtSpan + threadIdx.x);
   }
 }
 
@@ -1286,7 +1262,7 @@ extern "C" int visit_run(int variant, const float* tab, const float* feats,
     case 2:
       return launch_ring(visit_mt_kernel, dim3(r / kMtSpan, blocks),
                          kMtThreads,
-                         ring_slots(tile, kMtFixed, 2, kMaxStages), tile,
+                         ring_slots(tile, kMtFixed, 1, kMaxStages), tile,
                          kMtFixed, stream, tab, feats, t, o, r, tt, n_tiles,
                          n_visits);
     case 3:

@@ -64,10 +64,10 @@ memory (csrc/visit_kernel.cu).  The lane visit takes its tiles through
 such a ring too; each lane keeps a running min of each of its warp's
 LANE_RAYS rays over its own 4 columns of every visit, and the min across
 the lanes is taken once, after the last.  The MT visit (reduce="mt")
-has the fp32 min visit's shape (MT_RAYS rays a thread, groups of 4
-triangles split over MT_WARPS warps, the ring), and its warps exchange
-each ray's best t once a visit, so that every warp holds a visit against
-the same best.  The TF32 visit runs on wgmma through a ring of packed
+runs MT_RAYS rays a thread; the MT_LANES lanes of a ray split a tile's
+groups of 4 triangles and take the min of their bests after every visit
+(a butterfly of shuffles), so that each holds the next visit against the
+same best; its tiles come through the ring.  The TF32 visit runs on wgmma through a ring of packed
 tiles: `visit` hands its kernel a scratch copy of the visited tiles,
 rounded, K-major and padded to whole steps of TF32_N triangles
 (`tf32_packed_tiles` of them), made anew on every call.  `_smem_bytes`
@@ -101,12 +101,12 @@ LANE_RAYS = 16          # rays of a warp of it, a running min each a lane
 LANE_SPAN = LANE_WARPS * LANE_RAYS
 # its shared memory beside its ring: the block's features and the barriers
 LANE_FIXED = LANE_SPAN * K * 4 + 2 * MAX_STAGES * 8
-MT_WARPS = 8            # warps of a block of the MT visit: triangle slices
+MT_WARPS = 8            # warps of a block of the MT visit
 MT_RAYS = 2             # consecutive rays a thread of it
-MT_SPAN = 32 * MT_RAYS  # rays of a block of it
-# its shared memory beside its ring: the exchange's two buffers of each
-# warp's partial best t, the ring's full barriers and the exchange's two
-MT_FIXED = 2 * MT_WARPS * MT_SPAN * 4 + (MAX_STAGES + 2) * 8
+MT_LANES = 8            # lanes that share a ray, each on its own triangles
+MT_WARP_RAYS = 32 // MT_LANES * MT_RAYS  # rays of a warp
+MT_SPAN = MT_WARPS * MT_WARP_RAYS        # rays of a block
+MT_FIXED = 2 * MAX_STAGES * 8  # its shared memory beside its ring: barriers
 TF32_STAGES = 8         # tiles the TF32 visit's ring holds at most
 TF32_FIXED = 2 * TF32_STAGES * 8  # its shared memory beside its ring
 TF32_N = 128            # triangles of its wgmma steps: packed tiles pad to it
@@ -364,12 +364,11 @@ def _aligned(**tensors: torch.Tensor) -> None:
 def _ring_kernel(layout: str, reduce: str, precision: str
                  ) -> Tuple[int, int, int]:
     """(shared memory beside the ring, least slots, most slots) of a visit
-    kernel.  The MT visit refills a slot a visit after it was left, so
-    it needs two."""
+    kernel."""
     if layout == "lane":
         return LANE_FIXED, 1, MAX_STAGES
     if reduce == "mt":
-        return MT_FIXED, 2, MAX_STAGES
+        return MT_FIXED, 1, MAX_STAGES
     if precision == "default":
         return TF32_FIXED, 1, TF32_STAGES
     return MIN_FIXED, 1, MAX_STAGES

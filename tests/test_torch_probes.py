@@ -30,12 +30,11 @@ kernel's parity, run.  So is a model of the lane visit's kernel
 tile, a running min of each of the warp's 16 rays in every lane across
 the visits, one butterfly of 5 steps after the last, the tiles through
 the ring).  So is one of the MT visit's (visit_mt_kernel: 2 rays a
-thread, groups of 4 triangles over 8 warps, the tb-free terms of the
-test first, the warps' partial best t exchanged once a visit through two
-buffers and their barriers' parities, the ring refilled after the
-exchange), at 80 shapes; with one-hot features a planted hit that a
-warp-private best would take and the plain version rejects shows the
-exchange is needed.  A model of the TF32 visit's accumulation (two k8
+thread, the 8 lanes of a ray on groups of 4 triangles, the tb-free terms
+of the test first, the lanes' bests met in a butterfly after every
+visit, the ring), at 80 shapes; with one-hot features a planted hit that
+a best private to a lane would take and the plain version rejects shows
+the exchange is needed.  A model of the TF32 visit's accumulation (two k8
 steps, each 8 exact products and the accumulator aligned, truncated and
 rounded once) stays within TF32_KERNEL_BOUND of `visit_plain`.
 `_smem_bytes` is held to `visit`'s refusal, and the probes' operation
@@ -537,90 +536,57 @@ def test_lane_model_ring_holds_each_visit_in_its_slot():
         wait(3)
 
 
-class _Arrivals(_Barrier):
-    """An mbarrier that completes its phase when `count` arrivals have
-    come (the MT visit's exchange: one a warp)."""
-
-    def __init__(self, count):
-        super().__init__()
-        self.count, self.arrived = count, 0
-
-    def arrive(self):
-        self.arrived += 1
-        if self.arrived == self.count:
-            self.arrived = 0
-            self.complete()
-
-
 def _mt_model(tab, feats, n_visits, n_tiles, exchange=True):
-    """visit_mt_kernel's partition in torch -> t (blocks, R): per block of
-    MT_SPAN rays (MT_RAYS consecutive rays a thread, which the float2s of
-    the exchange and of the last write keep in order), warp w on the groups
-    of 4 triangles w, w + MT_WARPS, ...; each group's sums quarter by
-    quarter, the terms of the test that need no best t run first (st
-    where > 0, ad where the others hold, NaN elsewhere), then `st < tb *
-    ad` against the best t before the visit; each warp's partial best of
-    visit i into buffer i & 1 of the exchange and an arrival on its
-    barrier, the partials folded at visit i + 1 after the first group's
-    sums (parity (i >> 1) & 1); the ring's slot of visit i - 1 refilled
-    once that exchange passed.  `exchange=False` keeps a private best a
-    warp instead, folded after the last visit: what the kernel must not
-    do."""
+    """visit_mt_kernel's partition in torch -> t (blocks, R): a warp on
+    MT_WARP_RAYS rays (lane l on rays MT_RAYS (l % 4) .. + MT_RAYS - 1 of
+    its warp's, which the float2 of the last write keeps in order); the
+    MT_LANES lanes of a ray (l // 4) on the groups of 4 triangles l // 4,
+    l // 4 + MT_LANES, ...; each group's sums quarter by quarter, the
+    terms of the test that need no best t first (st where > 0, ad where
+    the others hold, NaN elsewhere), then `st < tb * ad` against the best
+    before the visit; the tiles through the ring, a slot left after the
+    visit's groups; after each visit a butterfly (lane ^ 4, ^ 8, ^ 16)
+    gives a ray's lanes the min of their bests.  `exchange=False` keeps a
+    best private to each lane instead, folded after the last visit: what
+    the kernel must not do."""
     blocks, r = feats.shape[0] // 16, feats.shape[1]
     tt = tab.shape[1]
-    q, warps = tt // 4, visit.MT_WARPS
+    q, lanes = tt // 4, visit.MT_LANES
     stages = visit.ring_stages(tt, "dynamic", reduce="mt")
-    assert stages >= 2 and r % visit.MT_SPAN == 0
+    assert r % visit.MT_SPAN == 0 and 32 // lanes * visit.MT_RAYS \
+        == visit.MT_WARP_RAYS
     visits = [s[0] for s in visit.tile_steps(n_visits, n_tiles, "dynamic")]
-    ring, held = [None] * stages, [None] * stages
-    full = [_Barrier() for _ in range(stages)]
-
-    def load(j):
-        ring[j % stages] = tab[visits[j] * 16:(visits[j] + 1) * 16]
-        held[j % stages] = j
-        full[j % stages].complete()
-
-    for j in range(min(stages, len(visits))):
-        load(j)
+    wait, leave = _ring(tab, visits, stages)
     f = feats.view(blocks, 16, r)
-    warp_of = torch.arange(q) // 4 % warps       # a triangle's warp
-    xch = [[None] * warps, [None] * warps]
-    xbar = [_Arrivals(warps), _Arrivals(warps)]
-
-    def exchanged(x):
-        assert xbar[x & 1].passes((x >> 1) & 1)
-        return torch.stack(xch[x & 1], 1).amin(1)
-
+    lane_of = torch.arange(q) // 4 % lanes       # a triangle's lane of a ray
+    other = torch.arange(lanes)
     nan = torch.tensor(float("nan"))
-    tb = torch.full((blocks, r), visit.BIG)
-    own = torch.full((blocks, warps, r), visit.BIG)
+    best = torch.full((blocks, lanes, r), visit.BIG)
     for i in range(len(visits)):
-        s, parity = i % stages, (i // stages) & 1
-        assert full[s].passes(parity) and held[s] == i
-        det, tdet, udet, vdet = (visit._contract(ring[s][:, h * q:(h + 1) * q],
+        tile = wait(i)
+        det, tdet, udet, vdet = (visit._contract(tile[:, h * q:(h + 1) * q],
                                                  f) for h in range(4))
+        leave(i)
         sgn = torch.where(det < 0.0, -1.0, 1.0)
         ad, su, sv, st = det * sgn, udet * sgn, vdet * sgn, tdet * sgn
         ok = ((ad >= visit.DET_EPS) & (su >= 0.0) & (sv >= 0.0)
               & (su + sv <= ad))
         ad, st = torch.where(ok, ad, nan), torch.where(st > 0.0, st, nan)
-        if i > 0:
-            tb = exchanged(i - 1)
-            if i - 1 + stages < len(visits):
-                load(i - 1 + stages)
-        for w in range(warps):
-            best = tb if exchange else own[:, w]
-            mine = warp_of == w
-            hit = st[:, mine] < best[:, None] * ad[:, mine]
-            cand = torch.where(hit, st[:, mine] / torch.where(
-                hit, ad[:, mine], 1.0), visit.BIG)
-            m = torch.minimum(best, cand.amin(1)) if mine.any() else best
-            own[:, w] = m
-            xch[i & 1][w] = m
-            xbar[i & 1].arrive()
-    if visits:
-        tb = exchanged(len(visits) - 1)
-    return tb if exchange else own.amin(1)
+        m = best.clone()
+        for lane in range(lanes):
+            mine = lane_of == lane
+            if mine.any():
+                tb = best[:, lane, None]
+                hit = st[:, mine] < tb * ad[:, mine]
+                cand = torch.where(hit, st[:, mine] / torch.where(
+                    hit, ad[:, mine], 1.0), visit.BIG)
+                m[:, lane] = torch.minimum(best[:, lane], cand.amin(1))
+        if exchange:
+            for off in (1, 2, 4):                # lane ^ 4, ^ 8, ^ 16
+                m = torch.minimum(m, m[:, other ^ off])
+            assert (m == m[:, :1]).all()
+        best = m
+    return best[:, 0] if exchange else best.amin(1)
 
 
 MT_CASES = [(tt, n_visits, n_tiles, r)
@@ -633,7 +599,7 @@ MT_CASES = [(tt, n_visits, n_tiles, r)
 @pytest.mark.parametrize("tt,n_visits,n_tiles,r", MT_CASES)
 def test_mt_partition_model_equals_plain(tt, n_visits, n_tiles, r):
     """The MT visit's partition, bit for bit, where it could break: a
-    warp with no group (TT 32, 96), one (128) or four (512); a ring never,
+    lane with no group (TT 32, 96), one (128) or four (512); a ring never,
     partly or often refilled; one tile visited every time."""
     g = np.random.default_rng(tt + n_visits + n_tiles)
     tab = torch.from_numpy(g.normal(size=(n_tiles * 16, tt)).astype(
@@ -658,20 +624,24 @@ def _planted_hit():
             return tb, ad, st
 
 
-def test_mt_exchange_planted_case():
+@pytest.mark.parametrize("tt,tri", [(128, 4), (512, 36)])
+def test_mt_exchange_planted_case(tt, tri):
     """One-hot features make the contraction return row 0 of the tile.
-    Visit 0 (tile 0) gives every ray a hit at tb on triangle 0, warp 0's;
-    visit 1 (tile 1) offers triangle 4, warp 1's, with st == fl(tb * ad)
-    and fl(st / ad) one ulp below tb.  The plain version rejects it; the
-    model with the exchange does too, and a warp-private best (BIG in
-    warp 1 after visit 0) takes it."""
+    Visit 0 (tile 0) gives every ray a hit at tb on triangle 0, its first
+    lane's; visit 1 (tile 1) offers triangle `tri`, another lane's (in
+    the second round of groups at TT 512), with st == fl(tb * ad) and
+    fl(st / ad) one ulp below tb.  The plain version rejects it; the model
+    with the exchange does too, and a best private to each lane (BIG in
+    that lane after visit 0) takes it."""
     tb, ad, st = _planted_hit()
-    tab = np.zeros((2 * 16, 128), np.float32)
-    tab[0, [0, 32]] = 1.0, tb                  # det, tdet of triangle 0
-    tab[16, [4, 36]] = ad, st                  # of triangle 4, in tile 1
+    q = tt // 4
+    tab = np.zeros((2 * 16, tt), np.float32)
+    tab[0, [0, q]] = 1.0, tb                   # det, tdet of triangle 0
+    tab[16, [tri, q + tri]] = ad, st           # of triangle tri, in tile 1
     feats = np.zeros((16, 4096), np.float32)
     feats[0] = 1.0
     tab, feats = torch.from_numpy(tab), torch.from_numpy(feats)
+    assert tri // 4 % visit.MT_LANES != 0
     want, _ = visit.visit_plain(tab, feats, n_visits=2, n_tiles=2,
                                 reduce="mt")
     assert (want[:, 0] == torch.tensor(tb)).all()
@@ -680,17 +650,6 @@ def test_mt_exchange_planted_case():
     private = _mt_model(tab, feats, 2, 2, exchange=False)
     assert (private == torch.tensor(np.float32(st / ad))).all()
     assert (private < want[:, 0]).all()
-
-
-def test_mt_ring_needs_two_slots():
-    """The MT visit refills visit i - 1's slot at visit i, after the
-    exchange: with one slot, visit i would wait on a tile not yet asked
-    for.  Its launcher keeps two where the budget holds one."""
-    fixed, least, most = visit._ring_kernel("ray", "mt", "highest")
-    assert least == 2
-    for tt in (1024, 1536):
-        assert (visit.RING_BUDGET - fixed) // (16 * tt * 4) < 2
-        assert visit.ring_stages(tt, "dynamic", reduce="mt") == 2
 
 
 def _tf32_step(terms):
@@ -794,14 +753,14 @@ def test_smem_bytes_follow_the_refusal(variant, monkeypatch):
             visit.visit(tab, feats, n_visits=8, n_tiles=8, tile=tile,
                         reduce=reduce, layout=layout, precision=precision)
     # the probes' sizes: three slots (the TF32 visit eight), two blocks an
-    # SM; the MT visit keeps two slots where the budget holds one
+    # SM
     assert visit.ring_stages(128, "dynamic") == 3
     assert visit.ring_stages(512, "dynamic") == 3
     assert visit.ring_stages(128, "batched8") == 3
     assert visit.ring_stages(1024, "dynamic") == 1
     assert visit.ring_stages(128, "dynamic", "lane") == 3
     assert visit.ring_stages(128, "dynamic", reduce="mt") == 3
-    assert visit.ring_stages(1024, "dynamic", reduce="mt") == 2
+    assert visit.ring_stages(1024, "dynamic", reduce="mt") == 1
     assert visit.ring_stages(128, "dynamic", precision="default") == 8
     assert visit.ring_stages(512, "dynamic", precision="default") == 3
     assert [visit._width(tt, "default") for tt in (32, 128, 160, 512)] \
