@@ -88,8 +88,10 @@
 //     slower; the times are in PERF.md.)
 //   - A warp takes 8 rays and all the tile's triangles: lane l on rays 2 (l
 //     % 4), + 1 and the groups of 4 triangles l / 4, l / 4 + 8, ...  The
-//     tiles come through the min visit's ring of bulk copies; a warp leaves
-//     a slot after its last group.
+//     tiles come through a ring of bulk copies that a producer warp keeps
+//     full; a warp leaves a slot after its last group.  (The min visit's
+//     producer thread in warp 0 waits there each visit for the slowest
+//     warp, and that warp then ends last: 3.2% slower here.)
 //   - A best t private to a lane would not be exact: a lane whose own best
 //     is above the ray's can accept a hit with st == fl(tb ad) that the
 //     plain version rejects, and fl(st / ad) may be an ulp below tb.  So
@@ -415,7 +417,7 @@ visit_min_kernel(const float* __restrict__ tab,
 
 // --------------------------------------------------------- the MT visit (P1a)
 constexpr int kMtWarps = 8;    // warps of a block, each on rays of its own
-constexpr int kMtThreads = 32 * kMtWarps;
+constexpr int kMtThreads = 32 * kMtWarps + 32;  // and a producer warp
 constexpr int kMtRays = 2;     // consecutive rays a thread
 constexpr int kMtWarpRays = 4 * kMtRays;         // rays of a warp: 4 slots
 constexpr int kMtSpan = kMtWarps * kMtWarpRays;  // rays of a block
@@ -520,7 +522,8 @@ __device__ __forceinline__ void mt_hits(float (&m)[kMtRays],
 // Dynamic shared memory: the ring (`stages` slots of one tile as it lies in
 // the table; visit i in slot i % stages with parity (i / stages) & 1), then
 // the barriers full[kMaxStages] and empty[kMaxStages], as in
-// visit_min_kernel.
+// visit_min_kernel.  Warp kMtWarps is the producer: one lane refills a
+// slot once every warp has left it.
 __global__ void __launch_bounds__(kMtThreads, 2)
 visit_mt_kernel(const float* __restrict__ tab,
                 const float* __restrict__ feats, float* __restrict__ t_out,
@@ -539,7 +542,6 @@ visit_mt_kernel(const float* __restrict__ tab,
   const int first = lane >> 2;  // the lane's first group of triangles
   const int ray0 =
       blockIdx.x * kMtSpan + warp * kMtWarpRays + (lane & 3) * kMtRays;
-  const bool producer = threadIdx.x == 0;
 
   const auto load_tile = [&](int j) {  // the tile of visit j
     const int s = j % stages;
@@ -548,7 +550,7 @@ visit_mt_kernel(const float* __restrict__ tab,
                         tile_floats,
               tile_bytes, full_a + 8 * s);
   };
-  if (producer) {
+  if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(full_a + 8 * s, 1);
       mbar_init(empty_a + 8 * s, kMtWarps);
@@ -556,8 +558,19 @@ visit_mt_kernel(const float* __restrict__ tab,
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (producer) {
-    for (int j = 0; j < stages && j < n_visits; ++j) load_tile(j);
+  if (warp == kMtWarps) {  // the producer
+    if (lane == 0) {
+      for (int j = 0; j < n_visits; ++j) {
+        const int s = j % stages;
+        if (j >= stages) {
+          mbar_wait(empty_a + 8 * s, (j / stages - 1) & 1);
+          // the warps' reads of the slot before the copy engine's writes
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        }
+        load_tile(j);
+      }
+    }
+    return;
   }
 
   // the features of rays ray0, ray0 + 1, while the first tiles arrive
@@ -590,12 +603,6 @@ visit_mt_kernel(const float* __restrict__ tab,
     // this warp has left slot s; when all have, the producer refills it
     __syncwarp();
     if (lane == 0) mbar_arrive(empty_a + 8 * s);
-    if (producer && i + stages < n_visits) {
-      mbar_wait(empty_a + 8 * s, parity);
-      // the warps' reads of the slot before the copy engine's writes
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      load_tile(i + stages);
-    }
     // the 8 lanes of a ray (lane ^ 4, ^ 8, ^ 16) agree on its best t
 #pragma unroll
     for (int j = 0; j < kMtRays; ++j) {
