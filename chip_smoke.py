@@ -89,20 +89,27 @@ Phases (any failure exits non-zero):
      then each visit run of the probes at its full size against its
      plain version (fp32: bit for bit; TF32: within
      visit.TF32_KERNEL_BOUND of the sum of the products' magnitudes),
-     both timed, a fp32 run's time also beside `issue_ms`, the floor of
+     both timed (and the kernels' device time, `device_ms`: a short
+     run's calls are host-bound on a slow host), a fp32 run's time also
+     beside `issue_ms`, the floor of
      a kernel built without FMA (its operations as FP32 instructions at
      half the peak rate); the fp32 min visit, in its three tile modes,
      bit for bit at 200 edge shapes (TT 32 to 512, 0 to 64 visits, 1 and
      64 tiles, 128 and 4096 rays), the lane visit at 40 (0 to 64 visits,
      1 and 64 tiles, 128 and 4096 rays, 1 and 8 blocks), the MT visit at
      80 (TT 32 to 512, 0 to 64 visits, 1 and 64 tiles, 128 and 4096 rays)
-     and the TF32 visit within its bound at the same 80; the TF32 visit's
+     and the TF32 visit within its bound at the same 80, first8 at 64 (TT
+     32 to 512, 0 to 160 visits, 1 to 128 tiles: its warps' tiles held
+     at once and its ring; 128 and 4096 rays, 1 and 8 blocks), with
+     `floor_ms`, an empty launch of its grid; the TF32 visit's
      line also carries `min_issue_ms`, its mins alone at the FP32 issue
      rate beside the tensor cores' bound; the dot (P1b) in both precisions
      against its plain version and float64, timed beside torch.matmul
      with TF32 off and on (a yardstick the port never calls), a call and
      on the device, with the host's microseconds a call by stage; the
-     relayout loop, which must equal x + n_iter exactly; for the dot and
+     relayout loop, which must equal x + n_iter exactly, timed beside
+     `x + 65.0` (one PyTorch call, the loop's output on the probe's
+     zeros though not on every input); for the dot and
      the relayout also `floor_ms`, the device time of an empty kernel of
      the same grid and block: what the card takes for any launch of that
      size;
@@ -1041,6 +1048,38 @@ def check_lane_edges(torch):
     return n
 
 
+def check_first8_edges(torch):
+    """first8 against its plain version, bit for bit, at the shapes its
+    partition could break: TT 32, 96, 128 and 512, 0, 1, 2, 7 and 64
+    visits (a visit group with none or some), 1, 7 and 64 tiles (a
+    warp's distinct tiles held at once), 128 and 4096 rays, 1 and 8
+    blocks, and 160 visits of 128 tiles (more distinct tiles than a
+    warp's slots: its ring).  -> the number of shapes checked."""
+    import numpy as np
+    from raytracingrenderer_tpu_torch.ops import visit
+    rays_blocks = ((128, 1), (4096, 8), (4096, 1), (128, 8))
+    shapes = [(tt, v, n) + rays_blocks[i % 4] for i, (tt, v, n) in
+              enumerate((tt, v, n) for tt in (32, 96, 128, 512)
+                        for v in (0, 1, 2, 7, 64) for n in (1, 7, 64))]
+    shapes += [(tt, 160, 128, r, blocks) for tt in (32, 128)
+               for r, blocks in ((128, 8), (4096, 1))]
+    for tt, n_visits, n_tiles, r, blocks in shapes:
+        g = np.random.default_rng(tt + n_visits + n_tiles)
+        tab = torch.from_numpy(g.normal(size=(n_tiles * 16, tt))
+                               .astype(np.float32)).cuda()
+        feats = torch.from_numpy(g.normal(size=(blocks * 16, r))
+                                 .astype(np.float32)).cuda()
+        kw = dict(n_visits=n_visits, n_tiles=n_tiles, reduce="first8")
+        tk, ok = visit.visit(tab, feats, **kw)
+        tp, op = visit.visit_plain(tab, feats, **kw)
+        if not (torch.equal(tk, tp) and torch.equal(ok, op)):
+            fail(f"visit/dynamic-first8-ray-highest TT={tt} V={n_visits} "
+                 f"tiles={n_tiles} R={r} blocks={blocks}: differs from "
+                 f"the plain version (bit for bit expected)")
+    torch.cuda.synchronize()
+    return len(shapes)
+
+
 def check_probes(torch, card):
     """Phase 12: the probes' entry points with the visit counts set to 0
     just before (main path 4), then every kernel of visit_kernel.cu
@@ -1118,9 +1157,13 @@ def check_probes(torch, card):
                     fail(f"{what}: |dt| reaches {ratio:.3e} of sum |a b|, "
                          f"above the bound {visit.TF32_KERNEL_BOUND:.3e}")
             ms = time_ms(torch, lambda: visit.visit(tab, feats, **kw), 20)
+            # the kernels' own time: a short run's calls are host-bound
+            # when the host is slow
+            dev_ms = device_ms(lambda: visit.visit(tab, feats, **kw))
             b = visit_bound(cfg, ms)
             log(f"{what}: kernel {ms:.4f} ms ({flops(cfg) / ms / 1e9:.2f} "
-                f"TFLOP/s by the scripts' count), plain {plain_ms:.3f} ms, "
+                f"TFLOP/s by the scripts' count; device {dev_ms} ms), "
+                f"plain {plain_ms:.3f} ms, "
                 f"max_abs_err {err:.3e}"
                 + ("" if ratio is None else
                    f" ({ratio:.3e} of sum |a b|, bound "
@@ -1134,15 +1177,17 @@ def check_probes(torch, card):
                    if "min_issue_ms" in b else "")
                 + f" [{card}]")
             size = dict(tt=cfg["tt"], n_visits=cfg["n_visits"],
+                        r=feats.shape[1],
                         n_tiles=cfg["n_tiles"], blocks=cfg["blocks"], ms=ms,
                         plain_ms=plain_ms, max_abs_err=err,
-                        tf32_err_ratio=ratio, **b)
+                        tf32_err_ratio=ratio, device_ms=dev_ms, **b)
             name = "visit/" + visit.variant_name(*variant)
             if name not in entries:
                 entries[name] = dict(
                     name=name, **src, replaces=replaces[variant],
                     launches=counts[name], max_abs_err=err, ms=ms,
-                    plain_ms=plain_ms, library_ms=None, **b, sizes=[])
+                    plain_ms=plain_ms, library_ms=None, **b,
+                    device_ms=dev_ms, sizes=[])
             e = entries[name]
             e["max_abs_err"] = max(e["max_abs_err"], err)
             e["sizes"].append(size)
@@ -1171,6 +1216,21 @@ def check_probes(torch, card):
     entries["visit/dynamic-mt-ray-highest"]["edge_shapes_checked"] = n
     entries["visit/dynamic-min-ray-default"].update(
         edge_shapes_checked=n, edge_tf32_err_ratio=worst)
+    t0 = time.perf_counter()
+    n = check_first8_edges(torch)
+    f8 = entries["visit/dynamic-first8-ray-highest"]
+    f8.update(edge_shapes_checked=n, floor_ms=device_ms(
+        lambda: visit.floor_launch("visit/dynamic-first8-ray-highest",
+                                   f8["sizes"][0]["r"],
+                                   f8["sizes"][0]["blocks"])))
+    log(f"visit/dynamic-first8-ray-highest: {n} edge shapes (TT 32..512, "
+        f"0..160 visits, 1..128 tiles, 128 and 4096 rays, 1 and 8 blocks) "
+        f"equal the plain version bit for bit, "
+        f"{time.perf_counter() - t0:.2f} s; at the probe's shape "
+        f"{f8['ms']:.4f} ms (device {f8['device_ms']} ms), issue floor "
+        f"without FMA {f8['issue_ms']:.4f} "
+        f"ms (share {f8['issue_share']:.4f}), an empty launch of its grid "
+        f"{f8['floor_ms']} ms [{card}]")
 
     # the dot (P1b) in both precisions; torch.matmul as the yardstick
     a, b_in = probe_mxu.precision_inputs("cuda")
@@ -1244,11 +1304,22 @@ def check_probes(torch, card):
             f"{plain_ms:.4f} ms, exact; bound {per[n_iter][2]['bound_ms']:.5f}"
             f" ms ({per[n_iter][2]['bound_by']}) [{card}]")
     ms, plain_ms, bd, dev_ms = per[65]
+    # one elementwise pass over the same bytes: the loop's output on this
+    # input (zeros), though not on every input (n additions of 1.0 round
+    # where one of n may not)
+    lib_ms = time_ms(torch, lambda: x + 65.0, 200)
+    lib_dev_ms = device_ms(lambda: x + 65.0)
+    if not torch.equal(x + 65.0, visit.relayout_loop(x, 65)):
+        fail("relayout: x + 65.0 is not the loop's output on zeros")
+    log(f"relayout n_iter=65: x + 65.0 (one PyTorch call, equal to the loop "
+        f"on zeros) {lib_ms:.4f} ms (device {lib_dev_ms} ms) [{card}]")
     entries["relayout"] = dict(
         name="relayout", **src,
         replaces="scripts/probe_mxu.py:153 (inner k, call :168)",
         launches=counts["relayout"], max_abs_err=0.0, ms=ms,
-        plain_ms=plain_ms, library_ms=None, **bd, device_ms=dev_ms,
+        plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_dev_ms,
+        library_call="x + 65.0 (equals the loop on the probe's zeros, not "
+                     "on every input)", **bd, device_ms=dev_ms,
         floor_ms=floor_ms, n_iter=65, ms_n_iter_1=per[1][0],
         plain_ms_n_iter_1=per[1][1],
         device_ms_n_iter_1=per[1][3])

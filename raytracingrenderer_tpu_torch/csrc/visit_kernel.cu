@@ -117,11 +117,16 @@
 // on and folded before the next is issued: while one warpgroup folds, the
 // SM's other warpgroups keep the tensor cores busy.  The first design's
 // mma.sync.m16n8k8 stays in the TF32 dot.
-// first8 (visit_first8_kernel) keeps its first design: one thread block
-// over 128 rays, one ray a thread, the visited tile staged in dynamic
-// shared memory by the whole block, float4 by float4, between two
-// barriers.  The dot's TF32 kernel keeps mma.sync.m16n8k8 (one warp per
-// 16 x 32 tile of the output).
+// first8 (visit_first8_kernel) needs 8 columns of each visited tile, 512
+// of its bytes.  Its first design staged the whole tile with the whole block
+// between two barriers, one ray a thread, and reached 26% of its issue
+// floor.  Now a warp brings in only its visits' columns (one 16-byte
+// cp.async a lane, on an mbarrier a slot), holds every distinct tile of its
+// visits at once where they fit (else a ring of slots that it refills
+// itself), and runs 4 rays a thread; the 4 warps of a block split the
+// visits and meet once, after the last (the kernel's comment has the
+// partition).  The TF32 dot runs mma.sync.m16n8k8, 16 rows x 16 rays a
+// warp, 16 warps a block (dot_tf32_kernel).
 // The fp32 kernels sum K left to right, every product and sum rounded,
 // and min is exact, so they equal the plain version bit for bit in any
 // layout.  The TF32 kernels differ from their plain versions only in the
@@ -142,7 +147,6 @@
 // value of `a` serves 4 rays, 4 kDotRows sums are in flight, and `out` is
 // written as float4s.  A block's warps take consecutive row groups of the
 // same 128 rays, so b's loads of all but the first warp are served by L1.
-// TF32 (dot_tf32_kernel): one warp per 16 x 32 tile of the output.
 //
 // The relayout kernel (P1c).  No relayout exists here: a torch tensor's
 // shape is its strides, and a reshape of a contiguous (32, 128) block to
@@ -155,6 +159,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <numeric>
 
 namespace {
 
@@ -182,17 +187,6 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
   return r;
-}
-
-// Stage tile `tile` of the table into s as a 16 x tt row-major matrix.
-// Consecutive threads of the 128 read consecutive float4s of the table.
-__device__ __forceinline__ void stage(float* s, const float* __restrict__ tab,
-                                      int tile, int tt) {
-  const int q4 = tt / 4;
-  const float4* src = reinterpret_cast<const float4*>(tab) +
-                      static_cast<size_t>(tile) * kK * q4;
-  float4* dst = reinterpret_cast<float4*>(s);
-  for (int e = threadIdx.x; e < kK * q4; e += kSpan) dst[e] = __ldg(src + e);
 }
 
 __device__ __forceinline__ float4 ld4(const float* s) {
@@ -627,54 +621,173 @@ visit_mt_kernel(const float* __restrict__ tab,
 }
 
 // ------------------------------------------------------------------ first8
-// One thread per ray, its 16 features in registers; visit i's tile (i * 7)
-// % n_tiles staged in dynamic shared memory by the whole block between two
-// barriers and read as float4 broadcasts; rows 0..7 of the product kept
-// apart, a running min each.
-__global__ void __launch_bounds__(kSpan)
+constexpr int kF8Rays = 4;      // consecutive rays a thread
+constexpr int kF8Span = 32 * kF8Rays;  // rays of a block
+constexpr int kF8Warps = 4;     // of a block: warp w takes visits w, w + 4, ..
+constexpr int kF8Threads = 32 * kF8Warps;
+constexpr int kF8Slots = 16;    // a warp's slots of one tile's 8 columns
+constexpr int kF8Slot = kK * kRows * 4;  // bytes of a slot: 32 chunks of 16
+// dynamic shared memory: the warps' slots, their barriers, the warps' mins
+constexpr int kF8Smem =
+    kF8Warps * kF8Slots * (kF8Slot + 8) + kF8Warps * kRows * kF8Span * 4;
+static_assert(kSpan % kF8Span == 0, "ops/visit.py checks R against SPAN");
+static_assert(kF8Slot == 32 * 16, "a lane copies one 16-byte chunk a slot");
+
+// One 16-byte copy from device memory to shared memory (cp.async, through
+// L2 only), and an arrival on the barrier at `bar` once every earlier copy
+// of this thread has landed.
+__device__ __forceinline__ void copy16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copies_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// Rows 0..7 of each visit's tile^T f, a running min each.  Only those 8
+// columns of a tile are read: 16 rows x 32 bytes, one 16-byte cp.async a
+// lane.  A block takes kF8Span rays, kF8Rays consecutive ones a thread (a
+// float4 of the tile feeds 32 instructions); warp w takes the visits w, w
+// + kF8Warps, ...  Each warp brings its own visits' columns into kF8Slots
+// slots of its own, on a barrier a slot (its 32 lanes' copies): a warp's
+// visits repeat their tiles every `period` visits (visit j + period reads
+// the tile of visit j), so where period <= kF8Slots each distinct tile is
+// brought in once, up front, and visit j reads slot j % period; otherwise
+// the slots are a ring (visit j in slot j % kF8Slots, the (j / kF8Slots)-th
+// use of it, the parity it waits with) that the warp refills itself once it
+// has read a slot.  No barrier between warps stands in the loop.  The warps'
+// mins meet once, after the last visit, through shared memory (a min is
+// exact in any order, and every sum is left as it was).  (Warps on 4 of
+// the 8 columns, twice the warps, ran 10% slower: PERF.md.)
+__global__ void __launch_bounds__(kF8Threads, 3)
 visit_first8_kernel(const float* __restrict__ tab,
                     const float* __restrict__ feats, float* __restrict__ t_out,
                     float* __restrict__ o_out, int r, int tt, int n_tiles,
-                    int n_visits) {
+                    int n_visits, int period) {
   extern __shared__ float4 smem4[];
-  float* s = reinterpret_cast<float*>(smem4);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* slots =
+      reinterpret_cast<float*>(smem4) + warp * kF8Slots * (kF8Slot / 4);
+  const uint32_t slots_a = smem_addr(slots);
+  const uint32_t bar_a = smem_addr(smem4) + kF8Warps * kF8Slots * kF8Slot +
+                         warp * kF8Slots * 8;
+  float* comb = reinterpret_cast<float*>(smem4) +
+                kF8Warps * kF8Slots * (kF8Slot + 8) / 4;
   const int b = blockIdx.y;
-  const int ray = blockIdx.x * kSpan + threadIdx.x;
-  const float* fb = feats + static_cast<size_t>(b) * kK * r + ray;
-  float f[kK];
-#pragma unroll
-  for (int k = 0; k < kK; ++k) f[k] = fb[static_cast<size_t>(k) * r];
-  float acc[kRows];
-#pragma unroll
-  for (int j = 0; j < kRows; ++j) acc[j] = kBig;
+  const int ray0 = blockIdx.x * kF8Span;
+  const int n_w =  // this warp's visits
+      n_visits > warp ? (n_visits - warp + kF8Warps - 1) / kF8Warps : 0;
+  const bool ring = period > kF8Slots;
+  const int mod = ring ? kF8Slots : period;
 
-  for (int i = 0; i < n_visits; ++i) {
-    __syncthreads();  // every thread is done with the previous tile
-    stage(s, tab, tile_of<kDynamic>(i, n_tiles), tt);
-    __syncthreads();
-    // rows 0..7 of the product: the tile's first 8 columns
-    float sum[kRows];
-    float4 a = ld4(s), a2 = ld4(s + 4);
-    sum[0] = a.x * f[0]; sum[1] = a.y * f[0]; sum[2] = a.z * f[0];
-    sum[3] = a.w * f[0]; sum[4] = a2.x * f[0]; sum[5] = a2.y * f[0];
-    sum[6] = a2.z * f[0]; sum[7] = a2.w * f[0];
+  // the warp's j-th visit (visit warp + kF8Warps j) into slot s: lane l
+  // copies the half l % 2 of row l / 2
+  const int row = lane >> 1, half = lane & 1;
+  const auto load = [&](int j, int s) {
+    const int tile = tile_of<kDynamic>(warp + kF8Warps * j, n_tiles);
+    copy16(slots_a + s * kF8Slot + (row * kRows + 4 * half) * 4,
+           tab + (static_cast<size_t>(tile) * kK + row) * tt + 4 * half);
+    copies_arrive(bar_a + 8 * s);
+  };
+  if (lane == 0) {
+    for (int s = 0; s < kF8Slots; ++s) mbar_init(bar_a + 8 * s, 32);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncwarp();
+  for (int j = 0; j < mod && j < n_w; ++j) load(j, j);
+
+  // the features of rays ray0 + kF8Rays lane .. + kF8Rays - 1, while the
+  // first tiles arrive
+  float f[kF8Rays][kK];
+  {
+    const float* fb =
+        feats + static_cast<size_t>(b) * kK * r + ray0 + kF8Rays * lane;
 #pragma unroll
-    for (int k = 1; k < kK; ++k) {
-      a = ld4(s + k * tt);
-      a2 = ld4(s + k * tt + 4);
-      sum[0] = sum[0] + a.x * f[k]; sum[1] = sum[1] + a.y * f[k];
-      sum[2] = sum[2] + a.z * f[k]; sum[3] = sum[3] + a.w * f[k];
-      sum[4] = sum[4] + a2.x * f[k]; sum[5] = sum[5] + a2.y * f[k];
-      sum[6] = sum[6] + a2.z * f[k]; sum[7] = sum[7] + a2.w * f[k];
+    for (int k = 0; k < kK; ++k) {
+#pragma unroll
+      for (int i = 0; i < kF8Rays; ++i) {
+        f[i][k] = __ldg(fb + static_cast<size_t>(k) * r + i);
+      }
+    }
+  }
+  float m[kF8Rays][kRows];
+#pragma unroll
+  for (int i = 0; i < kF8Rays; ++i) {
+#pragma unroll
+    for (int c = 0; c < kRows; ++c) m[i][c] = kBig;
+  }
+
+  int s = 0;            // visit j's slot, j % mod, and
+  uint32_t parity = 0;  // the parity of its use of it, (j / mod) & 1
+  for (int j = 0; j < n_w; ++j) {
+    // a slot held for the whole run is waited on at its first use only
+    if (ring || j < mod) mbar_wait(bar_a + 8 * s, parity);
+    const float* p = slots + s * (kF8Slot / 4);
+    float sum[kF8Rays][kRows];
+#pragma unroll
+    for (int k = 0; k < kK; ++k) {
+#pragma unroll
+      for (int cc = 0; cc < kRows; cc += 4) {
+        const float4 a = ld4(p + k * kRows + cc);
+#pragma unroll
+        for (int i = 0; i < kF8Rays; ++i) {
+          if (k == 0) {
+            sum[i][cc] = a.x * f[i][0];
+            sum[i][cc + 1] = a.y * f[i][0];
+            sum[i][cc + 2] = a.z * f[i][0];
+            sum[i][cc + 3] = a.w * f[i][0];
+          } else {
+            sum[i][cc] = sum[i][cc] + a.x * f[i][k];
+            sum[i][cc + 1] = sum[i][cc + 1] + a.y * f[i][k];
+            sum[i][cc + 2] = sum[i][cc + 2] + a.z * f[i][k];
+            sum[i][cc + 3] = sum[i][cc + 3] + a.w * f[i][k];
+          }
+        }
+      }
     }
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) acc[j] = fminf(acc[j], sum[j]);
-  }
+    for (int i = 0; i < kF8Rays; ++i) {
 #pragma unroll
-  for (int j = 0; j < kRows; ++j) {
-    t_out[(static_cast<size_t>(b) * kRows + j) * r + ray] = acc[j];
+      for (int c = 0; c < kRows; ++c) m[i][c] = fminf(m[i][c], sum[i][c]);
+    }
+    if (ring && j + mod < n_w) {
+      __syncwarp();  // every lane has read slot s
+      load(j + mod, s);
+    }
+    if (++s == mod) {
+      s = 0;
+      parity ^= 1;
+    }
   }
-  write_feature_sum(feats, o_out, b, r, ray);
+
+  // The warps' mins meet.  Where a ray's least value is a zero, the
+  // grouping may pick -0.0 where the plain version has +0.0 (or the
+  // reverse), which compare equal.
+#pragma unroll
+  for (int c = 0; c < kRows; ++c) {
+#pragma unroll
+    for (int i = 0; i < kF8Rays; ++i) {
+      comb[(warp * kRows + c) * kF8Span + kF8Rays * lane + i] = m[i][c];
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < kRows * kF8Span; e += kF8Threads) {
+    float v = comb[e];
+#pragma unroll
+    for (int w = 1; w < kF8Warps; ++w) {
+      v = fminf(v, comb[w * kRows * kF8Span + e]);
+    }
+    const int rw = e / kF8Span, ray = e - rw * kF8Span;
+    t_out[(static_cast<size_t>(b) * kRows + rw) * r + ray0 + ray] = v;
+  }
+  for (int ray = threadIdx.x; ray < kF8Span; ray += kF8Threads) {
+    write_feature_sum(feats, o_out, b, r, ray0 + ray);
+  }
 }
 
 // --------------------------------------------------------------- lane layout
@@ -1133,29 +1246,52 @@ dot_fp32_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-// TF32: one warp per 16 x 32 tile of the output (4 n-tiles of 8 rays).
-__global__ void __launch_bounds__(kSpan)
+// TF32 (mma.sync.m16n8k8, two k8 steps): a warp takes 16 rows of the
+// output for kTdRays consecutive rays; a block's kTdWarps warps take
+// consecutive runs of rays of the same rows.  A lane loads its fragments
+// of a and b at once, rounds each value once, and runs its n8 tiles' two
+// k8 steps each; a store writes 8 rows x 32 bytes, whole sectors.  The
+// 2 MB of output bound it at 0.7 us, but at the probe's size the kernel is
+// held by each warp's chain of latencies (loads, two dependent mma, stores)
+// and by the launch: the times of other shapes are in PERF.md.  Short
+// chains on many warps won: 16 x 16 a warp, 16 warps a block (128
+// blocks of 512 threads), against 16 x 32 on 4 warps (the first design),
+// 8 or 32 rays a warp, 4 to 32 warps a block, and a block over 128 rows
+// whose slices of a and b are rounded once into shared memory, its output
+// written back as float4s or by bulk copies (one wave of 128 blocks, each
+// warp's chain 4 times as long).
+constexpr int kTdRays = 16;  // rays of a warp: kTdRays / 8 n8 tiles
+constexpr int kTdWarps = 16;
+constexpr int kTdNt = kTdRays / 8;
+
+__global__ void __launch_bounds__(32 * kTdWarps)
 dot_tf32_kernel(const float* __restrict__ a, const float* __restrict__ b,
                 float* __restrict__ out, int tt, int r) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
-  const int r_w = blockIdx.x * kSpan + warp * 32;
+  const int r_w = (blockIdx.x * kTdWarps + warp) * kTdRays;
   const int m0 = blockIdx.y * 16;
+  if (r_w >= r) return;  // r is a multiple of 128 only
   const auto load = [&](int k, int m) {
     return to_tf32(__ldg(a + k * tt + m));
   };
-  uint32_t a0[4], a1[4];
+  uint32_t a0[4], a1[4], bf[kTdNt][4];
   a_fragment(a0, load, 0, m0, g, q);
   a_fragment(a1, load, 1, m0, g, q);
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
+  for (int nt = 0; nt < kTdNt; ++nt) {
     const float* bc = b + r_w + nt * 8 + g;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // k = q, q + 4, 8 + q, 12 + q
+      bf[nt][j] = to_tf32(__ldg(bc + static_cast<size_t>(4 * j + q) * r));
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < kTdNt; ++nt) {
     float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    mma_tf32(d, a0, to_tf32(bc[static_cast<size_t>(q) * r]),
-             to_tf32(bc[static_cast<size_t>(q + 4) * r]));
-    mma_tf32(d, a1, to_tf32(bc[static_cast<size_t>(8 + q) * r]),
-             to_tf32(bc[static_cast<size_t>(12 + q) * r]));
+    mma_tf32(d, a0, bf[nt][0], bf[nt][1]);
+    mma_tf32(d, a1, bf[nt][2], bf[nt][3]);
     float* o = out + static_cast<size_t>(m0 + g) * r + r_w + nt * 8 + 2 * q;
     *reinterpret_cast<float2*>(o) = make_float2(d[0], d[1]);
     *reinterpret_cast<float2*>(o + static_cast<size_t>(8) * r) =
@@ -1201,7 +1337,10 @@ struct Shape {
 };
 
 Shape dot_shape(int tf32, int tt, int r) {
-  if (tf32) return {dim3(r / kSpan, tt / 16), kSpan};
+  if (tf32) {
+    constexpr int span = kTdRays * kTdWarps;
+    return {dim3((r + span - 1) / span, tt / 16), 32 * kTdWarps};
+  }
   return {dim3(r / kSpan, (tt + kDotBlockRows - 1) / kDotBlockRows),
           32 * kDotWarps};
 }
@@ -1275,10 +1414,15 @@ extern "C" int visit_run(int variant, const float* tab, const float* feats,
     case 3:
       return launch_min<kStatic>(blocks, stream, tab, feats, t, o, r, tt,
                                  n_tiles, n_visits);
-    case 4:
-      return launch(visit_first8_kernel, dim3(r / kSpan, blocks), kSpan,
-                    static_cast<int>(tile), stream, tab, feats, t, o, r, tt,
-                    n_tiles, n_visits);
+    case 4: {
+      // a warp's visits repeat their tiles every `period`: the visits
+      // repeat theirs every n_tiles / gcd(7, n_tiles), and a warp takes
+      // every kF8Warps-th
+      const int p = n_tiles / std::gcd(7, n_tiles);
+      return launch(visit_first8_kernel, dim3(r / kF8Span, blocks),
+                    kF8Threads, kF8Smem, stream, tab, feats, t, o, r, tt,
+                    n_tiles, n_visits, p / std::gcd(kF8Warps, p));
+    }
     case 5:
       return launch_ring(visit_lane_kernel, dim3(r / kLaneSpan, blocks),
                          kLaneThreads,
@@ -1336,13 +1480,15 @@ extern "C" int visit_relayout(const float* x, float* out, int n, int n_iter,
 }
 
 // An empty kernel with the grid and block of the dot's launch (kind 0:
-// fp32, 1: TF32; n0 = tt, n1 = r) or the relayout's (kind 2; n0 = n): what
-// the card takes for any launch of that size, the floor under those
-// kernels' times.
+// fp32, 1: TF32; n0 = tt, n1 = r), the relayout's (kind 2; n0 = n) or
+// first8's (kind 3; n0 = r, n1 = blocks): what the card takes for any launch
+// of that size, the floor under those kernels' times.
 extern "C" int visit_floor(int kind, int n0, int n1, cudaStream_t stream) {
-  if (kind < 0 || kind > 2 || n0 <= 0) {
+  if (kind < 0 || kind > 3 || n0 <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Shape sh = kind == 2 ? relayout_shape(n0) : dot_shape(kind, n0, n1);
+  const Shape sh = kind == 3   ? Shape{dim3(n0 / kF8Span, n1), kF8Threads}
+                   : kind == 2 ? relayout_shape(n0)
+                               : dot_shape(kind, n0, n1);
   return launch(empty_kernel, sh.grid, sh.block, 0, stream);
 }

@@ -67,9 +67,13 @@ the lanes is taken once, after the last.  The MT visit (reduce="mt")
 runs MT_RAYS rays a thread; the MT_LANES lanes of a ray split a tile's
 groups of 4 triangles and take the min of their bests after every visit
 (a butterfly of shuffles), so that each holds the next visit against the
-same best; its tiles come through the ring.  The TF32 visit runs on wgmma through a ring of packed
-tiles: `visit` hands its kernel a scratch copy of the visited tiles,
-rounded, K-major and padded to whole steps of TF32_N triangles
+same best; its tiles come through the ring.  The first8 visit runs
+F8_RAYS rays a thread; the F8_WARPS warps of a block split the visits
+(warp w takes visits w, w + F8_WARPS, ...) and meet after the last; each
+warp brings in only its visits' 8 columns, into F8_SLOTS slots of its
+own.  The TF32 visit runs on wgmma through a ring of
+packed tiles: `visit` hands its kernel a scratch copy of the visited
+tiles, rounded, K-major and padded to whole steps of TF32_N triangles
 (`tf32_packed_tiles` of them), made anew on every call.  `_smem_bytes`
 is the launchers' layout of dynamic shared memory.
 """
@@ -110,6 +114,13 @@ MT_FIXED = 2 * MAX_STAGES * 8  # its shared memory beside its ring: barriers
 TF32_STAGES = 8         # tiles the TF32 visit's ring holds at most
 TF32_FIXED = 2 * TF32_STAGES * 8  # its shared memory beside its ring
 TF32_N = 128            # triangles of its wgmma steps: packed tiles pad to it
+F8_RAYS = 4             # consecutive rays a thread of the first8 visit
+F8_SPAN = 32 * F8_RAYS  # rays of a block of it
+F8_WARPS = 4            # warps of a block: warp w takes visits w, w + 4, ...
+F8_SLOTS = 16           # a warp's slots of one tile's 8 columns
+# its shared memory: the warps' slots (16 x 8 floats) and their barriers,
+# the warps' mins
+F8_SMEM = F8_WARPS * (F8_SLOTS * (K * ROWS * 4 + 8) + ROWS * F8_SPAN * 4)
 
 # (tile, reduce, layout, precision) of each kernel the probes run, in the
 # order of the CUDA launcher's variant ids
@@ -389,7 +400,10 @@ def ring_stages(tt: int, tile: str, layout: str = "ray",
     two blocks stay resident on an SM, at most MAX_STAGES (TF32_STAGES for
     the TF32 visit), at least the ones it cannot do without (`_ring_kernel`);
     the static tile is brought in once and needs one.  (A batched step
-    goes through the ring as 8 visits of one tile.)  first8 has no ring."""
+    goes through the ring as 8 visits of one tile.)  first8's are a warp's
+    F8_SLOTS slots of a tile's 8 columns, whatever TT."""
+    if reduce == "first8":
+        return F8_SLOTS
     if tile == "static":
         return 1
     fixed, least, most = _ring_kernel(layout, reduce, precision)
@@ -399,10 +413,10 @@ def ring_stages(tt: int, tile: str, layout: str = "ray",
 
 def _smem_bytes(tt: int, variant: tuple) -> int:
     """Dynamic shared memory of the visit kernel of `variant`: the ring
-    and the kernel's other shared memory; first8's, the staged tile."""
+    and the kernel's other shared memory; first8's, F8_SMEM whatever TT."""
     tile, reduce, layout, precision = variant
     if reduce == "first8":
-        return K * tt * 4
+        return F8_SMEM
     return (ring_stages(tt, tile, layout, reduce, precision) * K
             * _width(tt, precision) * 4
             + _ring_kernel(layout, reduce, precision)[0])
@@ -492,16 +506,17 @@ def relayout_loop(x: torch.Tensor, n_iter: int) -> torch.Tensor:
     return out
 
 
-FLOOR_KINDS = ("dot/highest", "dot/default", "relayout")
+FLOOR_KINDS = ("dot/highest", "dot/default", "relayout",
+               "visit/dynamic-first8-ray-highest")
 
 
 def floor_launch(kind: str, n0: int, n1: int = 0, device="cuda") -> None:
     """Launch an empty kernel with the grid and block of `dot(a, b)` for
-    a (16, n0), b (16, n1) (kind "dot/highest" or "dot/default") or of
-    `relayout_loop` over n0 floats (kind "relayout"): its time on the
-    device is what the card takes for any launch of that size, the floor
-    under those kernels' times.  It computes nothing and counts no
-    launch."""
+    a (16, n0), b (16, n1) (kind "dot/highest" or "dot/default"), of
+    `relayout_loop` over n0 floats (kind "relayout") or of first8's visit
+    over n1 blocks of n0 rays: its time on the device is what the card
+    takes for any launch of that size, the floor under those kernels'
+    times.  It computes nothing and counts no launch."""
     dev = torch.device(device)
     _cuda(dev, "floor")
     launch(_library()["visit_floor"], dev, FLOOR_KINDS.index(kind), n0, n1)

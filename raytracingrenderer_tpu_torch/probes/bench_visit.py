@@ -6,17 +6,22 @@ the probes' sizes, alone or beside another tree's revision of the source:
 
 Runs: every distinct visit run of the three probes (the seven variants;
 the fp32 min visit also at TT = 512 and at 512 visits), the dot in both
-precisions and the relayout loop.  Each tree's kernels must equal the
+precisions and the relayout loop; beside them, the same for every tree,
+one PyTorch call for the same function: `torch.matmul` of the dot's
+operands with allow_tf32 off and on, and `x + float(n_iter)` on the
+relayout's input (zeros, where it equals the loop's output).  Each tree's kernels must equal the
 plain versions (fp32 bit for bit, TF32 within visit.TF32_KERNEL_BOUND of
 the sum of the products' magnitudes): where this tree's do not, the
 script exits 1; a `--parent` whose do not is named and left out of the
 timing.  The visits
 are timed by CUDA events over 20 back-to-back launches into outputs
 allocated once; the dot, the relayout and the empty launch of their grid
-(`visit_floor`, where the tree has it) by their device time under
-torch.profiler over 50 launches, in microseconds.  A number is the least
-of the rounds; the trees are timed in turns, the order reversed every
-round.  The card's name and power limit are printed with the table.
+(`visit_floor`, where the tree has that launch) and the PyTorch calls
+by their device time under torch.profiler over 50 launches, in
+microseconds.  A number is the least of the rounds (`--out` keeps every
+round's, `samples`); the trees are timed in turns, the order reversed
+every round.  The card's name and power limit are printed with the
+table.
 
 `--parent DIR` (repeatable) names a checkout of another commit, for
 instance `git archive <commit> | tar -x -C build/parent`: its
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import sys
 from pathlib import Path
@@ -40,8 +46,8 @@ import torch
 from raytracingrenderer_tpu_torch.ops import visit
 from raytracingrenderer_tpu_torch.ops.launch import bind, launch
 from raytracingrenderer_tpu_torch.probes import (
-    card, device_ms, inputs, probe_mxu, probe_mxu2, probe_mxu3, require_cuda,
-    timed_ms, visit_args)
+    R, card, device_ms, inputs, probe_mxu, probe_mxu2, probe_mxu3,
+    require_cuda, timed_ms, visit_args)
 
 SOURCE = Path("raytracingrenderer_tpu_torch") / "csrc" / "visit_kernel.cu"
 RELAYOUT_ITERS = 65
@@ -171,18 +177,46 @@ def relayout_case(dev):
                 (out,), check, False)
 
 
+def library_cases(dev):
+    """One PyTorch call for the function of the dot (in either precision)
+    and of the relayout loop at the probe's sizes: the yardsticks, the
+    same whatever the tree."""
+    a, b = probe_mxu.precision_inputs(dev)
+    x = torch.zeros((probe_mxu.RELAYOUT_BLOCKS * 32, 128), device=dev)
+
+    def matmul(tf32):
+        def call(lib):
+            saved = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                torch.matmul(a.t(), b)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = saved
+        return Case(f"torch.matmul allow_tf32={tf32} [us on the device]",
+                    call, (), lambda: None, False)
+
+    add = Case(f"x + {RELAYOUT_ITERS}.0 [us on the device]",
+               lambda lib: x + float(RELAYOUT_ITERS), (), lambda: None, False)
+    return [matmul(False), matmul(True), add]
+
+
 def floor_cases(dev):
-    """The empty launches of the dots' and the relayout's grids."""
+    """The empty launches of the dots', the relayout's and first8's
+    grids (no time where a tree has no such launch)."""
     a, b = probe_mxu.precision_inputs(dev)
     n = probe_mxu.RELAYOUT_BLOCKS * 32 * 128
     sizes = {"dot/highest": (a.shape[1], b.shape[1]),
-             "dot/default": (a.shape[1], b.shape[1]), "relayout": (n, 0)}
+             "dot/default": (a.shape[1], b.shape[1]), "relayout": (n, 0),
+             "visit/dynamic-first8-ray-highest": (R, 8)}
 
     def case(kind):
         def call(lib):
-            if "visit_floor" in lib:
-                launch(lib["visit_floor"], dev,
-                       visit.FLOOR_KINDS.index(kind), *sizes[kind])
+            try:
+                if "visit_floor" in lib:
+                    launch(lib["visit_floor"], dev,
+                           visit.FLOOR_KINDS.index(kind), *sizes[kind])
+            except RuntimeError:   # a revision without this kind
+                pass
         return Case(f"floor of {kind} [us on the device]", call, (),
                     lambda: None, False)
 
@@ -203,7 +237,7 @@ def main() -> None:
     libs = {k: load(v) for k, v in trees.items()}
     cases = ([visit_case(n, cfg, dev) for n, cfg in visit_runs()]
              + [dot_case("highest", dev), dot_case("default", dev),
-                relayout_case(dev)] + floor_cases(dev))
+                relayout_case(dev)] + floor_cases(dev) + library_cases(dev))
     for tree, lib in list(libs.items()):
         for c in cases:
             for x in c.outs:
@@ -221,16 +255,18 @@ def main() -> None:
                 break
     print(f"every kernel of {list(libs)} agrees with its plain version",
           flush=True)
-    times = {c.name: {t: float("inf") for t in libs} for c in cases}
+    samples = {c.name: {t: [] for t in libs} for c in cases}
     for rnd in range(args.rounds):
         order = list(libs)[::-1] if rnd % 2 else list(libs)
         for c in cases:
             for tree in order:
                 if "floor" in c.name and "visit_floor" not in libs[tree]:
-                    times[c.name][tree] = float("nan")
                     continue
-                times[c.name][tree] = min(times[c.name][tree],
-                                          c.time(libs[tree]))
+                ms = c.time(libs[tree])
+                if not math.isnan(ms):
+                    samples[c.name][tree].append(ms)
+    times = {c: {t: min(v, default=float("nan")) for t, v in per.items()}
+             for c, per in samples.items()}
     print(f"the least of {args.rounds} rounds [{name}]")
     width = max(len(c.name) for c in cases)
     print(" " * width + "  " + "  ".join(f"{t[-24:]:>24}" for t in libs))
@@ -242,8 +278,8 @@ def main() -> None:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"card": name, "rounds": args.rounds, "times": times},
-                      f, indent=1)
+            json.dump({"card": name, "rounds": args.rounds, "times": times,
+                       "samples": samples}, f, indent=1)
 
 
 if __name__ == "__main__":

@@ -34,8 +34,11 @@ break (TT 32 to 512, 0 to 64 visits, 1 and 64 tiles, 128 and 4096 rays)
 and launched back to back on a side stream; the lane visit at 0 to 64
 visits, 1 and 64 tiles, 128 and 4096 rays, 1 and 8 blocks; the MT visit
 (bit for bit) and the TF32 visit at TT 32 to 512, 0 to 64 visits, 1 and
-64 tiles, 128 and 4096 rays; the fp32 dot
-at TT 16, 48 and 128 and R 128 and 4096; a refused launch raises and
+64 tiles, 128 and 4096 rays; first8 (bit for bit) at TT 32 to 512, 0 to
+160 visits, 1, 7, 64 and 128 tiles (its warps' tiles held at once, and
+its ring), 128 and 4096 rays, 1 and 8 blocks, and launched back to back
+on a side stream; both dots at TT 16, 48, 128 and 512 and R 128, 4096
+and 65536, the TF32 dot also back to back on a side stream; a refused launch raises and
 leaves no error behind; a launch with the tensors' device already
 current, or on a side stream, stays correct; binary walks back to back
 share one ray counter."""
@@ -509,8 +512,79 @@ def test_visit_min_kernel_back_to_back_on_a_side_stream(cuda):
             assert torch.equal(tk, tp) and torch.equal(ok, op)
 
 
-@pytest.mark.parametrize("r", [128, 4096])
-@pytest.mark.parametrize("tt", [16, 48, 128])
+_RAYS_BLOCKS = ((128, 1), (4096, 8), (4096, 1), (128, 8))
+FIRST8_SHAPES = [(tt, n_visits, n_tiles) + _RAYS_BLOCKS[i % 4]
+                 for i, (tt, n_visits, n_tiles) in enumerate(
+                     (tt, n_visits, n_tiles) for tt in (32, 96, 128, 512)
+                     for n_visits in (0, 1, 2, 7, 64)
+                     for n_tiles in (1, 7, 64))] + [
+    (tt, 160, 128, r, blocks) for tt in (32, 128)
+    for r, blocks in ((128, 8), (4096, 1))]
+
+
+@pytest.mark.parametrize("tt,n_visits,n_tiles,r,blocks", FIRST8_SHAPES)
+def test_visit_first8_kernel_edge_shapes(cuda, tt, n_visits, n_tiles, r,
+                                         blocks):
+    """first8 bit for bit where its partition could break: a visit group
+    with no visit or some; one tile, every visit on tile 0, 64 distinct
+    tiles held at once, or (160 visits of 128 tiles) more distinct tiles
+    than a warp's slots, its ring; one block of rays or many."""
+    g = np.random.default_rng(tt + n_visits + n_tiles)
+    tab = torch.from_numpy(g.normal(size=(n_tiles * 16, tt)).astype(
+        np.float32)).to(cuda)
+    feats = torch.from_numpy(g.normal(size=(blocks * 16, r)).astype(
+        np.float32)).to(cuda)
+    kw = dict(n_visits=n_visits, n_tiles=n_tiles, reduce="first8")
+    before = visit.launches["visit/dynamic-first8-ray-highest"]
+    tk, ok = visit.visit(tab, feats, **kw)
+    torch.cuda.synchronize()
+    assert visit.launches["visit/dynamic-first8-ray-highest"] == before + 1
+    tp, op = visit.visit_plain(tab, feats, **kw)
+    assert torch.equal(tk, tp) and torch.equal(ok, op)
+
+
+def test_visit_first8_kernel_back_to_back_on_a_side_stream(cuda):
+    """first8 launched back to back on a side stream, held and ring runs
+    mixed: each launch sets up its warps' barriers anew."""
+    runs = []
+    for tt, n_visits, n_tiles in ((128, 64, 64), (128, 160, 128),
+                                  (32, 7, 7), (512, 2, 64), (96, 0, 1),
+                                  (128, 64, 64)):
+        tab, feats = _visit_inputs(cuda, n_tiles, tt, 2, 61 + n_visits)
+        runs.append((tab, feats, dict(n_visits=n_visits, n_tiles=n_tiles,
+                                      reduce="first8")))
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    for _ in range(3):
+        with torch.cuda.stream(side):
+            got = [visit.visit(tab, feats, **kw) for tab, feats, kw in runs]
+        side.synchronize()
+        for (tab, feats, kw), (tk, ok) in zip(runs, got):
+            tp, op = visit.visit_plain(tab, feats, **kw)
+            assert torch.equal(tk, tp) and torch.equal(ok, op)
+
+
+def test_dot_tf32_kernel_back_to_back_on_a_side_stream(cuda):
+    """The TF32 dot launched back to back on a side stream at several
+    sizes, each within the bound of its plain version."""
+    g = np.random.default_rng(67)
+    runs = [tuple(torch.from_numpy((g.normal(size=(16, n)) * 100).astype(
+        np.float32)).to(cuda) for n in (tt, r))
+        for tt, r in ((128, 4096), (16, 128), (512, 65536), (48, 4096),
+                      (128, 4096))]
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    for _ in range(3):
+        with torch.cuda.stream(side):
+            got = [visit.dot(a, b, "default") for a, b in runs]
+        side.synchronize()
+        for (a, b), k in zip(runs, got):
+            assert ((k - visit.dot_plain(a, b, "default")).abs()
+                    <= visit.TF32_KERNEL_BOUND * visit.tf32_scale(a, b)).all()
+
+
+@pytest.mark.parametrize("r", [128, 4096, 65536])
+@pytest.mark.parametrize("tt", [16, 48, 128, 512])
 @pytest.mark.parametrize("precision", ["highest", "default"])
 def test_dot_kernel_matches_plain(cuda, precision, tt, r):
     g = np.random.default_rng(31)

@@ -34,13 +34,19 @@ thread, the 8 lanes of a ray on groups of 4 triangles, the tb-free terms
 of the test first, the lanes' bests met in a butterfly after every
 visit, the ring), at 80 shapes; with one-hot features a planted hit that
 a best private to a lane would take and the plain version rejects shows
-the exchange is needed.  A model of the TF32 visit's accumulation (two k8
+the exchange is needed.  So is one of first8's (visit_first8_kernel:
+4 warps on every fourth visit each, a warp's visits' 8 columns held in
+slots of its own, all at once where its distinct tiles fit, else a ring;
+the warps' mins met at the end) at 64 shapes.  The TF32 dot keeps its
+accumulation (two mma.sync k8 steps, as the TF32 visit's model has it).
+A model of the TF32 visit's accumulation (two k8
 steps, each 8 exact products and the accumulator aligned, truncated and
 rounded once) stays within TF32_KERNEL_BOUND of `visit_plain`.
 `_smem_bytes` is held to `visit`'s refusal, and the probes' operation
 count to the numbers written by hand."""
 import functools
 import importlib.util
+import math
 import os
 import subprocess
 import sys
@@ -652,6 +658,114 @@ def test_mt_exchange_planted_case(tt, tri):
     assert (private < want[:, 0]).all()
 
 
+def _first8_period(n_tiles):
+    """Visits of a first8 warp after which its tiles repeat, as the
+    kernel's launcher computes it: the visits' tiles (i * 7) % n_tiles
+    repeat every p = n_tiles / gcd(7, n_tiles) visits, and a warp takes
+    every F8_WARPS-th visit."""
+    p = n_tiles // math.gcd(7, n_tiles)
+    return p // math.gcd(visit.F8_WARPS, p)
+
+
+def _first8_model(tab, feats, n_visits, n_tiles):
+    """visit_first8_kernel's partition in torch -> t (blocks, 8, R): warp
+    w takes visits w, w + F8_WARPS, ... and brings their columns (only the
+    first 8 of a tile: 16 rows x 32 bytes) into F8_SLOTS slots of its own,
+    each on a barrier that one load completes.  Where its tiles repeat
+    within F8_SLOTS visits (`_first8_period`) it brings in each once, up
+    front, and visit j reads slot j % period, waited on at its first use
+    only; else the slots are a ring: visit j in slot j % F8_SLOTS with
+    parity (j // F8_SLOTS) & 1, refilled by the warp with visit j +
+    F8_SLOTS once read.  Each warp keeps its own running mins; they meet
+    after the last visit."""
+    blocks, r = feats.shape[0] // 16, feats.shape[1]
+    assert r % visit.F8_SPAN == 0
+    f = feats.view(blocks, 16, r)
+    tiles = [s[0] for s in visit.tile_steps(n_visits, n_tiles, "dynamic")]
+    period = _first8_period(n_tiles)
+    ring = period > visit.F8_SLOTS
+    mod = visit.F8_SLOTS if ring else period
+    t = torch.full((blocks, visit.ROWS, r), visit.BIG)
+    for w in range(visit.F8_WARPS):
+        mine = tiles[w::visit.F8_WARPS]
+        # a warp's visits j and j + period read one tile
+        assert all(mine[j] == mine[j + period]
+                   for j in range(len(mine) - period))
+        slot, held = [None] * visit.F8_SLOTS, [None] * visit.F8_SLOTS
+        full = [_Barrier() for _ in range(visit.F8_SLOTS)]
+
+        def load(j, s):
+            slot[s] = tab[mine[j] * 16:(mine[j] + 1) * 16, :visit.ROWS]
+            held[s] = j
+            full[s].complete()
+
+        for j in range(min(mod, len(mine))):
+            load(j, j)
+        m = torch.full((blocks, visit.ROWS, r), visit.BIG)
+        s, parity = 0, 0
+        for j in range(len(mine)):
+            if ring or j < mod:
+                assert full[s].passes(parity)
+            else:   # a resident slot: its barrier's one phase completed
+                # long ago, and a wait with the running parity would hang
+                # after every odd wrap
+                assert full[s].passes(0) and not full[s].passes(1)
+            assert held[s] == (j if ring else j % period)
+            m = torch.minimum(m, visit._contract(slot[s], f))
+            if ring and j + mod < len(mine):
+                load(j + mod, s)
+            s += 1
+            if s == mod:
+                s, parity = 0, parity ^ 1
+        t = torch.minimum(t, m)
+    return t
+
+
+_RAYS_BLOCKS = ((128, 1), (4096, 8), (4096, 1), (128, 8))
+FIRST8_CASES = [(tt, n_visits, n_tiles) + _RAYS_BLOCKS[i % 4]
+                for i, (tt, n_visits, n_tiles) in enumerate(
+                    (tt, n_visits, n_tiles) for tt in (32, 96, 128, 512)
+                    for n_visits in (0, 1, 2, 7, 64)
+                    for n_tiles in (1, 7, 64))] + [
+    (tt, 160, 128, r, blocks) for tt in (32, 128)
+    for r, blocks in ((128, 8), (4096, 1))]
+
+
+@pytest.mark.parametrize("tt,n_visits,n_tiles,r,blocks", FIRST8_CASES)
+def test_first8_partition_model_equals_plain(tt, n_visits, n_tiles, r,
+                                             blocks):
+    """first8's partition, bit for bit (its 8 rows), where it
+    could break: a warp with no visit (0 to 2 visits) or some; one
+    tile, 7 (every visit on tile 0) or 64 distinct tiles held at once; and,
+    at 160 visits of 128 tiles, more distinct tiles than a warp's slots
+    (the ring)."""
+    g = np.random.default_rng(tt + n_visits + n_tiles)
+    tab = torch.from_numpy(g.normal(size=(n_tiles * 16, tt)).astype(
+        np.float32))
+    feats = torch.from_numpy(g.normal(size=(blocks * 16, r)).astype(
+        np.float32))
+    kw = dict(n_visits=n_visits, n_tiles=n_tiles, reduce="first8")
+    want, _ = visit.visit_plain(tab, feats, **kw)
+    got = _first8_model(tab, feats, n_visits, n_tiles)
+    assert torch.equal(got, want)
+    assert (_first8_period(n_tiles) > visit.F8_SLOTS) == (n_tiles
+                                                               == 128)
+    assert (got < visit.BIG).all() if n_visits else \
+        (got == visit.BIG).all()
+
+
+def test_first8_model_refuses_a_wrong_parity():
+    """The model's bookkeeping is not decoration: a ring whose slot was
+    not yet refilled, or a resident slot waited on again after a wrap with
+    the flipped parity, fails its assertion."""
+    b = _Barrier()
+    b.complete()
+    assert b.passes(0) and not b.passes(1)
+    assert _first8_period(64) == 16 == visit.F8_SLOTS
+    assert _first8_period(7) == 1 and _first8_period(1) == 1
+    assert _first8_period(128) == 32 and _first8_period(63) == 9
+
+
 def _tf32_step(terms):
     """One k8 step of the tensor cores as TF32_KERNEL_BOUND models it:
     terms (exact products and the accumulator, float64, stacked on dim 0)
@@ -709,10 +823,12 @@ def test_smem_bytes_follow_the_refusal(variant, monkeypatch):
     """`visit` on a CUDA tensor raises on shared memory exactly where
     `_smem_bytes` passes SMEM_MAX; below it, it goes on to the launch
     (here stopped at the library, which a CPU machine cannot build).
-    Every kernel but first8 has a ring: its slots fill RING_BUDGET beside
-    the kernel's other shared memory, between the least it needs and the
-    most it takes; the TF32 visit's slots hold tiles padded to whole
-    wgmma steps."""
+    A ring's slots fill RING_BUDGET beside the kernel's other shared
+    memory, between the least it needs and the most it takes; the TF32
+    visit's slots hold tiles padded to whole wgmma steps.  first8's warps
+    hold F8_SLOTS slots of a tile's 8 columns each, whatever TT: its
+    shared memory does not grow with the tile, and the card never refuses
+    it."""
     tile, reduce, layout, precision = variant
     for tt in (32, 96, 128, 512, 1024, 1728, 1760, 2048, 3552, 3616, 3648,
                4096):
@@ -721,7 +837,11 @@ def test_smem_bytes_follow_the_refusal(variant, monkeypatch):
         need = visit._smem_bytes(tt, variant)
         step = 16 * visit._width(tt, precision) * 4
         if reduce == "first8":
-            assert need == step
+            assert need == visit.F8_SMEM <= visit.SMEM_MAX
+            assert visit.ring_stages(tt, tile, layout, reduce, precision) \
+                == visit.F8_SLOTS
+            assert need == visit.F8_WARPS * (visit.F8_SLOTS * (
+                16 * 8 * 4 + 8) + visit.ROWS * visit.F8_SPAN * 4)
         else:
             fixed, least, most = visit._ring_kernel(layout, reduce,
                                                     precision)
@@ -766,7 +886,7 @@ def test_smem_bytes_follow_the_refusal(variant, monkeypatch):
     assert [visit._width(tt, "default") for tt in (32, 128, 160, 512)] \
         == [128, 128, 256, 512]
     for v, tt in ((0, 128), (0, 512), (6, 128), (5, 128), (2, 128),
-                  (2, 512), (1, 128), (1, 512)):
+                  (2, 512), (1, 128), (1, 512), (4, 128), (4, 4096)):
         assert 2 * (visit._smem_bytes(tt, visit.VARIANTS[v]) + 1024) \
             <= 228 * 1024
 
