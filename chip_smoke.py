@@ -99,18 +99,18 @@ Phases (any failure exits non-zero):
      1 and 64 tiles, 128 and 4096 rays, 1 and 8 blocks), the MT visit at
      80 (TT 32 to 512, 0 to 64 visits, 1 and 64 tiles, 128 and 4096 rays)
      and the TF32 visit within its bound at the same 80, first8 at 64 (TT
-     32 to 512, 0 to 160 visits, 1 to 128 tiles: its warps' tiles held
-     at once and its ring; 128 and 4096 rays, 1 and 8 blocks), with
-     `floor_ms`, an empty launch of its grid; the TF32 visit's
-     line also carries `min_issue_ms`, its mins alone at the FP32 issue
-     rate beside the tensor cores' bound; the dot (P1b) in both precisions
-     against its plain version and float64, timed beside torch.matmul
-     with TF32 off and on (a yardstick the port never calls), a call and
-     on the device, with the host's microseconds a call by stage; the
-     relayout loop, which must equal x + n_iter exactly, timed beside
-     `x + 65.0` (one PyTorch call, the loop's output on the probe's
-     zeros though not on every input); for the dot and
-     the relayout also `floor_ms`, the device time of an empty kernel of
+     32 to 512, 0 to 160 visits, 1 to 128 tiles: up to 16 visits a warp,
+     one a slot, and its ring refilled; 128 and 4096 rays, 1 and 8
+     blocks), with `floor_ms`, an empty launch of its grid; the TF32
+     visit's line also carries `min_issue_ms`, its mins alone at the FP32
+     issue rate beside the tensor cores' bound; the dot (P1b) in both
+     precisions against its plain version and float64, timed beside
+     torch.matmul with TF32 off and on (a yardstick the port never
+     calls), a call and on the device, with the host's microseconds a
+     call by stage; the relayout loop, which must equal x + n_iter
+     exactly, timed beside `x + 65.0` (one PyTorch call, the loop's
+     output on the probe's zeros though not on every input); for the dot
+     and the relayout also `floor_ms`, the device time of an empty kernel of
      the same grid and block: what the card takes for any launch of that
      size;
  13. main path 5, training (diff.train_steps / train_step, zero target,
@@ -1051,10 +1051,10 @@ def check_lane_edges(torch):
 def check_first8_edges(torch):
     """first8 against its plain version, bit for bit, at the shapes its
     partition could break: TT 32, 96, 128 and 512, 0, 1, 2, 7 and 64
-    visits (a visit group with none or some), 1, 7 and 64 tiles (a
-    warp's distinct tiles held at once), 128 and 4096 rays, 1 and 8
-    blocks, and 160 visits of 128 tiles (more distinct tiles than a
-    warp's slots: its ring).  -> the number of shapes checked."""
+    visits (a visit group with none or some; at most 16 a warp, one a
+    slot), 1, 7 and 64 tiles, 128 and 4096 rays, 1 and 8 blocks, and 160
+    visits of 128 tiles (more visits than a warp's slots: its ring
+    refilled).  -> the number of shapes checked."""
     import numpy as np
     from raytracingrenderer_tpu_torch.ops import visit
     rays_blocks = ((128, 1), (4096, 8), (4096, 1), (128, 8))

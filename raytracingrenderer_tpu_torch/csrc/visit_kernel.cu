@@ -121,9 +121,8 @@
 // of its bytes.  Its first design staged the whole tile with the whole block
 // between two barriers, one ray a thread, and reached 26% of its issue
 // floor.  Now a warp brings in only its visits' columns (one 16-byte
-// cp.async a lane, on an mbarrier a slot), holds every distinct tile of its
-// visits at once where they fit (else a ring of slots that it refills
-// itself), and runs 4 rays a thread; the 4 warps of a block split the
+// cp.async a lane, on an mbarrier a slot) through a ring of 16 slots that
+// it refills itself, and runs 4 rays a thread; the 4 warps of a block split the
 // visits and meet once, after the last (the kernel's comment has the
 // partition).  The TF32 dot runs mma.sync.m16n8k8, 16 rows x 16 rays a
 // warp, 16 warps a block (dot_tf32_kernel).
@@ -159,7 +158,6 @@
 
 #include <climits>
 #include <cstdint>
-#include <numeric>
 
 namespace {
 
@@ -652,22 +650,20 @@ __device__ __forceinline__ void copies_arrive(uint32_t bar) {
 // columns of a tile are read: 16 rows x 32 bytes, one 16-byte cp.async a
 // lane.  A block takes kF8Span rays, kF8Rays consecutive ones a thread (a
 // float4 of the tile feeds 32 instructions); warp w takes the visits w, w
-// + kF8Warps, ...  Each warp brings its own visits' columns into kF8Slots
-// slots of its own, on a barrier a slot (its 32 lanes' copies): a warp's
-// visits repeat their tiles every `period` visits (visit j + period reads
-// the tile of visit j), so where period <= kF8Slots each distinct tile is
-// brought in once, up front, and visit j reads slot j % period; otherwise
-// the slots are a ring (visit j in slot j % kF8Slots, the (j / kF8Slots)-th
-// use of it, the parity it waits with) that the warp refills itself once it
-// has read a slot.  No barrier between warps stands in the loop.  The warps'
-// mins meet once, after the last visit, through shared memory (a min is
-// exact in any order, and every sum is left as it was).  (Warps on 4 of
-// the 8 columns, twice the warps, ran 10% slower: PERF.md.)
+// + kF8Warps, ...  Each warp brings its own visits' columns into a ring of
+// kF8Slots slots of its own, on a barrier a slot (its 32 lanes' copies):
+// visit j in slot j % kF8Slots, the (j / kF8Slots)-th use of it, the parity
+// it waits with; the warp refills a slot once it has read it.  A warp with
+// at most kF8Slots visits (the probe's shape) loads each once, up front.
+// No barrier between warps stands in the loop.  The warps' mins meet once,
+// after the last visit, through shared memory (a min is exact in any order,
+// and every sum is left as it was).  (Warps on 4 of the 8 columns, twice
+// the warps, ran 10% slower: PERF.md.)
 __global__ void __launch_bounds__(kF8Threads, 3)
 visit_first8_kernel(const float* __restrict__ tab,
                     const float* __restrict__ feats, float* __restrict__ t_out,
                     float* __restrict__ o_out, int r, int tt, int n_tiles,
-                    int n_visits, int period) {
+                    int n_visits) {
   extern __shared__ float4 smem4[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -682,8 +678,6 @@ visit_first8_kernel(const float* __restrict__ tab,
   const int ray0 = blockIdx.x * kF8Span;
   const int n_w =  // this warp's visits
       n_visits > warp ? (n_visits - warp + kF8Warps - 1) / kF8Warps : 0;
-  const bool ring = period > kF8Slots;
-  const int mod = ring ? kF8Slots : period;
 
   // the warp's j-th visit (visit warp + kF8Warps j) into slot s: lane l
   // copies the half l % 2 of row l / 2
@@ -699,7 +693,7 @@ visit_first8_kernel(const float* __restrict__ tab,
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncwarp();
-  for (int j = 0; j < mod && j < n_w; ++j) load(j, j);
+  for (int j = 0; j < kF8Slots && j < n_w; ++j) load(j, j);
 
   // the features of rays ray0 + kF8Rays lane .. + kF8Rays - 1, while the
   // first tiles arrive
@@ -722,11 +716,10 @@ visit_first8_kernel(const float* __restrict__ tab,
     for (int c = 0; c < kRows; ++c) m[i][c] = kBig;
   }
 
-  int s = 0;            // visit j's slot, j % mod, and
-  uint32_t parity = 0;  // the parity of its use of it, (j / mod) & 1
+  int s = 0;            // visit j's slot, j % kF8Slots, and
+  uint32_t parity = 0;  // the parity of its use of it, (j / kF8Slots) & 1
   for (int j = 0; j < n_w; ++j) {
-    // a slot held for the whole run is waited on at its first use only
-    if (ring || j < mod) mbar_wait(bar_a + 8 * s, parity);
+    mbar_wait(bar_a + 8 * s, parity);
     const float* p = slots + s * (kF8Slot / 4);
     float sum[kF8Rays][kRows];
 #pragma unroll
@@ -755,11 +748,11 @@ visit_first8_kernel(const float* __restrict__ tab,
 #pragma unroll
       for (int c = 0; c < kRows; ++c) m[i][c] = fminf(m[i][c], sum[i][c]);
     }
-    if (ring && j + mod < n_w) {
+    if (j + kF8Slots < n_w) {
       __syncwarp();  // every lane has read slot s
-      load(j + mod, s);
+      load(j + kF8Slots, s);
     }
-    if (++s == mod) {
+    if (++s == kF8Slots) {
       s = 0;
       parity ^= 1;
     }
@@ -1414,15 +1407,10 @@ extern "C" int visit_run(int variant, const float* tab, const float* feats,
     case 3:
       return launch_min<kStatic>(blocks, stream, tab, feats, t, o, r, tt,
                                  n_tiles, n_visits);
-    case 4: {
-      // a warp's visits repeat their tiles every `period`: the visits
-      // repeat theirs every n_tiles / gcd(7, n_tiles), and a warp takes
-      // every kF8Warps-th
-      const int p = n_tiles / std::gcd(7, n_tiles);
+    case 4:
       return launch(visit_first8_kernel, dim3(r / kF8Span, blocks),
                     kF8Threads, kF8Smem, stream, tab, feats, t, o, r, tt,
-                    n_tiles, n_visits, p / std::gcd(kF8Warps, p));
-    }
+                    n_tiles, n_visits);
     case 5:
       return launch_ring(visit_lane_kernel, dim3(r / kLaneSpan, blocks),
                          kLaneThreads,

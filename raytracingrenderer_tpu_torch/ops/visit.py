@@ -70,8 +70,8 @@ groups of 4 triangles and take the min of their bests after every visit
 same best; its tiles come through the ring.  The first8 visit runs
 F8_RAYS rays a thread; the F8_WARPS warps of a block split the visits
 (warp w takes visits w, w + F8_WARPS, ...) and meet after the last; each
-warp brings in only its visits' 8 columns, into F8_SLOTS slots of its
-own.  The TF32 visit runs on wgmma through a ring of
+warp brings in only its visits' 8 columns, through a ring of F8_SLOTS
+slots of its own.  The TF32 visit runs on wgmma through a ring of
 packed tiles: `visit` hands its kernel a scratch copy of the visited
 tiles, rounded, K-major and padded to whole steps of TF32_N triangles
 (`tf32_packed_tiles` of them), made anew on every call.  `_smem_bytes`

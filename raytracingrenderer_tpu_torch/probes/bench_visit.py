@@ -9,8 +9,8 @@ the fp32 min visit also at TT = 512 and at 512 visits), the dot in both
 precisions and the relayout loop; beside them, the same for every tree,
 one PyTorch call for the same function: `torch.matmul` of the dot's
 operands with allow_tf32 off and on, and `x + float(n_iter)` on the
-relayout's input (zeros, where it equals the loop's output).  Each tree's kernels must equal the
-plain versions (fp32 bit for bit, TF32 within visit.TF32_KERNEL_BOUND of
+relayout's input (zeros, where it equals the loop's output).  Each
+tree's kernels must equal the plain versions (fp32 bit for bit, TF32 within visit.TF32_KERNEL_BOUND of
 the sum of the products' magnitudes): where this tree's do not, the
 script exits 1; a `--parent` whose do not is named and left out of the
 timing.  The visits
@@ -18,9 +18,12 @@ are timed by CUDA events over 20 back-to-back launches into outputs
 allocated once; the dot, the relayout and the empty launch of their grid
 (`visit_floor`, where the tree has that launch) and the PyTorch calls
 by their device time under torch.profiler over 50 launches, in
-microseconds.  A number is the least of the rounds (`--out` keeps every
-round's, `samples`); the trees are timed in turns, the order reversed
-every round.  The card's name and power limit are printed with the
+microseconds.  The table gives each run's median over the rounds and,
+in brackets, its least (`--out` keeps both and every round's number,
+`samples`): device times of identical code differ by up to 5% in a
+round, so compare medians.  The trees are timed in turns, the order
+reversed every round.  An empty launch is timed for the kinds that the
+tree's `visit_floor` has (its ops/visit.py's FLOOR_KINDS).  The card's name and power limit are printed with the
 table.
 
 `--parent DIR` (repeatable) names a checkout of another commit, for
@@ -35,9 +38,11 @@ timed call, into scratch allocated once); one without, through
 from __future__ import annotations
 
 import argparse
+import ast
 import json
 import math
 import os
+import statistics
 import sys
 from pathlib import Path
 
@@ -69,25 +74,46 @@ def visit_runs():
     return runs
 
 
+def floor_kinds(tree):
+    """The kinds of a tree's `visit_floor`, in the order of its
+    ops/visit.py's FLOOR_KINDS (None: this tree's; () where the tree has
+    no FLOOR_KINDS)."""
+    if tree is None:
+        return visit.FLOOR_KINDS
+    path = Path(tree) / "raytracingrenderer_tpu_torch" / "ops" / "visit.py"
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "FLOOR_KINDS" for t in node.targets):
+            return tuple(ast.literal_eval(node.value))
+    return ()
+
+
 def load(tree):
     """The launchers of a tree's revision of the source (None: this
-    tree's); a revision that lacks `visit_floor` is bound without it."""
+    tree's), and under "floor_kinds" the kinds of its `visit_floor`; a
+    revision that lacks `visit_floor` is bound without it, and has none."""
     src = None if tree is None else Path(tree).resolve() / SOURCE
     sigs = dict(visit.SIGNATURES)
     text = "" if src is None else src.read_text()
     for name in ("visit_floor", "visit_tf32"):
         if src is not None and f'extern "C" int {name}(' not in text:
             del sigs[name]
-    return bind("visit_kernel", sigs, src)
+    lib = bind("visit_kernel", sigs, src)
+    lib["floor_kinds"] = floor_kinds(tree) if "visit_floor" in lib else ()
+    return lib
 
 
 class Case:
     """One run: its inputs, its outputs allocated once, what the plain
-    version gives, and how a tree's library launches it."""
+    version gives, and how a tree's library launches it; `floor`, the kind
+    of an empty launch, which runs only on a tree that has it."""
 
-    def __init__(self, name, call, outs, check, by_events):
+    def __init__(self, name, call, outs, check, by_events, floor=None):
         self.name, self.call, self.outs = name, call, outs
-        self.check, self.by_events = check, by_events
+        self.check, self.by_events, self.floor = check, by_events, floor
+
+    def runs_on(self, lib):
+        return self.floor is None or self.floor in lib["floor_kinds"]
 
     def time(self, lib):
         """ms by CUDA events, or device microseconds by the profiler."""
@@ -202,7 +228,7 @@ def library_cases(dev):
 
 def floor_cases(dev):
     """The empty launches of the dots', the relayout's and first8's
-    grids (no time where a tree has no such launch)."""
+    grids, each by its index in the tree's own FLOOR_KINDS."""
     a, b = probe_mxu.precision_inputs(dev)
     n = probe_mxu.RELAYOUT_BLOCKS * 32 * 128
     sizes = {"dot/highest": (a.shape[1], b.shape[1]),
@@ -211,14 +237,10 @@ def floor_cases(dev):
 
     def case(kind):
         def call(lib):
-            try:
-                if "visit_floor" in lib:
-                    launch(lib["visit_floor"], dev,
-                           visit.FLOOR_KINDS.index(kind), *sizes[kind])
-            except RuntimeError:   # a revision without this kind
-                pass
+            launch(lib["visit_floor"], dev, lib["floor_kinds"].index(kind),
+                   *sizes[kind])
         return Case(f"floor of {kind} [us on the device]", call, (),
-                    lambda: None, False)
+                    lambda: None, False, floor=kind)
 
     return [case(k) for k in visit.FLOOR_KINDS]
 
@@ -240,6 +262,8 @@ def main() -> None:
                 relayout_case(dev)] + floor_cases(dev) + library_cases(dev))
     for tree, lib in list(libs.items()):
         for c in cases:
+            if not c.runs_on(lib):
+                continue
             for x in c.outs:
                 x.fill_(float("nan"))
             c.call(lib)
@@ -260,25 +284,29 @@ def main() -> None:
         order = list(libs)[::-1] if rnd % 2 else list(libs)
         for c in cases:
             for tree in order:
-                if "floor" in c.name and "visit_floor" not in libs[tree]:
+                if not c.runs_on(libs[tree]):
                     continue
                 ms = c.time(libs[tree])
                 if not math.isnan(ms):
                     samples[c.name][tree].append(ms)
-    times = {c: {t: min(v, default=float("nan")) for t, v in per.items()}
+    nan = float("nan")
+    medians = {c: {t: statistics.median(v) if v else nan
+                   for t, v in per.items()} for c, per in samples.items()}
+    least = {c: {t: min(v, default=nan) for t, v in per.items()}
              for c, per in samples.items()}
-    print(f"the least of {args.rounds} rounds [{name}]")
+    print(f"the median [least] of {args.rounds} rounds [{name}]")
     width = max(len(c.name) for c in cases)
     print(" " * width + "  " + "  ".join(f"{t[-24:]:>24}" for t in libs))
     for c in cases:
-        print(f"{c.name:<{width}}  "
-              + "  ".join(f"{times[c.name][t]:24.4f}" for t in libs),
-              flush=True)
+        print(f"{c.name:<{width}}  " + "  ".join(
+            f"{medians[c.name][t]:>13.4f} [{least[c.name][t]:.4f}]"
+            for t in libs), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"card": name, "rounds": args.rounds, "times": times,
+            json.dump({"card": name, "rounds": args.rounds,
+                       "medians": medians, "least": least,
                        "samples": samples}, f, indent=1)
 
 

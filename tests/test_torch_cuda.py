@@ -35,8 +35,8 @@ and launched back to back on a side stream; the lane visit at 0 to 64
 visits, 1 and 64 tiles, 128 and 4096 rays, 1 and 8 blocks; the MT visit
 (bit for bit) and the TF32 visit at TT 32 to 512, 0 to 64 visits, 1 and
 64 tiles, 128 and 4096 rays; first8 (bit for bit) at TT 32 to 512, 0 to
-160 visits, 1, 7, 64 and 128 tiles (its warps' tiles held at once, and
-its ring), 128 and 4096 rays, 1 and 8 blocks, and launched back to back
+160 visits, 1, 7, 64 and 128 tiles (up to 16 visits a warp, one a slot,
+and its ring refilled), 128 and 4096 rays, 1 and 8 blocks, and launched back to back
 on a side stream; both dots at TT 16, 48, 128 and 512 and R 128, 4096
 and 65536, the TF32 dot also back to back on a side stream; a refused launch raises and
 leaves no error behind; a launch with the tensors' device already
@@ -527,8 +527,9 @@ def test_visit_first8_kernel_edge_shapes(cuda, tt, n_visits, n_tiles, r,
                                          blocks):
     """first8 bit for bit where its partition could break: a visit group
     with no visit or some; one tile, every visit on tile 0, 64 distinct
-    tiles held at once, or (160 visits of 128 tiles) more distinct tiles
-    than a warp's slots, its ring; one block of rays or many."""
+    tiles, up to 16 visits a warp (a slot each), or (160 visits of 128
+    tiles) more visits than a warp's slots, its ring refilled; one block
+    of rays or many."""
     g = np.random.default_rng(tt + n_visits + n_tiles)
     tab = torch.from_numpy(g.normal(size=(n_tiles * 16, tt)).astype(
         np.float32)).to(cuda)
@@ -544,8 +545,9 @@ def test_visit_first8_kernel_edge_shapes(cuda, tt, n_visits, n_tiles, r,
 
 
 def test_visit_first8_kernel_back_to_back_on_a_side_stream(cuda):
-    """first8 launched back to back on a side stream, held and ring runs
-    mixed: each launch sets up its warps' barriers anew."""
+    """first8 launched back to back on a side stream, runs with and
+    without refills of the ring mixed: each launch sets up its warps'
+    barriers anew."""
     runs = []
     for tt, n_visits, n_tiles in ((128, 64, 64), (128, 160, 128),
                                   (32, 7, 7), (512, 2, 64), (96, 0, 1),

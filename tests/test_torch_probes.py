@@ -35,9 +35,10 @@ of the test first, the lanes' bests met in a butterfly after every
 visit, the ring), at 80 shapes; with one-hot features a planted hit that
 a best private to a lane would take and the plain version rejects shows
 the exchange is needed.  So is one of first8's (visit_first8_kernel:
-4 warps on every fourth visit each, a warp's visits' 8 columns held in
-slots of its own, all at once where its distinct tiles fit, else a ring;
-the warps' mins met at the end) at 64 shapes.  The TF32 dot keeps its
+4 warps on every fourth visit each, a warp's visits' 8 columns through a
+ring of slots of its own with its barriers' parities; the warps' mins met
+at the end) at 64 shapes, and two faults planted in its bookkeeping make
+it fail.  The TF32 dot keeps its
 accumulation (two mma.sync k8 steps, as the TF32 visit's model has it).
 A model of the TF32 visit's accumulation (two k8
 steps, each 8 exact products and the accumulator aligned, truncated and
@@ -46,7 +47,6 @@ rounded once) stays within TF32_KERNEL_BOUND of `visit_plain`.
 count to the numbers written by hand."""
 import functools
 import importlib.util
-import math
 import os
 import subprocess
 import sys
@@ -658,67 +658,51 @@ def test_mt_exchange_planted_case(tt, tri):
     assert (private < want[:, 0]).all()
 
 
-def _first8_period(n_tiles):
-    """Visits of a first8 warp after which its tiles repeat, as the
-    kernel's launcher computes it: the visits' tiles (i * 7) % n_tiles
-    repeat every p = n_tiles / gcd(7, n_tiles) visits, and a warp takes
-    every F8_WARPS-th visit."""
-    p = n_tiles // math.gcd(7, n_tiles)
-    return p // math.gcd(visit.F8_WARPS, p)
-
-
-def _first8_model(tab, feats, n_visits, n_tiles):
-    """visit_first8_kernel's partition in torch -> t (blocks, 8, R): warp
-    w takes visits w, w + F8_WARPS, ... and brings their columns (only the
-    first 8 of a tile: 16 rows x 32 bytes) into F8_SLOTS slots of its own,
-    each on a barrier that one load completes.  Where its tiles repeat
-    within F8_SLOTS visits (`_first8_period`) it brings in each once, up
-    front, and visit j reads slot j % period, waited on at its first use
-    only; else the slots are a ring: visit j in slot j % F8_SLOTS with
-    parity (j // F8_SLOTS) & 1, refilled by the warp with visit j +
-    F8_SLOTS once read.  Each warp keeps its own running mins; they meet
-    after the last visit."""
+def _first8_model(tab, feats, n_visits, n_tiles, fault=None):
+    """visit_first8_kernel's partition in torch -> (t (blocks, 8, R), the
+    slots refilled): warp w takes visits w, w + F8_WARPS, ... and brings
+    their columns (only the first 8 of a tile: 16 rows x 32 bytes) through
+    a ring of F8_SLOTS slots of its own, each on a barrier that one load
+    completes: visit j in slot j % F8_SLOTS with parity (j // F8_SLOTS) &
+    1, the slot refilled by the warp with visit j + F8_SLOTS once read.
+    Each warp keeps its own running mins; they meet after the last visit.
+    `fault` plants a mistake in the bookkeeping: "no_refill" leaves a read
+    slot as it is, "parity_kept" waits with parity 0 after every wrap."""
     blocks, r = feats.shape[0] // 16, feats.shape[1]
     assert r % visit.F8_SPAN == 0
     f = feats.view(blocks, 16, r)
     tiles = [s[0] for s in visit.tile_steps(n_visits, n_tiles, "dynamic")]
-    period = _first8_period(n_tiles)
-    ring = period > visit.F8_SLOTS
-    mod = visit.F8_SLOTS if ring else period
+    n_slots = visit.F8_SLOTS
     t = torch.full((blocks, visit.ROWS, r), visit.BIG)
+    refills = 0
     for w in range(visit.F8_WARPS):
         mine = tiles[w::visit.F8_WARPS]
-        # a warp's visits j and j + period read one tile
-        assert all(mine[j] == mine[j + period]
-                   for j in range(len(mine) - period))
-        slot, held = [None] * visit.F8_SLOTS, [None] * visit.F8_SLOTS
-        full = [_Barrier() for _ in range(visit.F8_SLOTS)]
+        slot, held = [None] * n_slots, [None] * n_slots
+        full = [_Barrier() for _ in range(n_slots)]
 
         def load(j, s):
             slot[s] = tab[mine[j] * 16:(mine[j] + 1) * 16, :visit.ROWS]
             held[s] = j
             full[s].complete()
 
-        for j in range(min(mod, len(mine))):
+        for j in range(min(n_slots, len(mine))):
             load(j, j)
         m = torch.full((blocks, visit.ROWS, r), visit.BIG)
         s, parity = 0, 0
         for j in range(len(mine)):
-            if ring or j < mod:
-                assert full[s].passes(parity)
-            else:   # a resident slot: its barrier's one phase completed
-                # long ago, and a wait with the running parity would hang
-                # after every odd wrap
-                assert full[s].passes(0) and not full[s].passes(1)
-            assert held[s] == (j if ring else j % period)
+            assert full[s].passes(parity)
+            assert held[s] == j
             m = torch.minimum(m, visit._contract(slot[s], f))
-            if ring and j + mod < len(mine):
-                load(j + mod, s)
+            if j + n_slots < len(mine) and fault != "no_refill":
+                load(j + n_slots, s)
+                refills += 1
             s += 1
-            if s == mod:
-                s, parity = 0, parity ^ 1
+            if s == n_slots:
+                s = 0
+                if fault != "parity_kept":
+                    parity ^= 1
         t = torch.minimum(t, m)
-    return t
+    return t, refills
 
 
 _RAYS_BLOCKS = ((128, 1), (4096, 8), (4096, 1), (128, 8))
@@ -736,9 +720,9 @@ def test_first8_partition_model_equals_plain(tt, n_visits, n_tiles, r,
                                              blocks):
     """first8's partition, bit for bit (its 8 rows), where it
     could break: a warp with no visit (0 to 2 visits) or some; one
-    tile, 7 (every visit on tile 0) or 64 distinct tiles held at once; and,
-    at 160 visits of 128 tiles, more distinct tiles than a warp's slots
-    (the ring)."""
+    tile, 7 (every visit on tile 0) or 64 distinct tiles; up to 16 visits
+    a warp, each in a slot of its own; and, at 160 visits of 128 tiles,
+    more visits than a warp's slots (the ring refilled)."""
     g = np.random.default_rng(tt + n_visits + n_tiles)
     tab = torch.from_numpy(g.normal(size=(n_tiles * 16, tt)).astype(
         np.float32))
@@ -746,24 +730,28 @@ def test_first8_partition_model_equals_plain(tt, n_visits, n_tiles, r,
         np.float32))
     kw = dict(n_visits=n_visits, n_tiles=n_tiles, reduce="first8")
     want, _ = visit.visit_plain(tab, feats, **kw)
-    got = _first8_model(tab, feats, n_visits, n_tiles)
+    got, refills = _first8_model(tab, feats, n_visits, n_tiles)
     assert torch.equal(got, want)
-    assert (_first8_period(n_tiles) > visit.F8_SLOTS) == (n_tiles
-                                                               == 128)
+    assert (refills > 0) == (n_visits > visit.F8_WARPS * visit.F8_SLOTS)
     assert (got < visit.BIG).all() if n_visits else \
         (got == visit.BIG).all()
 
 
-def test_first8_model_refuses_a_wrong_parity():
-    """The model's bookkeeping is not decoration: a ring whose slot was
-    not yet refilled, or a resident slot waited on again after a wrap with
-    the flipped parity, fails its assertion."""
-    b = _Barrier()
-    b.complete()
-    assert b.passes(0) and not b.passes(1)
-    assert _first8_period(64) == 16 == visit.F8_SLOTS
-    assert _first8_period(7) == 1 and _first8_period(1) == 1
-    assert _first8_period(128) == 32 and _first8_period(63) == 9
+@pytest.mark.parametrize("fault", ["no_refill", "parity_kept"])
+def test_first8_model_refuses_a_wrong_parity(fault):
+    """The model's bookkeeping is not decoration: in the ring case (160
+    visits of 128 tiles, 40 a warp) a read slot left unrefilled, or a wait
+    with the parity not flipped after a wrap, fails its assertion, where
+    the model as the kernel keeps it equals the plain version."""
+    g = np.random.default_rng(160)
+    tab = torch.from_numpy(g.normal(size=(128 * 16, 32)).astype(np.float32))
+    feats = torch.from_numpy(g.normal(size=(16, 128)).astype(np.float32))
+    want, _ = visit.visit_plain(tab, feats, n_visits=160, n_tiles=128,
+                                reduce="first8")
+    got, refills = _first8_model(tab, feats, 160, 128)
+    assert torch.equal(got, want) and refills == 4 * (40 - visit.F8_SLOTS)
+    with pytest.raises(AssertionError):
+        _first8_model(tab, feats, 160, 128, fault=fault)
 
 
 def _tf32_step(terms):
@@ -925,3 +913,24 @@ def test_probe_exits_nonzero_without_card(probe):
     assert out.returncode != 0
     assert "cuda.is_available" in out.stderr
     assert "TFLOP/s" not in out.stdout
+
+
+def test_bench_visit_times_the_floors_each_tree_has(tmp_path):
+    """bench_visit launches an empty kernel only for the kinds in a
+    tree's own FLOOR_KINDS, by their index there: an older tree without
+    first8's kind is not asked for it, and no launch error is swallowed."""
+    from raytracingrenderer_tpu_torch.probes import bench_visit
+    assert bench_visit.floor_kinds(None) == visit.FLOOR_KINDS
+    ops = tmp_path / "raytracingrenderer_tpu_torch" / "ops"
+    ops.mkdir(parents=True)
+    (ops / "visit.py").write_text(
+        'X = 1\nFLOOR_KINDS = ("dot/highest", "dot/default", "relayout")\n')
+    older = bench_visit.floor_kinds(tmp_path)
+    assert older == visit.FLOOR_KINDS[:3]
+    floors = bench_visit.floor_cases(torch.device("cpu"))
+    assert [c.floor for c in floors] == list(visit.FLOOR_KINDS)
+    assert [c.runs_on({"floor_kinds": older}) for c in floors] == [
+        True, True, True, False]
+    assert not any(c.runs_on({"floor_kinds": ()}) for c in floors)
+    (ops / "visit.py").write_text("X = 1\n")
+    assert bench_visit.floor_kinds(tmp_path) == ()
