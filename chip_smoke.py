@@ -108,8 +108,10 @@ Phases (any failure exits non-zero):
      torch.matmul with TF32 off and on (a yardstick the port never
      calls), a call and on the device, with the host's microseconds a
      call by stage; the relayout loop, which must equal x + n_iter
-     exactly, timed beside `x + 65.0` (one PyTorch call, the loop's
-     output on the probe's zeros though not on every input); for the dot
+     exactly on the probe's zeros and the plain loop bit for bit on normal
+     values, values >= 2^25 and fractions, timed beside `x + 65.0` (one
+     PyTorch call, the loop's output on the probe's zeros though not on
+     every input); for the dot
      and the relayout also `floor_ms`, the device time of an empty kernel of
      the same grid and block: what the card takes for any launch of that
      size;
@@ -1284,8 +1286,12 @@ def check_probes(torch, card):
             rel_err_f64_median=float(np.median(rel)),
             rel_err_f64_max=float(rel.max()))
 
-    # the relayout loop (P1c): x + n_iter exactly
+    # the relayout loop (P1c): x + n_iter exactly on the probe's zeros, and
+    # the plain loop bit for bit on values where n_iter roundings differ
+    # from one addition (normal, >= 2^25, fractions)
+    from raytracingrenderer_tpu_torch.probes.bench_visit import relayout_input
     x = torch.zeros((probe_mxu.RELAYOUT_BLOCKS * 32, 128), device="cuda")
+    xr = relayout_input(x.shape, "cuda", seed=5)
     per = {}
     floor_ms = device_ms(lambda: visit.floor_launch("relayout", x.numel()))
     for n_iter in (1, 65):
@@ -1294,6 +1300,10 @@ def check_probes(torch, card):
                                 lambda: visit.relayout_loop_plain(x, n_iter))
         if not (torch.equal(k, x + n_iter) and torch.equal(k, p)):
             fail(f"relayout n_iter={n_iter}: not x + n_iter")
+        if not torch.equal(visit.relayout_loop(xr, n_iter),
+                           visit.relayout_loop_plain(xr, n_iter)):
+            fail(f"relayout n_iter={n_iter}: not the plain loop on random "
+                 f"input")
         ms = time_ms(torch, lambda: visit.relayout_loop(x, n_iter), 200)
         dev_ms = device_ms(lambda: visit.relayout_loop(x, n_iter))
         per[n_iter] = (ms, plain_ms,

@@ -151,8 +151,16 @@
 // shape is its strides, and a reshape of a contiguous (32, 128) block to
 // (1, 4096) moves no data, where the TPU moves values between its (8, 128)
 // register tiles.  What is left is n_iter additions of 1.0 per element,
-// kept in a register, and its 2 MB of reads and writes bound it.  It is a
-// trivial elementwise pass; it stays CUDA to keep one build per source.
+// each rounded (so not one addition of n_iter, which rounds otherwise for
+// fractions and for |x| >= 2^24).  At the probe's 2^18 floats and n_iter
+// 65 its bound is its 2 MB of reads and writes (0.63 us), its additions
+// are 0.51 us of FP32 issue, and an empty launch of its first grid (1,024
+// blocks of 256 threads, one float a thread) took 1.44 us of its 2.17.
+// Now a thread loads kRelayoutVecs float4s (LDG.128), runs their
+// 4 * kRelayoutVecs independent chains of additions side by side, so the
+// adds' latency overlaps, and stores float4s; the grid is one wave at
+// most (kRelayoutBlocksPerSm blocks of the 132 SMs), walking longer
+// inputs by a grid stride: 128 blocks at the probe's size.
 
 #include <cuda_runtime.h>
 
@@ -1293,16 +1301,52 @@ dot_tf32_kernel(const float* __restrict__ a, const float* __restrict__ b,
 }
 
 // ------------------------------------------------------------------ relayout
-constexpr int kRelayoutBlock = 256;
+constexpr int kRelayoutThreads = 256;
+constexpr int kRelayoutVecs = 2;          // float4s a thread holds at once
+constexpr int kRelayoutBlocksPerSm = 4;
+constexpr int kSms = 132;
 
-__global__ void __launch_bounds__(kRelayoutBlock)
+// out[i] = x[i] + 1.0f, n_iter times, for i < n.  Thread g of the grid's
+// T threads takes the float4s g, g + T, ..., kRelayoutVecs at a time;
+// thread 0 also takes the n % 4 floats past the last float4.
+__global__ void __launch_bounds__(kRelayoutThreads)
 relayout_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
                 int n_iter) {
-  const int i = blockIdx.x * kRelayoutBlock + threadIdx.x;
-  if (i >= n) return;
-  float v = x[i];
-  for (int it = 0; it < n_iter; ++it) v = v + 1.0f;
-  out[i] = v;
+  const float4* __restrict__ x4 = reinterpret_cast<const float4*>(x);
+  float4* __restrict__ out4 = reinterpret_cast<float4*>(out);
+  const int n4 = n >> 2;
+  const int stride = gridDim.x * kRelayoutThreads;
+  const int g = blockIdx.x * kRelayoutThreads + threadIdx.x;
+  for (int i0 = g; i0 < n4; i0 += kRelayoutVecs * stride) {
+    float4 v[kRelayoutVecs];
+#pragma unroll
+    for (int j = 0; j < kRelayoutVecs; ++j) {
+      const int i = i0 + j * stride;
+      v[j] = i < n4 ? __ldg(x4 + i) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll 4
+    for (int it = 0; it < n_iter; ++it) {
+#pragma unroll
+      for (int j = 0; j < kRelayoutVecs; ++j) {
+        v[j].x = v[j].x + 1.0f;
+        v[j].y = v[j].y + 1.0f;
+        v[j].z = v[j].z + 1.0f;
+        v[j].w = v[j].w + 1.0f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kRelayoutVecs; ++j) {
+      const int i = i0 + j * stride;
+      if (i < n4) out4[i] = v[j];
+    }
+  }
+  if (g == 0) {
+    for (int i = n4 * 4; i < n; ++i) {
+      float v = x[i];
+      for (int it = 0; it < n_iter; ++it) v = v + 1.0f;
+      out[i] = v;
+    }
+  }
 }
 
 // Launch with `smem` bytes of dynamic shared memory (raising the kernel's
@@ -1338,8 +1382,13 @@ Shape dot_shape(int tf32, int tt, int r) {
           32 * kDotWarps};
 }
 
+// One block for every kRelayoutVecs float4s a thread, one wave at most.
 Shape relayout_shape(int n) {
-  return {dim3((n + kRelayoutBlock - 1) / kRelayoutBlock), kRelayoutBlock};
+  constexpr int span = kRelayoutThreads * kRelayoutVecs;
+  const int blocks = ((n >> 2) + span - 1) / span;
+  const int most = kRelayoutBlocksPerSm * kSms;
+  return {dim3(blocks < 1 ? 1 : (blocks > most ? most : blocks)),
+          kRelayoutThreads};
 }
 
 __global__ void empty_kernel() {}
@@ -1458,7 +1507,8 @@ extern "C" int visit_dot(int tf32, const float* a, const float* b, float* out,
                 stream, a, b, out, tt, r);
 }
 
-// out = x + 1.0 added n_iter times, element by element, over n floats.
+// out = x + 1.0 added n_iter times, element by element, over n floats;
+// 16-byte aligned pointers.
 extern "C" int visit_relayout(const float* x, float* out, int n, int n_iter,
                               cudaStream_t stream) {
   if (n <= 0) return 0;

@@ -499,6 +499,7 @@ def relayout_loop(x: torch.Tensor, n_iter: int) -> torch.Tensor:
     if dev.type == "cpu":
         return relayout_loop_plain(x, n_iter)
     _cuda(dev, "relayout")
+    _aligned(x=x)
     out = torch.empty_like(x)
     launch(_library()["visit_relayout"], dev,
            x.data_ptr(), out.data_ptr(), x.numel(), n_iter)

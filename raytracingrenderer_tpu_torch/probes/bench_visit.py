@@ -6,10 +6,12 @@ the probes' sizes, alone or beside another tree's revision of the source:
 
 Runs: every distinct visit run of the three probes (the seven variants;
 the fp32 min visit also at TT = 512 and at 512 visits), the dot in both
-precisions and the relayout loop; beside them, the same for every tree,
-one PyTorch call for the same function: `torch.matmul` of the dot's
-operands with allow_tf32 off and on, and `x + float(n_iter)` on the
-relayout's input (zeros, where it equals the loop's output).  Each
+precisions and the relayout loop (on normal values, values >= 2^25 and
+fractions, where n_iter roundings differ from one); beside them, the
+same for every tree, one PyTorch call for the same function:
+`torch.matmul` of the dot's operands with allow_tf32 off and on, and
+`x + float(n_iter)` on the probe's relayout input (zeros, where it
+equals the loop's output).  Each
 tree's kernels must equal the plain versions (fp32 bit for bit, TF32 within visit.TF32_KERNEL_BOUND of
 the sum of the products' magnitudes): where this tree's do not, the
 script exits 1; a `--parent` whose do not is named and left out of the
@@ -187,8 +189,21 @@ def dot_case(prec, dev):
     return Case(f"dot/{prec} [us on the device]", call, (out,), check, False)
 
 
+def relayout_input(shape, dev, seed=0):
+    """Normal values, every seventh times 2^25 (where +1.0 rounds away)
+    and every fifth plus a quarter: an input on which the loop's n_iter
+    roundings differ from one addition of n_iter."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g)
+    x.view(-1)[::7] *= 2.0 ** 25
+    x.view(-1)[::5] += 0.25
+    return x.to(dev)
+
+
 def relayout_case(dev):
-    x = torch.zeros((probe_mxu.RELAYOUT_BLOCKS * 32, 128), device=dev)
+    """The relayout loop on `relayout_input`, held to the plain loop."""
+    x = relayout_input((probe_mxu.RELAYOUT_BLOCKS * 32, 128), dev)
+    want = visit.relayout_loop_plain(x, RELAYOUT_ITERS)
     out = torch.empty_like(x)
 
     def call(lib):
@@ -196,8 +211,7 @@ def relayout_case(dev):
                x.numel(), RELAYOUT_ITERS)
 
     def check():
-        return None if torch.equal(out, x + RELAYOUT_ITERS) else \
-            "not x + n_iter"
+        return None if torch.equal(out, want) else "not the plain loop"
 
     return Case(f"relayout n={RELAYOUT_ITERS} [us on the device]", call,
                 (out,), check, False)

@@ -606,14 +606,25 @@ def test_dot_kernel_matches_plain(cuda, precision, tt, r):
                 * visit.tf32_scale(a, b)).all()
 
 
-def test_relayout_kernel_is_exact(cuda):
-    x = torch.from_numpy(np.random.default_rng(37).normal(
-        size=(64 * 32, 128)).astype(np.float32)).to(cuda)
+@pytest.mark.parametrize("blocks", [1, 3, 64, 65, 1057, 2130])
+def test_relayout_kernel_is_exact(cuda, blocks):
+    """Bit for bit with the plain loop at one block of 32 rows, odd
+    counts, the probe's 64 and past one wave of the kernel's grid (the
+    grid stride), on normal values, values >= 2^25 (where +1.0 rounds
+    away) and fractions; and on zeros, where it is x + n_iter."""
+    x = np.random.default_rng(37 + blocks).normal(
+        size=(blocks * 32, 128)).astype(np.float32)
+    x.reshape(-1)[::7] *= 2.0 ** 25
+    x.reshape(-1)[::5] += 0.25
+    x = torch.from_numpy(x).to(cuda)
+    zeros = torch.zeros_like(x)
     before = visit.launches["relayout"]
     for n_iter in (1, 65):
         assert torch.equal(visit.relayout_loop(x, n_iter),
                            visit.relayout_loop_plain(x, n_iter))
-    assert visit.launches["relayout"] == before + 2
+        assert torch.equal(visit.relayout_loop(zeros, n_iter),
+                           zeros + n_iter)
+    assert visit.launches["relayout"] == before + 4
 
 
 def test_refused_launch_raises(cuda):

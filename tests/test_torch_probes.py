@@ -40,6 +40,11 @@ ring of slots of its own with its barriers' parities; the warps' mins met
 at the end) at 64 shapes, and two faults planted in its bookkeeping make
 it fail.  The TF32 dot keeps its
 accumulation (two mma.sync k8 steps, as the TF32 visit's model has it).
+The relayout kernel's mapping (a thread's float4s g, g + T, ...,
+two at a time over a grid of one wave at most; the n % 4 tail on thread
+0) is modelled too and must take every float once, at one block of 32
+rows, odd block counts, and sizes past one wave; and the kernel's
+loop is held to `relayout_loop_plain` on values >= 2^24 and fractions.
 A model of the TF32 visit's accumulation (two k8
 steps, each 8 exact products and the accumulator aligned, truncated and
 rounded once) stays within TF32_KERNEL_BOUND of `visit_plain`.
@@ -735,6 +740,94 @@ def test_first8_partition_model_equals_plain(tt, n_visits, n_tiles, r,
     assert (refills > 0) == (n_visits > visit.F8_WARPS * visit.F8_SLOTS)
     assert (got < visit.BIG).all() if n_visits else \
         (got == visit.BIG).all()
+
+
+# csrc/visit_kernel.cu's kRelayoutThreads, kRelayoutVecs,
+# kRelayoutBlocksPerSm and kSms
+RL_THREADS, RL_VECS, RL_WAVE = 256, 2, 4 * 132
+
+
+def _relayout_model(x, n_iter, step=RL_VECS):
+    """relayout_kernel over the flat floats of x: thread g of the grid's
+    T threads loads the float4s g, g + T, ... RL_VECS at a time (the loop
+    advancing `step` strides), adds 1.0 n_iter times to each float, and
+    stores them; thread 0 also takes the n % 4 floats past the last
+    float4.  Asserts that no float is written twice; unwritten floats
+    stay NaN."""
+    flat = x.reshape(-1)
+    n = flat.numel()
+    n4 = n // 4
+    blocks = min(max(-(-n4 // (RL_THREADS * RL_VECS)), 1), RL_WAVE)
+    t = blocks * RL_THREADS
+    idx = []
+    for g in range(t):
+        for i0 in range(g, n4, step * t):
+            idx += [i0 + j * t for j in range(RL_VECS) if i0 + j * t < n4]
+    idx = torch.tensor(idx, dtype=torch.int64)
+    assert idx.unique().numel() == idx.numel(), "a float4 written twice"
+    out = torch.full((n,), float("nan"))
+    cols = (idx[:, None] * 4 + torch.arange(4)).reshape(-1)
+    v = flat[cols]
+    tail = torch.arange(n4 * 4, n)
+    w = flat[tail]
+    for _ in range(n_iter):
+        v = v + 1.0
+        w = w + 1.0
+    out[cols] = v
+    out[tail] = w
+    return out.reshape(x.shape), blocks
+
+
+def _relayout_input(rows, seed):
+    """Normal values, every seventh times 2^25 (where +1.0 rounds away)
+    and every fifth plus a quarter."""
+    x = np.random.default_rng(seed).normal(size=(rows, 128)).astype(
+        np.float32)
+    x.reshape(-1)[::7] *= 2.0 ** 25
+    x.reshape(-1)[::5] += 0.25
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 64, 65, 1057, 2113 + 17])
+@pytest.mark.parametrize("n_iter", [1, 65])
+def test_relayout_partition_model_equals_plain(blocks, n_iter):
+    """The kernel's mapping takes each float once, bit for bit with the
+    plain loop: one block of 32 rows (2 of the kernel's blocks, the second
+    half idle), odd counts, the probe's 64, and past one wave (528 blocks
+    of 512 float4s, so the grid stride loops)."""
+    x = _relayout_input(blocks * 32, blocks + n_iter)
+    got, grid = _relayout_model(x, n_iter)
+    want = visit.relayout_loop_plain(x, n_iter)
+    assert torch.equal(got, want)
+    assert grid == min(-(-blocks * 1024 // 512), RL_WAVE)
+    if blocks >= 1057:
+        assert grid == RL_WAVE
+
+
+def test_relayout_model_fails_a_short_stride():
+    """A loop that advanced one stride a step, not RL_VECS, would load
+    float4s twice past one wave: the model refuses it, where it passes as
+    the kernel keeps it."""
+    x = _relayout_input(1057 * 32, 1)
+    _relayout_model(x, 1)
+    with pytest.raises(AssertionError):
+        _relayout_model(x, 1, step=1)
+
+
+def test_relayout_tail_and_rounding():
+    """The n % 4 floats past the last float4 (a size the wrapper never
+    passes, which the C interface takes) and the loop's rounding: 2^24
+    stays 2^24 under +1.0 (round to even) however often, where one
+    addition of n_iter moves it; a fraction gains n_iter roundings."""
+    x = torch.tensor([2.0 ** 24, 0.1, -3.5, 2.0 ** 25 + 2.0, 7.0, 1e-8])
+    got, _ = _relayout_model(x, 65)
+    want = x.clone()
+    for _ in range(65):
+        want = want + 1.0
+    assert torch.equal(got, want)
+    assert got[0] == 2.0 ** 24 and (x + 65.0)[0] != 2.0 ** 24
+    p = visit.relayout_loop_plain(_relayout_input(32, 2), 65)
+    assert not torch.equal(p, _relayout_input(32, 2) + 65.0)
 
 
 @pytest.mark.parametrize("fault", ["no_refill", "parity_kept"])
