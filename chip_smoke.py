@@ -134,7 +134,17 @@ Phases (any failure exits non-zero):
      same key, for the cornell box at 128x128 (scan) and the
      5,156-triangle scene at 128x128 (wavefront): loss within rel 1e-4,
      each material and light array within rtol 1e-3 / atol 1e-3 *
-     max|g|, tri_p0 within a relative L2 error of 1e-2.
+     max|g|, tri_p0 within a relative L2 error of 1e-2;
+ 14. main path 6, training with the NEE visibility boundary term
+     (boundary_grads=True, boundary_samples 4; integrators/boundary.py,
+     whose probe rays are B1 and B2 launches): (a) the cornell box at
+     1024x1024 as in 13 (a), train_steps(n=2) timed, with the peak memory
+     of a step with remat on; (b) the spheres scene as in 13 (b); each
+     prints its fwdbwd_pps beside phase 13's, its B1 / B2 launches (none
+     inside a backward), and one profiled step's device time by operator
+     in each half and under the term's stages (record_function ranges
+     around `boundary_direct`, its probes and its cell masks); (c) the
+     gradient check of 13 (c) with the term on.
 
 Each kernel's line carries its bound: the least time the card could
 take for the same work, the larger of its operations over the peak rate
@@ -166,6 +176,7 @@ N_BVH_CHECK = (1 << 20) + 77      # B2: the render's primary width + a tail
 BENCH_CFG = dict(mis=True, jitter=True, max_depth=4)
 SPP = 8
 TRAIN_STEPS = 8         # bench.py's training call: 8 SGD steps, lr 0.01
+BOUNDARY_STEPS = 2      # main path 6's cornell train_steps (about 14 s each)
 TRAIN_LR = 0.01
 PEAK_FP32 = 67e12       # FLOP/s, FP32 outside the tensor cores
 PEAK_TF32 = 495e12      # FLOP/s, dense TF32 on the tensor cores
@@ -1515,6 +1526,38 @@ class WatchBackward:
         return out
 
 
+class BoundaryRanges:
+    """With `on`, the boundary term's stages wrapped in
+    torch.profiler.record_function ranges for the block: the whole term
+    a bounce (`boundary_direct`), its probe rays (`occluded`, B1 or B2)
+    and its cell masks (`_valid_cells`), so that a profile splits its
+    device time by stage."""
+    NAMES = ("boundary_direct", "boundary_probes", "boundary_cells")
+
+    def __init__(self, torch, on):
+        self.torch, self.on = torch, on
+
+    def __enter__(self):
+        if not self.on:
+            return self
+        from raytracingrenderer_tpu_torch.integrators import boundary, path
+        rf = self.torch.profiler.record_function
+        self.saved = [(path, "boundary_direct"), (boundary, "occluded"),
+                      (boundary, "_valid_cells")]
+        self.saved = [(m, a, getattr(m, a)) for m, a in self.saved]
+        for (mod, attr, fn), name in zip(self.saved, self.NAMES):
+            def wrapped(*args, _fn=fn, _name=name, **kwargs):
+                with rf(_name):
+                    return _fn(*args, **kwargs)
+            setattr(mod, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        if self.on:
+            for mod, attr, fn in self.saved:
+                setattr(mod, attr, fn)
+
+
 def finite_params(torch, scene) -> bool:
     from raytracingrenderer_tpu_torch import diff
     params, _ = diff._split_scene(scene)
@@ -1525,10 +1568,13 @@ def profile_step(torch, card, name, scene, cfg, target, key):
     """One training step's two halves under torch.profiler
     (probes.profile_train_step): prints each half's wall time, device
     busy time and idle share, and the backward's device time by operator
-    (the host rows' own kernels); returns (gradients by key, the
-    numbers)."""
+    (the host rows' own kernels); with the boundary term on, also the
+    forward's by operator and the device time under the boundary term's
+    ranges in each half; returns (gradients by key, the numbers)."""
     from raytracingrenderer_tpu_torch.probes import profile_train_step
-    grads, prof = profile_train_step(scene, cfg, target, key)
+    with BoundaryRanges(torch, cfg.boundary_grads):
+        grads, prof = profile_train_step(scene, cfg, target, key,
+                                         BoundaryRanges.NAMES)
     fwd_ms, bwd_ms = prof["fwd_ms"], prof["bwd_ms"]
     busy = prof["fwd_busy_ms"], prof["bwd_busy_ms"]
     log(f"training {name}, one step under torch.profiler [{card}]: forward "
@@ -1536,27 +1582,37 @@ def profile_step(torch, card, name, scene, cfg, target, key):
         f"{1 - busy[0] / fwd_ms:.1%}); backward wall {bwd_ms:.1f} ms, "
         f"device busy {busy[1]:.2f} ms (idle {1 - busy[1] / bwd_ms:.1%}); "
         f"backward / forward wall {bwd_ms / fwd_ms:.3f}")
-    if busy[1]:
-        log(f"training {name}, backward device time by operator: " + "; ".join(
-            f"{k} {ms:.3f} ms x{n} ({ms / busy[1]:.1%})"
-            for k, ms, n in prof["bwd_ops"]))
+    halves = (("forward", "fwd"), ("backward", "bwd"))
+    for (half, tag), b in zip(halves, busy):
+        ops = prof[f"{tag}_ops"]
+        if b and (half == "backward" or cfg.boundary_grads):
+            log(f"training {name}, {half} device time by operator: " +
+                "; ".join(f"{k} {ms:.3f} ms x{n} ({ms / b:.1%})"
+                          for k, ms, n in ops))
+    if cfg.boundary_grads:
+        log(f"training {name}, device time under the boundary term's ranges "
+            f"(the backward's are its recompute): " + "; ".join(
+                f"{half} {k} {ms:.3f} ms x{n} ({ms / b:.1%} of the half)"
+                for (half, tag), b in zip(halves, busy)
+                for k, (ms, n) in prof[f"{tag}_ranges"].items() if b))
     return grads, prof
 
 
-def train_cornell(torch, card, cornell, fwd_pps):
-    """Phase 13 (a): the cornell box at 1024x1024, zero target, lr 0.01:
-    a warm-up train_steps(n=1), then train_steps(n=TRAIN_STEPS) timed,
-    with the kernels' launches counted and the backward watched; one
-    step profiled by halves; the peak memory of a step with remat on and
-    off."""
+def train_cornell(torch, card, cornell, fwd_pps, steps=TRAIN_STEPS,
+                  remats=(True, False), name="cornell", **cfg_over):
+    """Phase 13 (a) (and 14 (a) with the boundary term in `cfg_over`):
+    the cornell box at 1024x1024, zero target, lr 0.01: a warm-up
+    train_steps(n=1), then train_steps(n=steps) timed, with the kernels'
+    launches counted and the backward watched; one step profiled by
+    halves; the peak memory of a step with remat in `remats`."""
     import dataclasses
     from raytracingrenderer_tpu_torch import diff
     from raytracingrenderer_tpu_torch.config import RenderConfig
     from raytracingrenderer_tpu_torch.ops import mt_kernel
     from raytracingrenderer_tpu_torch.sampling import rng
-    cfg = RenderConfig(**BENCH_CFG)
+    cfg = RenderConfig(**BENCH_CFG, **cfg_over)
     cam = cornell.camera
-    target = torch.zeros((cam.height, cam.width, 3), device="cuda")
+    target = torch.zeros((cam.height, cam.width, 3), device=cornell.device)
     diff.train_steps(cornell, target, rng.PRNGKey(0), cfg, TRAIN_LR, 1)
     torch.cuda.synchronize()
     reset_counts()
@@ -1564,26 +1620,27 @@ def train_cornell(torch, card, cornell, fwd_pps):
     with WatchBackward(torch) as bwd:
         t0 = time.perf_counter()
         trained, losses = diff.train_steps(cornell, target, base, cfg,
-                                           TRAIN_LR, TRAIN_STEPS)
+                                           TRAIN_LR, steps)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     launches = mt_kernel.launches
-    pps = cam.width * cam.height * TRAIN_STEPS / dt
+    pps = cam.width * cam.height * steps / dt
     losses = losses.cpu().numpy()
-    log(f"training cornell {cam.width}x{cam.height}, train_steps "
-        f"n={TRAIN_STEPS}, lr {TRAIN_LR}, zero target, mis+jitter, max_depth "
-        f"{cfg.max_depth} (scan): {dt:.3f} s, fwdbwd_pps {pps:.6g} [{card}]; forward "
+    log(f"training {name} {cam.width}x{cam.height}, train_steps "
+        f"n={steps}, lr {TRAIN_LR}, zero target, mis+jitter, max_depth "
+        f"{cfg.max_depth}, boundary_grads {cfg.boundary_grads} (scan): "
+        f"{dt:.3f} s, fwdbwd_pps {pps:.6g} [{card}]; forward "
         f"render {fwd_pps:.6g} pixel-paths/s, fwd_over_fwdbwd "
         f"{fwd_pps / pps:.3f}; B1 launches {launches} (backward calls "
         f"{len(bwd.calls)}, launches in them {bwd.calls}); losses "
         f"{losses.tolist()}")
     if launches == 0:
-        fail("the cornell training steps never launched B1")
-    if len(bwd.calls) != TRAIN_STEPS or any(bwd.launches().values()):
-        fail("a cornell backward launched a kernel (or did not run)")
+        fail(f"the {name} training steps never launched B1")
+    if len(bwd.calls) != steps or any(bwd.launches().values()):
+        fail(f"a {name} backward launched a kernel (or did not run)")
     if not (all(map(math.isfinite, losses)) and finite_params(torch,
                                                               trained)):
-        fail("non-finite cornell losses or parameters")
+        fail(f"non-finite {name} losses or parameters")
     # descent, with common random numbers: the trained scene against the
     # first step's loss on that step's key (fresh keys' Monte Carlo noise
     # is larger than 8 steps' descent at this rate)
@@ -1591,19 +1648,19 @@ def train_cornell(torch, card, cornell, fwd_pps):
         p1, _ = diff._split_scene(trained)
         after = diff.render_loss(p1, trained, target, rng.fold_in(base, 0),
                                  diff._diff_cfg(cfg, trained)).item()
-    log(f"training cornell: loss on the first step's key {losses[0]:.7f} "
-        f"before, {after:.7f} after the {TRAIN_STEPS} steps (rel "
+    log(f"training {name}: loss on the first step's key {losses[0]:.7f} "
+        f"before, {after:.7f} after the {steps} steps (rel "
         f"{after / losses[0] - 1:+.3e}); last step's loss below the "
         f"first's: {bool(losses[-1] < losses[0])}")
     if not after < losses[0]:
-        fail("the cornell training steps did not lower the loss")
-    grads, prof = profile_step(torch, card, "cornell", trained, cfg, target,
-                               rng.fold_in(base, TRAIN_STEPS))
+        fail(f"the {name} training steps did not lower the loss")
+    grads, prof = profile_step(torch, card, name, trained, cfg, target,
+                               rng.fold_in(base, steps))
     if not all(bool(torch.isfinite(g).all())
                for g in diff._leaves(grads)):
-        fail("non-finite cornell gradients")
+        fail(f"non-finite {name} gradients")
     mem = {}
-    for remat in (True, False):
+    for remat in remats:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1612,22 +1669,24 @@ def train_cornell(torch, card, cornell, fwd_pps):
                         dataclasses.replace(cfg, remat=remat), TRAIN_LR)
         torch.cuda.synchronize()
         mem[remat] = (torch.cuda.max_memory_allocated(), held)
-    log("training cornell, one step's peak memory (max_memory_allocated; "
+    log(f"training {name}, one step's peak memory (max_memory_allocated; "
         "held before the step): " + "; ".join(
             f"remat={r} {peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB)"
             for r, (peak, held) in mem.items()) + f" [{card}]")
     return dict(fwdbwd_pps=pps, fwd_over_fwdbwd=fwd_pps / pps,
                 b1_launches=launches, bwd_launches=bwd.launches(),
                 losses=losses.tolist(),
-                peak_bytes_remat=mem[True][0],
-                peak_bytes_no_remat=mem[False][0], **prof)
+                **{f"peak_bytes_{'remat' if r else 'no_remat'}": m[0]
+                   for r, m in mem.items()}, **prof)
 
 
-def train_spheres(torch, card, spheres, fwd_pps):
-    """Phase 13 (b): the spheres scene at 1024x1024 through the wavefront
-    backward: a warm-up train_step, then one timed, with the launches
-    counted and the backward watched; refit and the repacking of the
-    tables timed; one step profiled by halves."""
+def train_spheres(torch, card, spheres, fwd_pps, name="spheres",
+                  **cfg_over):
+    """Phase 13 (b) (and 14 (b) with the boundary term in `cfg_over`):
+    the spheres scene at 1024x1024 through the wavefront backward: a
+    warm-up train_step, then one timed, with the launches counted, the
+    backward watched and the step's peak memory read; refit and the
+    repacking of the tables timed; one step profiled by halves."""
     from raytracingrenderer_tpu_torch import diff
     from raytracingrenderer_tpu_torch.config import RenderConfig
     from raytracingrenderer_tpu_torch.geometry import intersect
@@ -1635,41 +1694,47 @@ def train_spheres(torch, card, spheres, fwd_pps):
     from raytracingrenderer_tpu_torch.ops import bvh_kernel, mt_kernel
     from raytracingrenderer_tpu_torch.render import _use_wavefront
     from raytracingrenderer_tpu_torch.sampling import rng
-    cfg = RenderConfig(**BENCH_CFG)
+    cfg = RenderConfig(**BENCH_CFG, **cfg_over)
     if not _use_wavefront(spheres, cfg):
         fail("the spheres scene does not take the wavefront")
     cam = spheres.camera
-    target = torch.zeros((cam.height, cam.width, 3), device="cuda")
+    target = torch.zeros((cam.height, cam.width, 3), device=spheres.device)
     diff.train_step(spheres, target, rng.PRNGKey(0), cfg, TRAIN_LR)
     torch.cuda.synchronize()
     reset_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     with WatchBackward(torch) as bwd:
         t0 = time.perf_counter()
         stepped, loss = diff.train_step(spheres, target, rng.PRNGKey(1), cfg,
                                         TRAIN_LR)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     launches = dict(mt=mt_kernel.launches, **{
         k: bvh_kernel.launches[k] for k in ("closest_hit", "any_hit")})
     pps = cam.width * cam.height / dt
-    log(f"training spheres {cam.width}x{cam.height}, one train_step through "
-        f"the wavefront backward, lr {TRAIN_LR}: {dt:.3f} s, fwdbwd_pps "
+    log(f"training {name} {cam.width}x{cam.height}, one train_step through "
+        f"the wavefront backward, lr {TRAIN_LR}, boundary_grads "
+        f"{cfg.boundary_grads}: {dt:.3f} s, fwdbwd_pps "
         f"{pps:.6g} [{card}]; forward render {fwd_pps:.6g} pixel-paths/s, "
         f"fwd_over_fwdbwd {fwd_pps / pps:.3f}; loss {loss.item():.7f}; "
         f"launches {launches} "
         f"(backward calls {len(bwd.calls)}, launches in them {bwd.calls}); "
-        f"stackless walks {intersect.stackless_calls}")
+        f"stackless walks {intersect.stackless_calls}; the step's peak "
+        f"memory {peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB held before)")
     if min(launches.values()) == 0:
-        fail("the spheres training step did not launch B1 and both B2 "
+        fail(f"the {name} training step did not launch B1 and both B2 "
              "variants")
     if len(bwd.calls) != 1 or any(bwd.launches().values()):
-        fail("the spheres backward launched a kernel (or did not run)")
+        fail(f"the {name} backward launched a kernel (or did not run)")
     moved = sum((a != b) for a, b in zip(stepped.triangles.p0,
                                          spheres.triangles.p0)).gt(0)
     moved = int(moved.sum())
     if not (math.isfinite(loss.item()) and finite_params(torch, stepped)
             and moved):
-        fail("non-finite spheres loss or parameters, or no vertex moved")
+        fail(f"non-finite {name} loss or parameters, or no vertex moved")
     t0 = time.perf_counter()
     fitted = refit(stepped)
     torch.cuda.synchronize()
@@ -1680,32 +1745,33 @@ def train_spheres(torch, card, spheres, fwd_pps):
     intersect._proxy_tris(fitted)
     torch.cuda.synchronize()
     repack_s = time.perf_counter() - t0
-    log(f"training spheres: refit (host numpy, {fitted.bvh.n_nodes} nodes) "
+    log(f"training {name}: refit (host numpy, {fitted.bvh.n_nodes} nodes) "
         f"{refit_s * 1e3:.1f} ms; repacking B2's tables (both leaf forms) "
         f"and the pre-pass's triangles {repack_s * 1e3:.1f} ms; {moved} of "
         f"{spheres.triangles.count} anchor vertices moved [{card}]")
-    grads, prof = profile_step(torch, card, "spheres", fitted, cfg, target,
+    grads, prof = profile_step(torch, card, name, fitted, cfg, target,
                                rng.PRNGKey(2))
     if not all(bool(torch.isfinite(g).all()) for g in diff._leaves(grads)):
-        fail("non-finite spheres gradients")
+        fail(f"non-finite {name} gradients")
     return dict(fwdbwd_pps=pps, fwd_over_fwdbwd=fwd_pps / pps,
                 launches=launches, bwd_launches=bwd.launches(),
-                refit_ms=refit_s * 1e3,
+                peak_bytes=peak, refit_ms=refit_s * 1e3,
                 repack_ms=repack_s * 1e3, **prof)
 
 
-def grads_gpu_vs_cpu(torch, name, scene_dir, wave):
-    """Phase 13 (c): loss and gradients of one step on "cuda" (kernels)
-    and "cpu" (plain versions), same key: loss within rel 1e-4; each
-    material and light array within rtol 1e-3 / atol 1e-3 * max|g|;
-    tri_p0 within a relative L2 error of 1e-2."""
+def grads_gpu_vs_cpu(torch, name, scene_dir, wave, **cfg_over):
+    """Phase 13 (c) (and 14 (c) with the boundary term in `cfg_over`):
+    loss and gradients of one step on "cuda" (kernels) and "cpu" (plain
+    versions), same key: loss within rel 1e-4; each material and light
+    array within rtol 1e-3 / atol 1e-3 * max|g|; tri_p0 within a relative
+    L2 error of 1e-2."""
     import numpy as np
     from raytracingrenderer_tpu_torch import diff
     from raytracingrenderer_tpu_torch.config import RenderConfig
     from raytracingrenderer_tpu_torch.integrators import wavefront_diff
     from raytracingrenderer_tpu_torch.sampling import rng
     from raytracingrenderer_tpu_torch.scene.loader import load_scene
-    cfg = RenderConfig(**BENCH_CFG)
+    cfg = RenderConfig(**BENCH_CFG, **cfg_over)
     got = {}
     for dev in ("cuda", "cpu"):
         sc = load_scene(scene_dir, device=dev)
@@ -1919,10 +1985,30 @@ def main() -> None:
     grads_gpu_vs_cpu(torch, "spheres-5156 128x128 (wavefront)", spheres128,
                      wave=True)
 
+    # -- 14. main path 6: training with the boundary term --------------------
+    bnd = dict(boundary_grads=True)
+    tr_c = train_cornell(torch, card, cornell, cornell_pps,
+                         steps=BOUNDARY_STEPS, remats=(True,),
+                         name="cornell-boundary", **bnd)
+    tr_d = train_spheres(torch, card, spheres, spheres_pps,
+                         name="spheres-boundary", **bnd)
+    for name, with_b, without in (("cornell", tr_c, tr_a),
+                                  ("spheres", tr_d, tr_b)):
+        log(f"training {name} 1024x1024: fwdbwd_pps with the boundary term "
+            f"{with_b['fwdbwd_pps']:.6g}, without (phase 13) "
+            f"{without['fwdbwd_pps']:.6g} (with / without "
+            f"{with_b['fwdbwd_pps'] / without['fwdbwd_pps']:.3f}) [{card}]")
+    grads_gpu_vs_cpu(torch, "cornell 128x128 (scan), boundary_grads",
+                     scenes.write_cornell(os.path.join(tmp, "cornell128b"),
+                                          128, 128), wave=False, **bnd)
+    grads_gpu_vs_cpu(torch, "spheres-5156 128x128 (wavefront), "
+                     "boundary_grads", spheres128, wave=True, **bnd)
+
+    def brief(tr):
+        return {k: v for k, v in tr.items() if not k.endswith("_ops")}
     log("training " + json.dumps({
-        "card": card, "cornell": {k: v for k, v in tr_a.items()
-                                  if k != "bwd_ops"},
-        "spheres": {k: v for k, v in tr_b.items() if k != "bwd_ops"}}))
+        "card": card, "cornell": brief(tr_a), "spheres": brief(tr_b),
+        "cornell_boundary": brief(tr_c), "spheres_boundary": brief(tr_d)}))
     bvh_src = dict(route="cuda",
                    source="raytracingrenderer_tpu_torch/csrc/bvh_kernel.cu",
                    replaces="raytracingrenderer_tpu/ops/bvh_kernel.py:65")
@@ -1955,6 +2041,11 @@ def main() -> None:
         "launches_training_spheres_prepass": tr_b["launches"]["mt"],
         "launches_training_backward": (tr_a["bwd_launches"]["mt"]
                                        + tr_b["bwd_launches"]["mt"]),
+        "launches_training_boundary_cornell": tr_c["b1_launches"],
+        "launches_training_boundary_spheres_prepass":
+            tr_d["launches"]["mt"],
+        "launches_training_boundary_backward": (
+            tr_c["bwd_launches"]["mt"] + tr_d["bwd_launches"]["mt"]),
     }] + [dict(name=f"bvh_traverse/{v}", **bvh_src,
                launches=b2_launches[v],
                launches_treelet_path=tl_launches[v],
@@ -1962,6 +2053,10 @@ def main() -> None:
                launches_training_backward=(
                    tr_a["bwd_launches"].get(v, 0)
                    + tr_b["bwd_launches"].get(v, 0)),
+               launches_training_boundary_spheres=tr_d["launches"][v],
+               launches_training_boundary_backward=(
+                   tr_c["bwd_launches"].get(v, 0)
+                   + tr_d["bwd_launches"].get(v, 0)),
                library_ms=None,
                **b2[v])
           for v in ("closest_hit", "any_hit")]

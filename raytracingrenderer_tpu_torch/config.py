@@ -4,9 +4,12 @@ packages.
 
 Fields that belong to slices this package has not ported yet are kept
 (so configurations carry over) and `render.render` and the gradient
-entry points (diff.py) refuse them: `boundary_grads` and any
-`integrator` other than "path".  `geom_grads` attaches the hit-point
-reparameterisation (diff.py turns it on).  `wavefront` picks the
+entry points (diff.py) refuse them: any `integrator` other than "path".
+`geom_grads` attaches the hit-point reparameterisation (diff.py turns it
+on); `boundary_grads` adds the NEE visibility boundary term
+(integrators/boundary.py, `boundary_samples` edge samples a bounce, each
+two probe rays), which leaves images bit for bit as they are and adds
+the shadow edges' integral to the gradients.  `wavefront` picks the
 integrator as in the JAX package (None: the wavefront one for BVH scenes
 of more than 4096 triangles).  `remat`, when autograd is recording,
 checkpoints every bounce (integrators/path.step): the backward runs a
@@ -51,7 +54,8 @@ class RenderConfig:
     # Power-weighted NEE light selection (lights.selection_pmf).
     power_lights: bool = False
     geom_grads: bool = False         # hit-point reparameterisation
-    # a later slice (render() raises NotImplementedError when set):
+    # NEE visibility boundary term (integrators/boundary.py): 2 probe
+    # rays per edge sample, boundary_samples samples a bounce
     boundary_grads: bool = False
     boundary_samples: int = 4
     # Compacting wavefront integrator: None = automatic (BVH scenes of

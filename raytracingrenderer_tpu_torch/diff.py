@@ -5,7 +5,11 @@ Counterpart of raytracingrenderer_tpu/diff.py.  The same estimator: the
 discrete path structure (hit ids, barycentrics from the kernels, RR and
 lobe decisions, occlusion bits) is detached, radiometric quantities and
 the hit-point reparameterisation (integrators/common.shading_data with
-geom_grads) carry gradients.  The parameters and their keys are the JAX
+geom_grads) carry gradients: the interior term.  With
+cfg.boundary_grads the NEE visibility boundary term joins it
+(integrators/boundary.py, edge sampling with two-sided probes): the
+gradient of a shadow edge that moves with the geometry, which the
+interior term misses.  The parameters and their keys are the JAX
 package's: `albedo`, `emission`, `alpha` (materials), `light_le` (the
 light table's radiance) and `tri_p0` (each triangle's anchor vertex; e1
 and e2 ride along, so a triangle translates rigidly).  `env_data` joins
@@ -92,7 +96,8 @@ def render_loss(params, scene: Scene, target: torch.Tensor, key,
 
 def _diff_cfg(cfg: RenderConfig, scene: Scene) -> RenderConfig:
     """cfg for a gradient pass: the scene's material set filled in and
-    geom_grads on.  Refuses what is not ported yet."""
+    geom_grads on (boundary_grads as the caller set it).  Refuses what is
+    not ported yet."""
     from .render import _check_supported, specialize_config
     _check_supported(cfg)
     return dataclasses.replace(specialize_config(cfg, scene),

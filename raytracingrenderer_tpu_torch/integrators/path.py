@@ -25,6 +25,7 @@ from ..lights import lights as lights_mod
 from ..materials import bsdf as bsdf_mod
 from ..sampling import rng
 from ..scene.types import Scene
+from .boundary import boundary_direct
 from .common import balance_heuristic, compute_direct, shading_data
 
 
@@ -51,9 +52,11 @@ def bounce_step(scene: Scene, state: dict, depth: int, key: rng.Key,
     `presorted` the batch is already coherence-sorted (wavefront mode),
     and the closest-hit dispatch skips its own sort and unsort.
 
-    `saved` = {"hit": Hit, "occ": bool tensor} replays traversal results
-    recorded earlier instead of walking the scene: the backward's
-    recompute (`step`) passes them, so it launches no kernel.
+    `saved` = {"hit": Hit, "occ": bool tensor, "bnd_occ": bool tensor or
+    None} replays traversal results recorded earlier (the closest hits,
+    the shadow rays' and the boundary probes' occlusion bits) instead of
+    walking the scene: the backward's recompute (`step`) passes them, so
+    it launches no kernel.
     `return_saved` makes the bounce return (state, saved) to record."""
     o, d = state["o"], state["d"]
     ids = state["ids"]
@@ -115,6 +118,15 @@ def bounce_step(scene: Scene, state: dict, depth: int, key: rng.Key,
         power=cfg.power_lights)
     if not cfg.debug_no_nee:
         radiance = radiance + beta * direct
+    bnd_occ = None
+    if cfg.boundary_grads and scene.num_lights:
+        # the NEE visibility boundary term (integrators/boundary.py): of
+        # value 0, so images are bit for bit as without it; its gradient is
+        # the shadow edges' integral that the detached estimator misses
+        bnd, bnd_occ = boundary_direct(
+            scene, sh, shade, key, depth, ids, cfg,
+            saved_occ=None if saved is None else saved["bnd_occ"])
+        radiance = radiance + beta * bnd
 
     # ---- depth cutoff / RR / BSDF continuation -------------------------
     cont = shade & (depth <= cfg.max_depth)
@@ -155,7 +167,7 @@ def bounce_step(scene: Scene, state: dict, depth: int, key: rng.Key,
         prev_pdf=torch.where(alive_next, pdf, state["prev_pdf"]),
     )
     if return_saved:
-        return out, {"hit": hit, "occ": occ}
+        return out, {"hit": hit, "occ": occ, "bnd_occ": bnd_occ}
     return out
 
 
@@ -163,7 +175,8 @@ def step(scene: Scene, state: dict, depth: int, key: rng.Key,
          cfg: RenderConfig, presorted: bool = False) -> dict:
     """bounce_step, checkpointed when gradients are being recorded and
     cfg.remat is set: the bounce keeps only its inputs and its traversal
-    results (hits and occlusion bits) for the backward, which runs the
+    results (hits, and the occlusion bits of the shadow rays and of the
+    boundary probes) for the backward, which runs the
     bounce again with those results replayed, so it never traverses.
     The counterpart of the JAX package's jax.checkpoint with
     save_only_these_names("ray_hit", "ray_occ"); the random numbers are

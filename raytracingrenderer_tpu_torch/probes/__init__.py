@@ -183,14 +183,15 @@ def device_ms(fn: Callable, iters: int = 50):
     return None
 
 
-def profile_train_step(scene, cfg, target, key) -> Tuple:
+def profile_train_step(scene, cfg, target, key, ranges=()) -> Tuple:
     """One training step (diff.loss_and_grads, dispatched as train_step
     does) with each half under torch.profiler: the forward (render_loss,
     recording for autograd) and the backward (torch.autograd.grad) ->
     (gradients by key, dict of fwd_ms / bwd_ms, the wall times,
-    fwd_busy_ms / bwd_busy_ms, the device rows' time, and bwd_ops,
-    [(host operator, its own device ms, calls)] of the backward by device
-    time)."""
+    fwd_busy_ms / bwd_busy_ms, the device rows' time, fwd_ops / bwd_ops,
+    [(host operator, its own device ms, calls)] of each half by device
+    time, and fwd_ranges / bwd_ranges, {name: (device ms, calls)} of the
+    record_function ranges named in `ranges` that a half entered)."""
     import contextlib
     import time
     from torch.autograd import DeviceType
@@ -211,10 +212,17 @@ def profile_train_step(scene, cfg, target, key) -> Tuple:
     _, grads = diff.loss_and_grads(scene, target, key, cfg, around)
     busy = {h: sum(us for _, us, _ in device_rows(p)) / 1e3
             for h, p in profs.items()}
-    ops = sorted(((e.key, (getattr(e, "self_device_time_total", 0) or 0)
-                  / 1e3, e.count) for e in profs["backward"].key_averages()
-                  if e.device_type == DeviceType.CPU), key=lambda r: -r[1])
-    return grads, dict(
-        fwd_ms=wall["forward"], bwd_ms=wall["backward"],
-        fwd_busy_ms=busy["forward"], bwd_busy_ms=busy["backward"],
-        bwd_ops=[r for r in ops if r[1] > 0][:10])
+    out = dict(fwd_ms=wall["forward"], bwd_ms=wall["backward"],
+               fwd_busy_ms=busy["forward"], bwd_busy_ms=busy["backward"])
+    for half, p in profs.items():
+        tag = {"forward": "fwd", "backward": "bwd"}[half]
+        avgs = [e for e in p.key_averages()
+                if e.device_type == DeviceType.CPU]
+        ops = sorted(((e.key, (getattr(e, "self_device_time_total", 0)
+                               or 0) / 1e3, e.count) for e in avgs
+                      if e.key not in ranges), key=lambda r: -r[1])
+        out[f"{tag}_ops"] = [r for r in ops if r[1] > 0][:10]
+        out[f"{tag}_ranges"] = {
+            e.key: ((getattr(e, "device_time_total", 0) or 0) / 1e3, e.count)
+            for e in avgs if e.key in ranges}
+    return grads, out

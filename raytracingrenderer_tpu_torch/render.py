@@ -39,14 +39,11 @@ def specialize_config(cfg: RenderConfig, scene: Scene) -> RenderConfig:
 
 
 def _check_supported(cfg: RenderConfig) -> None:
-    later = [name for name, on in (
-        ("boundary_grads", cfg.boundary_grads),
-        (f"integrator={cfg.integrator!r}", cfg.integrator != "path"))
-        if on]
-    if later:
+    """Refuse what is not ported yet: every integrator but "path"."""
+    if cfg.integrator != "path":
         raise NotImplementedError(
-            f"not ported yet: {', '.join(later)} (only the path tracer "
-            f"and its interior gradients are)")
+            f"not ported yet: integrator={cfg.integrator!r} (only the path "
+            f"tracer and its gradients, interior and boundary, are)")
 
 
 def _use_wavefront(scene: Scene, cfg: RenderConfig) -> bool:

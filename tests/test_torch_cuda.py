@@ -41,7 +41,11 @@ on a side stream; both dots at TT 16, 48, 128 and 512 and R 128, 4096
 and 65536, the TF32 dot also back to back on a side stream; a refused launch raises and
 leaves no error behind; a launch with the tensors' device already
 current, or on a side stream, stays correct; binary walks back to back
-share one ray counter."""
+share one ray counter.  The relayout kernel is also held bit for bit at
+one block of 32 rows, odd block counts and past one wave of its grid,
+on values >= 2^25 and fractions.  A cornell gradient with the boundary
+term (32x32) on the card is held to the CPU's by chip_smoke.py's
+gradient gate, with no kernel launched in the backward."""
 import numpy as np
 import pytest
 import torch
@@ -746,3 +750,56 @@ def test_train_step_on_the_card(cuda, tmp_path):
         assert b.device.type == "cuda"
         assert bool(torch.isfinite((a - b) / 0.01).all())
     assert bool((now["tri_p0"].y != old["tri_p0"].y).any())
+
+
+def test_boundary_grads_cuda_match_cpu(cuda, tmp_path):
+    """A cornell gradient with the boundary term at 32x32 on the card
+    (B1 for the hits, the shadow rays and the boundary probes) against
+    the same on "cpu" (the plain versions), same key: loss within rel
+    1e-4, materials and lights within rtol 1e-3 / atol 1e-3 * max|g|,
+    tri_p0 within a relative L2 error of 1e-2 (chip_smoke.py's gradient
+    gate); no kernel launches inside the backward."""
+    from raytracingrenderer_tpu_torch import diff
+    from raytracingrenderer_tpu_torch.sampling import rng
+    d = write_cornell(str(tmp_path), 32, 32)
+    cfg = RenderConfig(mis=True, jitter=True, max_depth=4,
+                       boundary_grads=True)
+    got = {}
+    real, inside = torch.autograd.grad, []
+
+    def grad(*args, **kwargs):
+        before = mt_kernel.launches
+        out = real(*args, **kwargs)
+        inside.append(mt_kernel.launches - before)
+        return out
+
+    for dev in (cuda, torch.device("cpu")):
+        scene = load_scene(d, dev)
+        before = mt_kernel.launches
+        torch.autograd.grad = grad
+        try:
+            loss, g = diff.value_and_grad(
+                scene, torch.zeros((32, 32, 3), device=dev),
+                rng.PRNGKey(3), diff._diff_cfg(cfg, scene))
+        finally:
+            torch.autograd.grad = real
+        if dev.type == "cuda":
+            # 6 bounces: closest hits, shadow rays, 2 x 4 probes each
+            assert mt_kernel.launches - before == 6 * (2 + 8)
+        got[dev.type] = (loss.item(), {
+            k: (v.stacked() if hasattr(v, "stacked") else v).cpu().numpy()
+            for k, v in g.items()})
+    assert inside == [0, 0]
+    (lg, gg), (lc, gc) = got["cuda"], got["cpu"]
+    assert lg == pytest.approx(lc, rel=1e-4)
+    for k in diff.PARAM_KEYS:
+        a, b = gg[k], gc[k]
+        assert np.isfinite(a).all(), k
+        if k == "tri_p0":
+            assert np.abs(b).max() > 0
+            assert (np.linalg.norm(a - b)
+                    / max(np.linalg.norm(b), 1e-30)) <= 1e-2
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-3,
+                                       atol=1e-3 * np.abs(b).max(),
+                                       err_msg=k)

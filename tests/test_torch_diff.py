@@ -251,7 +251,7 @@ def test_train_steps_matches_sequential(scene):
 
 
 def test_refuses_later_slices(scene):
-    for change in (dict(boundary_grads=True), dict(integrator="vpl")):
+    for change in (dict(integrator="adaptive"), dict(integrator="vpl")):
         with pytest.raises(NotImplementedError):
             diff.param_grads(scene, _zero(), rng.PRNGKey(0),
                              RenderConfig(**CFG, **change))

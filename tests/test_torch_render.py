@@ -178,7 +178,7 @@ def test_wavefront_matches_scan(monkeypatch, spheres, spheres_scan,
 
 
 @pytest.mark.parametrize("change", [
-    dict(boundary_grads=True),
+    dict(integrator="adaptive"),
     dict(integrator="vpl"), dict(integrator="lighttrace")])
 def test_refuses_later_slices(scene, change):
     cfg = dataclasses.replace(RenderConfig(), **change)
