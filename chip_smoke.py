@@ -138,7 +138,7 @@ Phases (any failure exits non-zero):
  14. main path 6, training with the NEE visibility boundary term
      (boundary_grads=True, boundary_samples 4; integrators/boundary.py,
      whose probe rays are B1 and B2 launches): (a) the cornell box at
-     1024x1024 as in 13 (a), train_steps(n=2) timed, with the peak memory
+     1024x1024 as in 13 (a), train_steps(n=1) timed, with the peak memory
      of a step with remat on; (b) the spheres scene as in 13 (b); each
      prints its fwdbwd_pps beside phase 13's, its B1 / B2 launches (none
      inside a backward), and one profiled step's device time by operator
@@ -176,7 +176,7 @@ N_BVH_CHECK = (1 << 20) + 77      # B2: the render's primary width + a tail
 BENCH_CFG = dict(mis=True, jitter=True, max_depth=4)
 SPP = 8
 TRAIN_STEPS = 8         # bench.py's training call: 8 SGD steps, lr 0.01
-BOUNDARY_STEPS = 2      # main path 6's cornell train_steps (about 14 s each)
+BOUNDARY_STEPS = 1      # main path 6's cornell train_steps (10.5 s a step)
 TRAIN_LR = 0.01
 PEAK_FP32 = 67e12       # FLOP/s, FP32 outside the tensor cores
 PEAK_TF32 = 495e12      # FLOP/s, dense TF32 on the tensor cores
@@ -1643,13 +1643,14 @@ def train_cornell(torch, card, cornell, fwd_pps, steps=TRAIN_STEPS,
         fail(f"non-finite {name} losses or parameters")
     # descent, with common random numbers: the trained scene against the
     # first step's loss on that step's key (fresh keys' Monte Carlo noise
-    # is larger than 8 steps' descent at this rate)
+    # is larger than 8 steps' descent at this rate; 2 steps need not
+    # descend on it, so phase 14 takes 1)
     with torch.no_grad():
         p1, _ = diff._split_scene(trained)
         after = diff.render_loss(p1, trained, target, rng.fold_in(base, 0),
                                  diff._diff_cfg(cfg, trained)).item()
     log(f"training {name}: loss on the first step's key {losses[0]:.7f} "
-        f"before, {after:.7f} after the {steps} steps (rel "
+        f"before, {after:.7f} after the {steps} step(s) (rel "
         f"{after / losses[0] - 1:+.3e}); last step's loss below the "
         f"first's: {bool(losses[-1] < losses[0])}")
     if not after < losses[0]:

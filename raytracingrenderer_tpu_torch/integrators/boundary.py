@@ -87,33 +87,9 @@ def _edge_endpoints(tr: Triangles, tri: torch.Tensor, which: torch.Tensor):
     return a, b
 
 
-def _pick_area_light(scene: Scene, r_pick: torch.Tensor, power: bool):
-    """The light pick of lights.sample_one (uniform or power-weighted over
-    the area lights and the background) -> (area light row, pmf, is_area);
-    lanes that draw the background are dropped (is_area False): its
-    boundary term is out of scope."""
-    n_area = scene.num_lights
-    n_total = n_area + (1 if lights_mod.background_enabled(scene) else 0)
-    if power:
-        pmf_tab, pmf_bg = lights_mod.selection_pmf(scene, True)
-        concat = [pmf_tab] if n_area else []
-        if n_total > n_area:
-            concat.append(pmf_bg[None])
-        pmf_all = torch.cat(concat)
-        cdf = torch.cumsum(pmf_all, 0)
-        pick = torch.clamp(torch.searchsorted(cdf, r_pick, right=True),
-                           0, n_total - 1)
-        pmf_pick = torch.clamp(pmf_all[pick], min=1e-12)
-    else:
-        pick = torch.clamp((r_pick * n_total).to(torch.int32),
-                           max=n_total - 1).long()
-        pmf_pick = torch.full_like(r_pick, 1.0 / n_total)
-    return torch.clamp(pick, max=n_area - 1), pmf_pick, pick < n_area
-
-
 class _Light(NamedTuple):
     """A lane's picked light (detached), with the terms of the
-    barycentric inside test; `unsqueeze` broadcasts it over a last
+    barycentric inside test; `unsqueeze` broadcasts it over a leading
     dimension."""
     q0: V3
     e1: V3
@@ -130,8 +106,8 @@ class _Light(NamedTuple):
         return _Light(q0, e1, e2, d00, d01, d11, det)
 
     def unsqueeze(self) -> "_Light":
-        return _Light(*(V3(*(c[:, None] for c in f)) if isinstance(f, V3)
-                        else f[:, None] for f in self))
+        return _Light(*(V3(*(c[None] for c in f)) if isinstance(f, V3)
+                        else f[None] for f in self))
 
     def inside(self, p: V3) -> torch.Tensor:
         pq = p - self.q0
@@ -143,20 +119,21 @@ class _Light(NamedTuple):
 
 def _valid_cells(light: _Light, n_l: V3, num: torch.Tensor, x: V3, a: V3,
                  b: V3) -> torch.Tensor:
-    """(N, S_CELLS) bool: the cells of edge (a, b) with an end whose
+    """(S_CELLS, N) bool: the cells of edge (a, b) with an end whose
     projection from x lands inside the light beyond the edge (s > 1).
-    All inputs detached; the S_CELLS + 1 ends are taken at once."""
+    All inputs detached; the S_CELLS + 1 ends are taken at once, one row
+    each (so that sums and scans over the cells run across rows)."""
     tv = torch.arange(S_CELLS + 1, dtype=torch.float32,
-                      device=num.device) / S_CELLS
-    col = lambda v: V3(*(c[:, None] for c in v))  # noqa: E731
-    a, b, x, n_l = col(a), col(b), col(x), col(n_l)
+                      device=num.device)[:, None] / S_CELLS
+    row = lambda v: V3(*(c[None] for c in v))  # noqa: E731
+    a, b, x, n_l = row(a), row(b), row(x), row(n_l)
     zt = a + (b - a) * tv
     den = n_l.dot(zt - x)
     small = torch.abs(den) < 1e-12
-    st = torch.where(small, -1.0, num[:, None] / torch.where(small, 1.0, den))
+    st = torch.where(small, -1.0, num[None] / torch.where(small, 1.0, den))
     yt = x + (zt - x) * st
     ends = (st > 1.0 + 1e-5) & light.unsqueeze().inside(yt)
-    return ends[:, :-1] | ends[:, 1:]
+    return ends[:-1] | ends[1:]
 
 
 def boundary_direct(scene: Scene, sh: Shading, active: torch.Tensor, key,
@@ -175,6 +152,7 @@ def boundary_direct(scene: Scene, sh: Shading, active: torch.Tensor, key,
     if scene.num_lights == 0:
         return out, torch.zeros((0, n), dtype=torch.bool, device=dev)
     lens, cdf, total_len = _edge_table(scene)
+    has_bg = lights_mod.background_enabled(scene)
     x = sh.x
     x_det = _det(x)
     lt = scene.lights
@@ -184,8 +162,12 @@ def boundary_direct(scene: Scene, sh: Shading, active: torch.Tensor, key,
         ekey = rng.fold_in(key, 0xB0 + e)
         r_pick = rng.uniform_ids(ekey, depth, rng.BND_PICK, ids)
         r_t = rng.uniform_ids(ekey, depth, rng.BND_T, ids)
-        li, pmf_pick, is_area = _pick_area_light(scene, r_pick,
-                                                 cfg.power_lights)
+        # the light pick of NEE; lanes that draw the background are
+        # dropped (is_area False): its boundary term is out of scope
+        pick, pmf_pick, _ = lights_mod.pick_light(scene, r_pick,
+                                                  cfg.power_lights, has_bg)
+        is_area = pick < scene.num_lights
+        li = torch.clamp(pick, max=scene.num_lights - 1)
         # the light's geometry: differentiable under geom_grads
         if cfg.geom_grads:
             ltri = lt.tri[li].long()
@@ -219,7 +201,7 @@ def boundary_direct(scene: Scene, sh: Shading, active: torch.Tensor, key,
                 tj = kj // 3
                 aj, bj = _edge_endpoints(tr_det, tj, kj - 3 * tj)
                 ph = _valid_cells(light, n_ld, num_det, x_det, aj, bj).sum(
-                    -1).to(torch.float32) + RIS_EPS
+                    0).to(torch.float32) + RIS_EPS
                 cand_k.append(kj)
                 cand_ph.append(ph)
                 cand_w.append(ph / (torch.clamp(lens[kj], min=1e-12)
@@ -253,14 +235,14 @@ def boundary_direct(scene: Scene, sh: Shading, active: torch.Tensor, key,
             # is; it is the mixture's density at the t drawn
             vcell = _valid_cells(light, n_ld, num_det, x_det, _det(a),
                                  _det(b))
-            n_valid = vcell.sum(-1)
-            csum = torch.cumsum(vcell.to(torch.int32), -1)
+            n_valid = vcell.sum(0)
+            csum = torch.cumsum(vcell.to(torch.int32), 0)
             u = rng.uniform_ids(ekey, depth, rng.BND_CELL, ids)
             guided = (u < GUIDED) & (n_valid > 0)
             # the k-th (0-based) valid cell, k = floor(u / 0.9 * n_valid)
             kth = torch.minimum((u / GUIDED * n_valid).to(torch.int32),
                                 torch.clamp(n_valid - 1, min=0))
-            cell = (csum <= kth[:, None]).sum(-1)
+            cell = (csum <= kth).sum(0)
             t_guided = (cell.to(torch.float32) + r_t) / S_CELLS
             t_unif = torch.clamp((u - GUIDED) / UNIFORM, 0.0,
                                  1.0 - 1e-7)
@@ -269,7 +251,7 @@ def boundary_direct(scene: Scene, sh: Shading, active: torch.Tensor, key,
             cell_at = torch.clamp((t_s * S_CELLS).to(torch.int32),
                                   max=S_CELLS - 1).long()
             g_at = torch.where(
-                torch.gather(vcell, 1, cell_at[:, None])[:, 0],
+                torch.gather(vcell, 0, cell_at[None])[0],
                 S_CELLS / torch.clamp(n_valid, min=1), 0.0)
             dens = torch.where(n_valid > 0, GUIDED * g_at + UNIFORM,
                                1.0)

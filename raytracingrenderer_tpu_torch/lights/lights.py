@@ -89,6 +89,31 @@ def selection_pmf(scene: Scene, power: bool):
     return ((w_area / total) if n_area else None), w_bg / total
 
 
+def pick_light(scene: Scene, r_pick: torch.Tensor, power: bool,
+               has_bg: bool):
+    """The light each lane draws, uniformly or power-weighted over the
+    area lights then the background (index num_lights; `has_bg`, as
+    background_enabled says) -> (pick, its selection pmf, the
+    background's pmf).  At least one light."""
+    n_total = scene.num_lights + (1 if has_bg else 0)
+    if power:
+        pmf_tab, pmf_bg = selection_pmf(scene, True)
+        concat = [pmf_tab] if scene.num_lights else []
+        if has_bg:
+            concat.append(pmf_bg[None])
+        pmf_all = torch.cat(concat)
+        cdf = torch.cumsum(pmf_all, 0)
+        pick = torch.clamp(torch.searchsorted(cdf, r_pick, right=True),
+                           0, n_total - 1)
+        # clamp: f32 cumsum roundoff can land r_pick >= cdf[-1]
+        return (pick, torch.clamp(pmf_all[pick], min=1e-12),
+                torch.clamp(pmf_bg, min=1e-30))
+    # uniform (RTBase Scene::sampleLight)
+    pick = torch.clamp((r_pick * n_total).to(torch.int32),
+                       max=n_total - 1).long()
+    return pick, torch.full_like(r_pick, 1.0 / n_total), 1.0 / n_total
+
+
 def sample_one(scene: Scene, x: V3, sn: V3, r_pick, r1, r2,
                r3=None, geom_grads: bool = False,
                power: bool = False) -> LightSample:
@@ -110,24 +135,7 @@ def sample_one(scene: Scene, x: V3, sn: V3, r_pick, r1, r2,
         z = torch.zeros_like(x.x)
         return LightSample(V3.zeros_like(x.x), z, V3.zeros_like(x.x), z, z,
                            torch.zeros_like(x.x, dtype=torch.bool))
-    if power:
-        pmf_tab, pmf_bg = selection_pmf(scene, True)
-        concat = [pmf_tab] if n_area else []
-        if has_bg:
-            concat.append(pmf_bg[None])
-        pmf_all = torch.cat(concat)
-        cdf = torch.cumsum(pmf_all, 0)
-        pick = torch.clamp(torch.searchsorted(cdf, r_pick, right=True),
-                           0, n_total - 1)
-        # clamp: f32 cumsum roundoff can land r_pick >= cdf[-1]
-        pmf_pick = torch.clamp(pmf_all[pick], min=1e-12)
-        pmf_b = torch.clamp(pmf_bg, min=1e-30)
-    else:
-        # uniform (RTBase Scene::sampleLight)
-        pick = torch.clamp((r_pick * n_total).to(torch.int32),
-                           max=n_total - 1).long()
-        pmf_pick = torch.full_like(x.x, 1.0 / n_total)
-        pmf_b = 1.0 / n_total
+    pick, pmf_pick, pmf_b = pick_light(scene, r_pick, power, has_bg)
     is_area = (pick < n_area if n_area
                else torch.zeros_like(x.x, dtype=torch.bool))
 

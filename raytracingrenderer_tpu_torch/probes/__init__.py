@@ -210,8 +210,9 @@ def profile_train_step(scene, cfg, target, key, ranges=()) -> Tuple:
             wall[half] = (time.perf_counter() - t0) * 1e3
 
     _, grads = diff.loss_and_grads(scene, target, key, cfg, around)
-    busy = {h: sum(us for _, us, _ in device_rows(p)) / 1e3
-            for h, p in profs.items()}
+    # a range's own device row spans its kernels: left out of the busy time
+    busy = {h: sum(us for k, us, _ in device_rows(p) if k not in ranges)
+            / 1e3 for h, p in profs.items()}
     out = dict(fwd_ms=wall["forward"], bwd_ms=wall["backward"],
                fwd_busy_ms=busy["forward"], bwd_busy_ms=busy["backward"])
     for half, p in profs.items():

@@ -616,11 +616,8 @@ def test_relayout_kernel_is_exact(cuda, blocks):
     counts, the probe's 64 and past one wave of the kernel's grid (the
     grid stride), on normal values, values >= 2^25 (where +1.0 rounds
     away) and fractions; and on zeros, where it is x + n_iter."""
-    x = np.random.default_rng(37 + blocks).normal(
-        size=(blocks * 32, 128)).astype(np.float32)
-    x.reshape(-1)[::7] *= 2.0 ** 25
-    x.reshape(-1)[::5] += 0.25
-    x = torch.from_numpy(x).to(cuda)
+    from raytracingrenderer_tpu_torch.probes.bench_visit import relayout_input
+    x = relayout_input((blocks * 32, 128), cuda, 37 + blocks)
     zeros = torch.zeros_like(x)
     before = visit.launches["relayout"]
     for n_iter in (1, 65):

@@ -65,6 +65,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from raytracingrenderer_tpu_torch.ops import visit
+from raytracingrenderer_tpu_torch.probes import bench_visit
 
 torch.set_num_threads(2)
 
@@ -779,13 +780,7 @@ def _relayout_model(x, n_iter, step=RL_VECS):
 
 
 def _relayout_input(rows, seed):
-    """Normal values, every seventh times 2^25 (where +1.0 rounds away)
-    and every fifth plus a quarter."""
-    x = np.random.default_rng(seed).normal(size=(rows, 128)).astype(
-        np.float32)
-    x.reshape(-1)[::7] *= 2.0 ** 25
-    x.reshape(-1)[::5] += 0.25
-    return torch.from_numpy(x)
+    return bench_visit.relayout_input((rows, 128), "cpu", seed)
 
 
 @pytest.mark.parametrize("blocks", [1, 3, 64, 65, 1057, 2113 + 17])
