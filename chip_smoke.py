@@ -139,12 +139,40 @@ Phases (any failure exits non-zero):
      (boundary_grads=True, boundary_samples 4; integrators/boundary.py,
      whose probe rays are B1 and B2 launches): (a) the cornell box at
      1024x1024 as in 13 (a), train_steps(n=1) timed, with the peak memory
-     of a step with remat on; (b) the spheres scene as in 13 (b); each
-     prints its fwdbwd_pps beside phase 13's, its B1 / B2 launches (none
-     inside a backward), and one profiled step's device time by operator
-     in each half and under the term's stages (record_function ranges
-     around `boundary_direct`, its probes and its cell masks); (c) the
-     gradient check of 13 (c) with the term on.
+     of a step with remat on, and one step's forward under the profiler:
+     its device time by operator and under the term's stages
+     (record_function ranges around `boundary_direct`, its probes and its
+     cell masks; the backward is not profiled, to keep the script within
+     its time limit); (b)
+     the spheres scene as in 13 (b), its step on the refitted scene not
+     profiled (to keep the script within its time limit); each prints
+     its fwdbwd_pps beside phase 13's and its B1 / B2 launches (none
+     inside a backward); (c) the
+     gradient check of 13 (c) with the term on, at 64x64 (to keep the
+     script within its time limit);
+ 15. main path 7, environment-map lighting: the spheres of the spheres
+     scene above the cornell floor (no walls, no area light), lit only
+     by a synthetic 1024 x 2048 sky with a sun
+     (tests/torch_scenes.py::write_sky): loaded on "cuda" (the load and
+     build_envmap's time, the alias table by the native library),
+     rendered at 1024x1024, 8 spp through the wavefront (both B2
+     variants and B1's pre-pass must have launched, a finite image with a
+     sane mean), one pass profiled (idle share); then the 5,122-triangle
+     sky scene (256 x 512 map) at 128x128 on "cuda" and "cpu": the image
+     held as in phase 7 and the gradients as in 13 (c), env_data among
+     them (rtol 1e-3 / atol 1e-3 * max|g|);
+ 16. main path 8, integrators.dispatch.render_with: direct, albedo,
+     normals, lighttrace (1024^2 light paths a pass) and vpl (MAX_VPL x
+     (max_depth + 2) shadow batches a pass) at 1024x1024, 8 spp, on the
+     cornell box (B1) and the spheres scene (B2, B1's pre-pass), each
+     with the counts set to 0 just before: every launch the passes make
+     (a traversal call is one launch; on the spheres scene a shadow batch
+     is a B1 pre-pass and a B2 any-hit launch), finite images with sane
+     means, pixel-paths/s (light paths/s), one profiled pass of
+     lighttrace and vpl; then each integrator on the cornell box and the
+     5,156-triangle scene at 128x128, 2 spp, on "cuda" and "cpu" (vpl at
+     max_depth 2), held as in phase 7.  Every phase prints the script's
+     wall time as it starts.
 
 Each kernel's line carries its bound: the least time the card could
 take for the same work, the larger of its operations over the peak rate
@@ -203,6 +231,14 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def mark(phase: int) -> None:
+    """The script's wall time as a phase starts."""
+    log(f"-- phase {phase} at {time.perf_counter() - T_START:.1f} s")
 
 
 def card_facts(torch):
@@ -1420,29 +1456,33 @@ def render_full(torch, scene, name, card, out_dir, **cfg_over):
     return img, dt
 
 
-def profile_pass(torch, scene, name):
-    """One sample pass of the full-size render under torch.profiler: the
-    wall time, the device's busy time (each kernel's self time counted
-    once) and idle share, and the time and launches of the port's own
-    kernels in it."""
+def profile_pass(torch, scene, name, run=None):
+    """One sample pass of the full-size render (or of `run()`, another
+    entry point's pass) under torch.profiler: the wall time, the device's
+    busy time (each kernel's self time counted once) and idle share, and
+    the time and launches of the port's own kernels in it -> the idle
+    share (None where the profiler recorded no device time)."""
     from torch.profiler import ProfilerActivity, profile
     from raytracingrenderer_tpu_torch.config import RenderConfig
     from raytracingrenderer_tpu_torch.probes import device_rows
     from raytracingrenderer_tpu_torch.render import render
-    cfg = RenderConfig(**BENCH_CFG)
-    render(scene, cfg, spp=1)
+    if run is None:
+        cfg = RenderConfig(**BENCH_CFG)
+        run = lambda: render(scene, cfg, spp=1)  # noqa: E731
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render(scene, cfg, spp=1)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = device_rows(prof)
+    avgs = prof.key_averages()
+    rows = device_rows(prof, avgs)
     busy_ms = sum(us for _, us, _ in rows) / 1e3
     if not busy_ms:
         log(f"profile {name}: the profiler recorded no device time")
-        return
+        return None
     own = {}
     for tag, mark in (("B2 closest-hit", "bvh_traverse_kernel<false"),
                       ("B2 any-hit", "bvh_traverse_kernel<true"),
@@ -1455,6 +1495,14 @@ def profile_pass(torch, scene, name):
         f"{1 - busy_ms / wall_ms:.1%}); "
         + "; ".join(f"{k} {ms:.3f} ms in {n} launches ({ms / busy_ms:.1%} "
                     f"of device time)" for k, (ms, n) in own.items()))
+    from torch.autograd import DeviceType
+    ops = sorted(((e.key, getattr(e, "self_device_time_total", 0) or 0,
+                   e.count) for e in avgs
+                  if e.device_type == DeviceType.CPU), key=lambda r: -r[1])
+    log(f"profile {name}, device time by operator: " + "; ".join(
+        f"{key} {us / 1e3:.2f} ms x{n} ({us / 1e3 / busy_ms:.1%})"
+        for key, us, n in ops[:6]))
+    return 1 - busy_ms / wall_ms
 
 
 def same_image(what, a, b):
@@ -1564,24 +1612,30 @@ def finite_params(torch, scene) -> bool:
     return all(bool(torch.isfinite(p).all()) for p in diff._leaves(params))
 
 
-def profile_step(torch, card, name, scene, cfg, target, key):
-    """One training step's two halves under torch.profiler
-    (probes.profile_train_step): prints each half's wall time, device
-    busy time and idle share, and the backward's device time by operator
-    (the host rows' own kernels); with the boundary term on, also the
-    forward's by operator and the device time under the boundary term's
-    ranges in each half; returns (gradients by key, the numbers)."""
+def profile_step(torch, card, name, scene, cfg, target, key,
+                 halves=("forward", "backward")):
+    """One training step with the halves in `halves` under torch.profiler
+    (probes.profile_train_step): prints each half's wall time, and for a
+    profiled half its device busy time and idle share, and the
+    backward's device time by operator (the host rows' own kernels);
+    with the boundary term on, also the forward's by operator and the
+    device time under the boundary term's ranges in each half; returns
+    (gradients by key, the numbers)."""
     from raytracingrenderer_tpu_torch.probes import profile_train_step
     with BoundaryRanges(torch, cfg.boundary_grads):
         grads, prof = profile_train_step(scene, cfg, target, key,
-                                         BoundaryRanges.NAMES)
+                                         BoundaryRanges.NAMES, halves)
     fwd_ms, bwd_ms = prof["fwd_ms"], prof["bwd_ms"]
     busy = prof["fwd_busy_ms"], prof["bwd_busy_ms"]
+
+    def half_line(ms, b):
+        return f"wall {ms:.1f} ms, " + (
+            "not profiled" if b is None else
+            f"device busy {b:.2f} ms (idle {1 - b / ms:.1%})")
     log(f"training {name}, one step under torch.profiler [{card}]: forward "
-        f"wall {fwd_ms:.1f} ms, device busy {busy[0]:.2f} ms (idle "
-        f"{1 - busy[0] / fwd_ms:.1%}); backward wall {bwd_ms:.1f} ms, "
-        f"device busy {busy[1]:.2f} ms (idle {1 - busy[1] / bwd_ms:.1%}); "
-        f"backward / forward wall {bwd_ms / fwd_ms:.3f}")
+        f"{half_line(fwd_ms, busy[0])}; backward "
+        f"{half_line(bwd_ms, busy[1])}; backward / forward wall "
+        f"{bwd_ms / fwd_ms:.3f}")
     halves = (("forward", "fwd"), ("backward", "bwd"))
     for (half, tag), b in zip(halves, busy):
         ops = prof[f"{tag}_ops"]
@@ -1599,12 +1653,15 @@ def profile_step(torch, card, name, scene, cfg, target, key):
 
 
 def train_cornell(torch, card, cornell, fwd_pps, steps=TRAIN_STEPS,
-                  remats=(True, False), name="cornell", **cfg_over):
+                  remats=(True, False), name="cornell",
+                  profiled=("forward", "backward"), **cfg_over):
     """Phase 13 (a) (and 14 (a) with the boundary term in `cfg_over`):
     the cornell box at 1024x1024, zero target, lr 0.01: a warm-up
     train_steps(n=1), then train_steps(n=steps) timed, with the kernels'
-    launches counted and the backward watched; one step profiled by
-    halves; the peak memory of a step with remat in `remats`."""
+    launches counted and the backward watched; one step with the halves
+    in `profiled` under the profiler, whose peak memory is the step's
+    with remat on (the profiler allocates no device memory); the peak
+    memory of a step with remat off where `remats` has it."""
     import dataclasses
     from raytracingrenderer_tpu_torch import diff
     from raytracingrenderer_tpu_torch.config import RenderConfig
@@ -1655,21 +1712,26 @@ def train_cornell(torch, card, cornell, fwd_pps, steps=TRAIN_STEPS,
         f"first's: {bool(losses[-1] < losses[0])}")
     if not after < losses[0]:
         fail(f"the {name} training steps did not lower the loss")
-    grads, prof = profile_step(torch, card, name, trained, cfg, target,
-                               rng.fold_in(base, steps))
-    if not all(bool(torch.isfinite(g).all())
-               for g in diff._leaves(grads)):
-        fail(f"non-finite {name} gradients")
-    mem = {}
-    for remat in remats:
+    def peak_of(step):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
-        diff.train_step(trained, target, rng.PRNGKey(2),
-                        dataclasses.replace(cfg, remat=remat), TRAIN_LR)
+        out = step()
         torch.cuda.synchronize()
-        mem[remat] = (torch.cuda.max_memory_allocated(), held)
+        return out, (torch.cuda.max_memory_allocated(), held)
+    mem = {}
+    (grads, prof), mem[cfg.remat] = peak_of(lambda: profile_step(
+        torch, card, name, trained, cfg, target, rng.fold_in(base, steps),
+        profiled))
+    if not all(bool(torch.isfinite(g).all())
+               for g in diff._leaves(grads)):
+        fail(f"non-finite {name} gradients")
+    for remat in remats:
+        if remat not in mem:
+            _, mem[remat] = peak_of(lambda: diff.train_step(
+                trained, target, rng.PRNGKey(2),
+                dataclasses.replace(cfg, remat=remat), TRAIN_LR))
     log(f"training {name}, one step's peak memory (max_memory_allocated; "
         "held before the step): " + "; ".join(
             f"remat={r} {peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB)"
@@ -1682,12 +1744,14 @@ def train_cornell(torch, card, cornell, fwd_pps, steps=TRAIN_STEPS,
 
 
 def train_spheres(torch, card, spheres, fwd_pps, name="spheres",
-                  **cfg_over):
+                  profiled=("forward", "backward"), **cfg_over):
     """Phase 13 (b) (and 14 (b) with the boundary term in `cfg_over`):
     the spheres scene at 1024x1024 through the wavefront backward: a
     warm-up train_step, then one timed, with the launches counted, the
     backward watched and the step's peak memory read; refit and the
-    repacking of the tables timed; one step profiled by halves."""
+    repacking of the tables timed; one step on the refitted scene, with
+    the halves in `profiled` under the profiler, with finite
+    gradients."""
     from raytracingrenderer_tpu_torch import diff
     from raytracingrenderer_tpu_torch.config import RenderConfig
     from raytracingrenderer_tpu_torch.geometry import intersect
@@ -1750,8 +1814,12 @@ def train_spheres(torch, card, spheres, fwd_pps, name="spheres",
         f"{refit_s * 1e3:.1f} ms; repacking B2's tables (both leaf forms) "
         f"and the pre-pass's triangles {repack_s * 1e3:.1f} ms; {moved} of "
         f"{spheres.triangles.count} anchor vertices moved [{card}]")
-    grads, prof = profile_step(torch, card, name, fitted, cfg, target,
-                               rng.PRNGKey(2))
+    if profiled:
+        grads, prof = profile_step(torch, card, name, fitted, cfg, target,
+                                   rng.PRNGKey(2), profiled)
+    else:
+        _, grads = diff.loss_and_grads(fitted, target, rng.PRNGKey(2), cfg)
+        prof = {}
     if not all(bool(torch.isfinite(g).all()) for g in diff._leaves(grads)):
         fail(f"non-finite {name} gradients")
     return dict(fwdbwd_pps=pps, fwd_over_fwdbwd=fwd_pps / pps,
@@ -1773,8 +1841,9 @@ def grads_gpu_vs_cpu(torch, name, scene_dir, wave, **cfg_over):
     from raytracingrenderer_tpu_torch.sampling import rng
     from raytracingrenderer_tpu_torch.scene.loader import load_scene
     cfg = RenderConfig(**BENCH_CFG, **cfg_over)
-    got = {}
+    got, secs = {}, {}
     for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
         sc = load_scene(scene_dir, device=dev)
         cam = sc.camera
         target = torch.zeros((cam.height, cam.width, 3), device=dev)
@@ -1787,12 +1856,16 @@ def grads_gpu_vs_cpu(torch, name, scene_dir, wave, **cfg_over):
         got[dev] = (loss.item(), {
             k: (v.stacked() if hasattr(v, "stacked") else v).cpu().numpy()
             for k, v in g.items()})
+        secs[dev] = time.perf_counter() - t0
     (lg, gg), (lc, gc) = got["cuda"], got["cpu"]
     rel = abs(lg - lc) / max(abs(lc), 1e-30)
     ok = rel <= 1e-4
-    parts = [f"loss {lg:.7f} vs {lc:.7f} (rel {rel:.2e})"]
-    for k in diff.PARAM_KEYS:
+    parts = [f"loss {lg:.7f} vs {lc:.7f} (rel {rel:.2e}; cuda "
+             f"{secs['cuda']:.1f} s, cpu {secs['cpu']:.1f} s)"]
+    for k in diff.param_keys(gc):
         a, b = gg[k], gc[k]
+        if b.size == 0:       # light_le of a scene without area lights
+            continue
         if not np.isfinite(a).all():
             ok = False
         if k == "tri_p0":
@@ -1807,6 +1880,158 @@ def grads_gpu_vs_cpu(torch, name, scene_dir, wave, **cfg_over):
     log(f"gradients {name}, cuda vs cpu: " + "; ".join(parts))
     if not ok:
         fail(f"gradients {name}: cuda and cpu disagree")
+
+
+def b12_counts():
+    """(B1 launches, {B2 variant: launches}) since the last reset."""
+    from raytracingrenderer_tpu_torch.ops import bvh_kernel, mt_kernel
+    return mt_kernel.launches, {k: bvh_kernel.launches[k]
+                                for k in ("closest_hit", "any_hit")}
+
+
+def sky_phase(torch, card, scenes, tmp, out_dir):
+    """Phase 15, main path 7: the spheres above the cornell floor, lit
+    only by a 1024 x 2048 sky (tests/torch_scenes.py::write_sky): load
+    with the native alias table, a 1024x1024 8 spp render through the
+    wavefront (B2 both variants and B1's pre-pass launched), one pass
+    profiled; then the 5,122-triangle sky scene (a 256 x 512 map) at
+    128x128 on "cuda" and "cpu", image and gradients (env_data among the
+    parameters) held as phases 7 and 13 (c) hold theirs."""
+    from raytracingrenderer_tpu_torch.geometry import bvh_native, intersect
+    from raytracingrenderer_tpu_torch.io.hdr import read_hdr
+    from raytracingrenderer_tpu_torch.lights import envmap
+    from raytracingrenderer_tpu_torch.scene.loader import load_scene
+    t0 = time.perf_counter()
+    sky_dir = scenes.write_sky(os.path.join(tmp, "sky"), subdiv=5)
+    t1 = time.perf_counter()
+    sky = load_scene(sky_dir, device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    env = sky.background.envmap
+    if env is None or tuple(env.data.shape) != (1024, 2048, 3):
+        fail("the sky scene did not load its 1024 x 2048 envmap")
+    if not hasattr(bvh_native._load(), "alias_build"):
+        fail("the native library lacks alias_build: the alias table would "
+             "take the Python fallback")
+    img = read_hdr(os.path.join(sky_dir, "sky.hdr"))
+    t3 = time.perf_counter()
+    envmap.build_envmap(img, "cuda")
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    log(f"sky scene: {sky.triangles.count} triangles, written in "
+        f"{t1 - t0:.2f} s, loaded on cuda in {t2 - t1:.2f} s (sky.hdr read "
+        f"{t3 - t2:.2f} s, build_envmap with the native alias table "
+        f"{t4 - t3:.3f} s); mean_power {env.mean_power.item():.5f}")
+    _, sky_s = render_full(torch, sky, "sky", card, out_dir)
+    b1, b2 = b12_counts()
+    log(f"sky launches: bvh_kernel {b2}, mt_kernel (proxy pre-pass) {b1}, "
+        f"stackless walks {intersect.stackless_calls}")
+    if min(b2.values()) == 0 or b1 == 0 or intersect.stackless_calls:
+        fail("the sky render did not launch both B2 variants and B1's "
+             "pre-pass, or took the stackless walk")
+    idle = profile_pass(torch, sky, "sky")
+    sky128 = scenes.write_sky(os.path.join(tmp, "sky128"), 128, 128,
+                              subdiv=2, env_h=256, env_w=512)
+    gpu_vs_cpu("sky-5122", sky128)
+    grads_gpu_vs_cpu(torch, "sky-5122 128x128 (wavefront), env_data",
+                     sky128, wave=True)
+    cam = sky.camera
+    return dict(pps=cam.width * cam.height * SPP / sky_s, s=sky_s,
+                idle=idle, launches=dict(mt=b1, **b2))
+
+
+DISPATCH = ("direct", "albedo", "normals", "lighttrace", "vpl")
+GATE_VPL_DEPTH = 2      # the 128x128 vpl gate: 200 slots a pass, not 300
+
+
+def dispatch_expected(integ, max_depth):
+    """(closest-hit calls, any-hit calls) a render_with pass makes.  Each
+    call is one B1 launch on a brute-force scene; on a BVH scene a
+    closest-hit call is one B2 launch and an any-hit call a B1 pre-pass
+    and a B2 launch."""
+    from raytracingrenderer_tpu_torch.config import MAX_VPL
+    return {"direct": (1, 1), "albedo": (1, 0), "normals": (1, 0),
+            "lighttrace": (max_depth + 1, max_depth + 2),
+            "vpl": (max_depth + 2, MAX_VPL * (max_depth + 2))}[integ]
+
+
+def dispatch_phase(torch, card, scenes, tmp, out_dir, cornell, spheres,
+                   spheres128):
+    """Phase 16, main path 8: integrators.dispatch.render_with for each
+    of direct, albedo, normals, lighttrace and vpl at 1024x1024, 8 spp
+    (lighttrace: 1024^2 light paths a pass) on the cornell box (B1) and
+    the spheres scene (B2, B1's pre-pass), each after a warm-up pass and
+    with the counts set to 0 just before: the kernels' launches as the
+    passes make them, finite images with sane means, pixel-paths/s
+    (light paths/s); one profiled pass of lighttrace and vpl on each
+    scene; then every integrator at 128x128, 2 spp, on "cuda" and "cpu"
+    (vpl at max_depth 2), held as phase 7."""
+    from raytracingrenderer_tpu_torch.config import RenderConfig
+    from raytracingrenderer_tpu_torch.imaging import film as film_mod
+    from raytracingrenderer_tpu_torch.integrators.dispatch import render_with
+    from raytracingrenderer_tpu_torch.io.hdr import write_hdr
+    from raytracingrenderer_tpu_torch.scene.loader import load_scene
+    out = {}
+    for sname, scene in (("cornell", cornell), ("spheres", spheres)):
+        cam = scene.camera
+        brute = scene.triangles.count <= 64
+        for integ in DISPATCH:
+            cfg = RenderConfig(**BENCH_CFG, integrator=integ)
+            render_with(scene, cfg, 1)                 # warm-up pass
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            film = render_with(scene, cfg, SPP)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            b1, b2 = b12_counts()
+            img = film_mod.to_hdr(film)
+            if not bool(torch.isfinite(img).all()):
+                fail(f"{integ} {sname}: non-finite pixels")
+            mean = img.mean().item()
+            closest, any_ = dispatch_expected(integ, cfg.max_depth)
+            want = ({"mt": SPP * (closest + any_)} if brute else
+                    {"mt": SPP * any_, "closest_hit": SPP * closest,
+                     "any_hit": SPP * any_})
+            got = {"mt": b1, **({} if brute else b2)}
+            pps = cam.width * cam.height * SPP / dt
+            unit = "light paths/s" if integ == "lighttrace" else \
+                "pixel-paths/s"
+            log(f"render_with {integ} {sname} {cam.width}x{cam.height}, "
+                f"{SPP} spp: {dt:.3f} s, {pps:.6g} {unit} [{card}], image "
+                f"mean {mean:.5f}, launches {got} (expected {want})")
+            if got != want:
+                fail(f"{integ} {sname}: launches {got}, expected {want}")
+            if not 0.01 < mean < 1.0:
+                fail(f"{integ} {sname}: implausible image mean {mean}")
+            write_hdr(os.path.join(out_dir, f"{integ}_{sname}_{cam.width}x"
+                                   f"{cam.height}_{SPP}spp.hdr"),
+                      img.cpu().numpy())
+            idle = None
+            if integ in ("lighttrace", "vpl"):
+                idle = profile_pass(torch, scene, f"{integ} {sname}",
+                                    run=lambda: render_with(scene, cfg, 1))
+            out[f"{integ}_{sname}"] = dict(pps=pps, s=dt, idle=idle, **got)
+    cornell128 = scenes.write_cornell(os.path.join(tmp, "cornell128d"), 128,
+                                      128)
+    for sname, sdir in (("cornell", cornell128), ("spheres-5156",
+                                                  spheres128)):
+        scs = {dev: load_scene(sdir, device=dev) for dev in ("cuda", "cpu")}
+        for integ in DISPATCH:
+            cfg = RenderConfig(**dict(
+                BENCH_CFG, max_depth=(GATE_VPL_DEPTH if integ == "vpl"
+                                      else BENCH_CFG["max_depth"])),
+                integrator=integ)
+            imgs, secs = {}, {}
+            for dev, sc in scs.items():
+                t0 = time.perf_counter()
+                imgs[dev] = film_mod.to_hdr(render_with(sc, cfg, 2)).cpu() \
+                    .numpy()
+                secs[dev] = time.perf_counter() - t0
+            same_image(f"render_with {integ} {sname} 128x128 2 spp, cuda vs "
+                       f"cpu (cuda {secs['cuda']:.1f} s, cpu "
+                       f"{secs['cpu']:.1f} s)", imgs["cuda"], imgs["cpu"])
+    return out
 
 
 def main() -> None:
@@ -1833,11 +2058,13 @@ def main() -> None:
     from raytracingrenderer_tpu_torch.scene.loader import load_scene
 
     # -- 1. card and host facts --------------------------------------------
+    mark(1)
     card = card_facts(torch)
     kind = torch.cuda.get_device_name(0)
     host_facts()
 
     # -- 2. build ----------------------------------------------------------
+    mark(2)
     build_all()
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1892,6 +2119,7 @@ def main() -> None:
              f"kernel's stack")
 
     # -- 3. B1 against its plain version -----------------------------------
+    mark(3)
     err_a, ms_a, plain_a, bound_a = check_mt_kernel(
         torch, "(a) cornell", cornell.triangles, timed=True)
     err_b, _, _, _ = check_mt_kernel(torch, "(b) random-128",
@@ -1902,9 +2130,11 @@ def main() -> None:
     mt_host_us = mt_host_split(torch, cornell.triangles)
 
     # -- 4. B2 against its plain version -----------------------------------
+    mark(4)
     b2, b2_batches = check_bvh_kernel(torch, spheres)
 
     # -- 5. main path 1: cornell (brute force, B1) --------------------------
+    mark(5)
     _, cornell_s = render_full(torch, cornell, "cornell", card, out_dir)
     cornell_pps = cornell.camera.width * cornell.camera.height * SPP / cornell_s
     mt_cornell = mt_kernel.launches
@@ -1914,6 +2144,7 @@ def main() -> None:
         fail("the cornell render never launched mt_kernel")
 
     # -- 6. main path 2: spheres (BVH, wavefront, B2 + B1) ------------------
+    mark(6)
     wave_img, wave_s = render_full(torch, spheres, "spheres", card, out_dir)
     spheres_pps = spheres.camera.width * spheres.camera.height * SPP / wave_s
     b2_launches = dict(bvh_kernel.launches)
@@ -1937,6 +2168,7 @@ def main() -> None:
                scan_img)
 
     # -- 7. GPU (kernels) against CPU (plain versions) -----------------------
+    mark(7)
     gpu_vs_cpu("cornell", scenes.write_cornell(
         os.path.join(tmp, "cornell128"), 128, 128))
     spheres128 = scenes.write_spheres(os.path.join(tmp, "spheres128"), 128,
@@ -1944,10 +2176,12 @@ def main() -> None:
     gpu_vs_cpu("spheres-5156", spheres128)
 
     # -- 8. B3 against its plain version -----------------------------------
+    mark(8)
     b3 = check_wide_kernel(torch, spheres, b2_batches)
     del b2_batches
 
     # -- 9. B4 against its plain version -----------------------------------
+    mark(9)
     t0 = time.perf_counter()
     tspheres = spheres._replace(bvh=treelet.attach_treelets(spheres.bvh))
     log(f"attach_treelets: {tspheres.bvh.tl_nodes.shape[0]} treelets in "
@@ -1956,6 +2190,7 @@ def main() -> None:
     b4 = check_pair_kernel(torch, tspheres)
 
     # -- 10. main path 3: spheres through the treelet route (B4, B1, B2) ----
+    mark(10)
     tl_img, tl_s = render_full(torch, tspheres, "spheres-treelet", card,
                                out_dir)
     tl_launches = dict(pair_test=treelet.launches, mt=mt_kernel.launches,
@@ -1973,12 +2208,15 @@ def main() -> None:
                wave_img)
 
     # -- 11. GPU against CPU for the treelet route ---------------------------
+    mark(11)
     gpu_vs_cpu("spheres-5156 treelet", spheres128, treelets=True)
 
     # -- 12. main path 4: the matrix-unit probes (visit_kernel.cu) ----------
+    mark(12)
     probes = check_probes(torch, card)
 
     # -- 13. main path 5: training (diff.train_steps / train_step) ----------
+    mark(13)
     tr_a = train_cornell(torch, card, cornell, cornell_pps)
     tr_b = train_spheres(torch, card, spheres, spheres_pps)
     grads_gpu_vs_cpu(torch, "cornell 128x128 (scan)", scenes.write_cornell(
@@ -1987,23 +2225,40 @@ def main() -> None:
                      wave=True)
 
     # -- 14. main path 6: training with the boundary term --------------------
+    mark(14)
     bnd = dict(boundary_grads=True)
     tr_c = train_cornell(torch, card, cornell, cornell_pps,
                          steps=BOUNDARY_STEPS, remats=(True,),
-                         name="cornell-boundary", **bnd)
+                         name="cornell-boundary", profiled=("forward",),
+                         **bnd)
     tr_d = train_spheres(torch, card, spheres, spheres_pps,
-                         name="spheres-boundary", **bnd)
+                         name="spheres-boundary", profiled=(), **bnd)
     for name, with_b, without in (("cornell", tr_c, tr_a),
                                   ("spheres", tr_d, tr_b)):
         log(f"training {name} 1024x1024: fwdbwd_pps with the boundary term "
             f"{with_b['fwdbwd_pps']:.6g}, without (phase 13) "
             f"{without['fwdbwd_pps']:.6g} (with / without "
             f"{with_b['fwdbwd_pps'] / without['fwdbwd_pps']:.3f}) [{card}]")
-    grads_gpu_vs_cpu(torch, "cornell 128x128 (scan), boundary_grads",
-                     scenes.write_cornell(os.path.join(tmp, "cornell128b"),
-                                          128, 128), wave=False, **bnd)
-    grads_gpu_vs_cpu(torch, "spheres-5156 128x128 (wavefront), "
-                     "boundary_grads", spheres128, wave=True, **bnd)
+    # at 64x64, to keep the script within its time limit
+    grads_gpu_vs_cpu(torch, "cornell 64x64 (scan), boundary_grads",
+                     scenes.write_cornell(os.path.join(tmp, "cornell64b"),
+                                          64, 64), wave=False, **bnd)
+    grads_gpu_vs_cpu(torch, "spheres-5156 64x64 (wavefront), "
+                     "boundary_grads", scenes.write_spheres(
+                         os.path.join(tmp, "spheres64b"), 64, 64, subdiv=2),
+                     wave=True, **bnd)
+
+    # -- 15. main path 7: the sky (envmap lighting, B2 + B1) ----------------
+    mark(15)
+    sky = sky_phase(torch, card, scenes, tmp, out_dir)
+
+    # -- 16. main path 8: dispatch.render_with (AOVs, lighttrace, vpl) -----
+    mark(16)
+    disp = dispatch_phase(torch, card, scenes, tmp, out_dir, cornell,
+                          spheres, spheres128)
+    log("new paths " + json.dumps({"card": card, "sky": sky,
+                                   "render_with": disp}))
+    log(f"-- every phase done at {time.perf_counter() - T_START:.1f} s")
 
     def brief(tr):
         return {k: v for k, v in tr.items() if not k.endswith("_ops")}
@@ -2047,6 +2302,8 @@ def main() -> None:
             tr_d["launches"]["mt"],
         "launches_training_boundary_backward": (
             tr_c["bwd_launches"]["mt"] + tr_d["bwd_launches"]["mt"]),
+        "launches_sky_prepass": sky["launches"]["mt"],
+        "launches_render_with": {k: v["mt"] for k, v in disp.items()},
     }] + [dict(name=f"bvh_traverse/{v}", **bvh_src,
                launches=b2_launches[v],
                launches_treelet_path=tl_launches[v],
@@ -2058,6 +2315,9 @@ def main() -> None:
                launches_training_boundary_backward=(
                    tr_c["bwd_launches"].get(v, 0)
                    + tr_d["bwd_launches"].get(v, 0)),
+               launches_sky=sky["launches"][v],
+               launches_render_with={k: c[v] for k, c in disp.items()
+                                     if v in c},
                library_ms=None,
                **b2[v])
           for v in ("closest_hit", "any_hit")]

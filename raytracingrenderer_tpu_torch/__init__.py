@@ -3,9 +3,11 @@ raytracingrenderer_tpu, for an NVIDIA H100.
 
 Same subpackages and module names as the JAX package, so each module's
 counterpart is found by path.  The port imports torch and numpy only;
-its kernels (csrc/*.cu) are built with nvcc at first use.  This slice
-covers the forward path tracer on brute-force-intersected scenes (64
-triangles or fewer, e.g. cornell-box).
+its kernels (csrc/*.cu) are built with nvcc at first use.  It covers
+the path tracer and its gradients (render.py, diff.py) on brute-force
+and BVH scenes, environment-map lighting, and the AOV, light-tracer and
+VPL integrators (integrators/dispatch.render_with); ROADMAP.md lists
+what is not ported yet.
 """
 
 __version__ = "0.1.0"

@@ -2,9 +2,10 @@
 raytracingrenderer_tpu/config.py, so one RenderConfig reads alike in both
 packages.
 
-Fields that belong to slices this package has not ported yet are kept
-(so configurations carry over) and `render.render` and the gradient
-entry points (diff.py) refuse them: any `integrator` other than "path".
+`render.render` and the gradient entry points (diff.py) run the path
+tracer and refuse any other `integrator`; "direct", "albedo",
+"normals", "lighttrace" and "vpl" run through
+integrators.dispatch.render_with ("adaptive" is not ported yet).
 `geom_grads` attaches the hit-point reparameterisation (diff.py turns it
 on); `boundary_grads` adds the NEE visibility boundary term
 (integrators/boundary.py, `boundary_samples` edge samples a bounce, each
@@ -40,7 +41,7 @@ class RenderConfig:
     rr: bool = True                  # Russian roulette on/off
     mis: bool = True                 # balance-heuristic MIS
     jitter: bool = False             # sub-pixel jitter
-    integrator: str = "path"         # only "path" is ported
+    integrator: str = "path"         # others: dispatch.render_with
     batch_rays: int = 1 << 18        # kept for parity; unused here
     exposure: float = 1.0
     seed: int = 0

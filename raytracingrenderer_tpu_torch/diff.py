@@ -11,9 +11,10 @@ cfg.boundary_grads the NEE visibility boundary term joins it
 gradient of a shadow edge that moves with the geometry, which the
 interior term misses.  The parameters and their keys are the JAX
 package's: `albedo`, `emission`, `alpha` (materials), `light_le` (the
-light table's radiance) and `tri_p0` (each triangle's anchor vertex; e1
-and e2 ride along, so a triangle translates rigidly).  `env_data` joins
-when environment maps are ported.
+light table's radiance), `tri_p0` (each triangle's anchor vertex; e1
+and e2 ride along, so a triangle translates rigidly) and, where the
+background is an environment map, `env_data` (its texel radiance; the
+alias table and the pdf stay the fixed, detached sampling distribution).
 
 Where JAX takes jax.value_and_grad of a pure function, here the
 parameters become leaf tensors with requires_grad, the image is rendered
@@ -38,7 +39,14 @@ from .core.vec import V3
 from .sampling import rng
 from .scene.types import Scene
 
+# every scene's parameters; an envmap scene's add ENV_KEY
 PARAM_KEYS = ("albedo", "emission", "alpha", "light_le", "tri_p0")
+ENV_KEY = "env_data"
+
+
+def param_keys(params) -> Tuple[str, ...]:
+    """The keys of `params` in their fixed order."""
+    return PARAM_KEYS + ((ENV_KEY,) if ENV_KEY in params else ())
 
 
 def _split_scene(scene: Scene):
@@ -50,6 +58,8 @@ def _split_scene(scene: Scene):
         light_le=scene.lights.le,
         tri_p0=scene.triangles.p0,
     )
+    if scene.background.envmap is not None:
+        params[ENV_KEY] = scene.background.envmap.data
     return params, scene
 
 
@@ -59,13 +69,19 @@ def _merge_scene(params, scene: Scene) -> Scene:
                                     alpha=params["alpha"])
     lights = scene.lights._replace(le=params["light_le"])
     tris = scene.triangles._replace(p0=params["tri_p0"])
-    return scene._replace(materials=mats, lights=lights, triangles=tris)
+    out = scene._replace(materials=mats, lights=lights, triangles=tris)
+    if ENV_KEY in params:
+        from .lights.envmap import with_data
+        bg = scene.background
+        out = out._replace(background=dataclasses.replace(
+            bg, envmap=with_data(bg.envmap, params[ENV_KEY])))
+    return out
 
 
 def _leaves(params) -> list:
     """The parameters' tensors in key order (a V3 componentwise)."""
     out = []
-    for k in PARAM_KEYS:
+    for k in param_keys(params):
         p = params[k]
         out.extend(p if isinstance(p, V3) else (p,))
     return out
@@ -74,7 +90,7 @@ def _leaves(params) -> list:
 def _rebuild(params, flat) -> Dict:
     """`flat` (in `_leaves` order) in the structure of `params`."""
     out, i = {}, 0
-    for k in PARAM_KEYS:
+    for k in param_keys(params):
         if isinstance(params[k], V3):
             out[k] = V3(*flat[i:i + 3])
             i += 3

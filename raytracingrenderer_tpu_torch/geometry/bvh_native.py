@@ -99,6 +99,10 @@ def _load() -> ctypes.CDLL:
         lib.bvh_build_q.argtypes = [fp, ctypes.c_int, ctypes.c_int,
                                     ctypes.c_int, ctypes.c_int,
                                     fp, fp, ip, ip, ip, ip]
+        if hasattr(lib, "alias_build"):   # lights/envmap.py's alias table
+            lib.alias_build.restype = None
+            lib.alias_build.argtypes = [ctypes.POINTER(ctypes.c_double),
+                                        ctypes.c_int, fp, ip]
         _lib, source = lib, str(path)
     return _lib
 

@@ -64,6 +64,29 @@ class Hit(NamedTuple):
         return self.tri >= 0
 
 
+def on_live_lanes(plain, o: V3, d: V3, t_init: torch.Tensor) -> Hit:
+    """plain(o, d, t_init) -> Hit run on the live lanes only (t_init > 0),
+    the others given the miss every walk gives a dead lane: (t_init, -1,
+    0, 0).  The kernels' wrappers take this for CPU tensors, where the
+    plain versions pay for every lane (a VPL gather's shadow batches are
+    mostly dead); on the card the kernels skip dead lanes themselves."""
+    live = t_init > 0.0
+    n = t_init.shape[0]
+    if bool(live.all()):
+        return plain(o, d, t_init)
+    idx = torch.nonzero(live)[:, 0]
+    out = Hit(t_init.to(torch.float32).clone(),
+              torch.full((n,), -1, dtype=torch.int32, device=t_init.device),
+              torch.zeros(n, dtype=torch.float32, device=t_init.device),
+              torch.zeros(n, dtype=torch.float32, device=t_init.device))
+    if idx.numel():
+        h = plain(V3(*(c[idx] for c in o)), V3(*(c[idx] for c in d)),
+                  t_init[idx])
+        for a, b in zip(out, h):
+            a[idx] = b
+    return out
+
+
 def _mt_test(tris: Triangles, idx, o: V3, d: V3):
     """Moller-Trumbore for rays (N,) against gathered triangles idx (N,)
     or broadcast (N, C).  Returns (t, u, v, hit)."""

@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from ..core.vec import V3
-from ..geometry.intersect import BIG_T, DET_EPS, Hit
+from ..geometry.intersect import BIG_T, DET_EPS, Hit, on_live_lanes
 from ..scene.types import BVH, Triangles
 from .launch import I32, PTR, bind, launch, stream_of
 
@@ -794,7 +794,10 @@ def traverse_packet(bvh: BVH, tris: Triangles, o: V3, d: V3, t_init,
             ("d.y", d.y), ("d.z", d.z), ("t_init", t_init)), n)
     dev = nodes.device
     if dev.type == "cpu":
-        return traverse_plain(bvh, tris, o, d, t_init, any_hit, leaf16, wide)
+        return on_live_lanes(
+            lambda so, sd, st: traverse_plain(bvh, tris, so, sd, st, any_hit,
+                                              leaf16, wide),
+            o, d, torch.broadcast_to(t_init, (n,)))
     if dev.type != "cuda":
         raise ValueError(f"no BVH kernel for device {dev}")
     t = torch.empty(n, dtype=torch.float32, device=dev)

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..core.vec import V3
-from ..geometry.intersect import BIG_T, Hit, _mt_test
+from ..geometry.intersect import BIG_T, Hit, _mt_test, on_live_lanes
 from ..scene.types import Triangles
 from .launch import I32, PTR, bind, launch
 
@@ -134,7 +134,8 @@ def intersect(tris: Triangles, o: V3, d: V3, t_init: torch.Tensor) -> Hit:
                   ("d.y", d.y), ("d.z", d.z), ("t_init", t_init)), n)
     dev = rows.device
     if dev.type == "cpu":
-        return intersect_plain(tris, o, d, t_init)
+        return on_live_lanes(lambda *r: intersect_plain(tris, *r), o, d,
+                             t_init)
     if dev.type != "cuda":
         raise ValueError(f"no MT kernel for device {dev}")
     if rows.data_ptr() % 16:

@@ -147,15 +147,18 @@ def visit_work(cfg: Dict) -> Dict[str, int]:
                + blocks * 16 * R + blocks * R * (rows + 1)) * 4)
 
 
-def device_rows(prof):
+def device_rows(prof, avgs=None):
     """[(name, self device microseconds, count)] of the profile's device
     rows: the kernels and copies themselves.  A host operator's row
     carries its kernels' time again as its own self device time, so the
-    host rows are left out and each kernel counts once."""
+    host rows are left out and each kernel counts once.  `avgs` is the
+    profile's key_averages() where the caller has it: each call walks
+    every event again (tens of seconds for a training step's half)."""
     from torch.autograd import DeviceType
+    if avgs is None:
+        avgs = prof.key_averages()
     return [(e.key, getattr(e, "self_device_time_total", 0) or 0, e.count)
-            for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU]
+            for e in avgs if e.device_type != DeviceType.CPU]
 
 
 def device_ms(fn: Callable, iters: int = 50):
@@ -183,15 +186,19 @@ def device_ms(fn: Callable, iters: int = 50):
     return None
 
 
-def profile_train_step(scene, cfg, target, key, ranges=()) -> Tuple:
+def profile_train_step(scene, cfg, target, key, ranges=(),
+                       halves=("forward", "backward")) -> Tuple:
     """One training step (diff.loss_and_grads, dispatched as train_step
-    does) with each half under torch.profiler: the forward (render_loss,
-    recording for autograd) and the backward (torch.autograd.grad) ->
-    (gradients by key, dict of fwd_ms / bwd_ms, the wall times,
-    fwd_busy_ms / bwd_busy_ms, the device rows' time, fwd_ops / bwd_ops,
-    [(host operator, its own device ms, calls)] of each half by device
-    time, and fwd_ranges / bwd_ranges, {name: (device ms, calls)} of the
-    record_function ranges named in `ranges` that a half entered)."""
+    does) with each half in `halves` under torch.profiler: the forward
+    (render_loss, recording for autograd) and the backward
+    (torch.autograd.grad) -> (gradients by key, dict of fwd_ms / bwd_ms,
+    the wall times, fwd_busy_ms / bwd_busy_ms, the device rows' time
+    (None for a half not profiled), fwd_ops / bwd_ops, [(host operator,
+    its own device ms, calls)] of each half by device time, and
+    fwd_ranges / bwd_ranges, {name: (device ms, calls)} of the
+    record_function ranges named in `ranges` that a half entered).
+    Walking a profiled half's events takes tens of seconds with the
+    boundary term on, the backward's most."""
     import contextlib
     import time
     from torch.autograd import DeviceType
@@ -202,22 +209,30 @@ def profile_train_step(scene, cfg, target, key, ranges=()) -> Tuple:
     @contextlib.contextmanager
     def around(half):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as profs[half]:
+        with (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA])
+              if half in halves else contextlib.nullcontext()) as prof:
             t0 = time.perf_counter()
             yield
             torch.cuda.synchronize()
             wall[half] = (time.perf_counter() - t0) * 1e3
+        if prof is not None:
+            profs[half] = prof
 
     _, grads = diff.loss_and_grads(scene, target, key, cfg, around)
+    averages = {h: p.key_averages() for h, p in profs.items()}
     # a range's own device row spans its kernels: left out of the busy time
-    busy = {h: sum(us for k, us, _ in device_rows(p) if k not in ranges)
-            / 1e3 for h, p in profs.items()}
+    busy = {h: sum(us for k, us, _ in device_rows(p, averages[h])
+                   if k not in ranges) / 1e3 for h, p in profs.items()}
     out = dict(fwd_ms=wall["forward"], bwd_ms=wall["backward"],
-               fwd_busy_ms=busy["forward"], bwd_busy_ms=busy["backward"])
-    for half, p in profs.items():
+               fwd_busy_ms=busy.get("forward"),
+               bwd_busy_ms=busy.get("backward"))
+    for half in ("forward", "backward"):
         tag = {"forward": "fwd", "backward": "bwd"}[half]
-        avgs = [e for e in p.key_averages()
+        if half not in profs:
+            out[f"{tag}_ops"], out[f"{tag}_ranges"] = [], {}
+            continue
+        avgs = [e for e in averages[half]
                 if e.device_type == DeviceType.CPU]
         ops = sorted(((e.key, (getattr(e, "self_device_time_total", 0)
                                or 0) / 1e3, e.count) for e in avgs

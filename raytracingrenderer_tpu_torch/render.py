@@ -39,11 +39,15 @@ def specialize_config(cfg: RenderConfig, scene: Scene) -> RenderConfig:
 
 
 def _check_supported(cfg: RenderConfig) -> None:
-    """Refuse what is not ported yet: every integrator but "path"."""
+    """Refuse every integrator but "path": render, sample_image and the
+    gradients (diff.py) trace paths only, where the JAX package's render
+    ignores cfg.integrator.  The other integrators run through
+    integrators.dispatch.render_with."""
     if cfg.integrator != "path":
         raise NotImplementedError(
-            f"not ported yet: integrator={cfg.integrator!r} (only the path "
-            f"tracer and its gradients, interior and boundary, are)")
+            f"integrator={cfg.integrator!r}: render() and the gradients "
+            f"run the path tracer only; call "
+            f"integrators.dispatch.render_with for the others")
 
 
 def _use_wavefront(scene: Scene, cfg: RenderConfig) -> bool:

@@ -49,3 +49,17 @@ def project_onto_camera(cam: Camera, p: V3
     x = sx * cam.width
     y = (1.0 - sy) * cam.height
     return x, y, valid
+
+
+def view_direction(cam: Camera) -> V3:
+    """Unit forward axis of the camera (RTBase Camera::viewDirection)."""
+    d = matrix.apply_point(cam.p_inv, V3.of(0.0, 0.0, 1.0,
+                                            device=cam.p_inv.device))
+    return matrix.apply_vec(cam.cam_to_world, d).normalize()
+
+
+def cos_theta_to_pixel(cam: Camera, dir_to_pixel: V3) -> torch.Tensor:
+    """cos of the angle between the camera's forward axis and a unit
+    direction: the cos^4 of the light tracer's importance
+    W = 1 / (A_film cos^4)."""
+    return dir_to_pixel.dot(view_direction(cam))

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from ..core.vec import V3
-from .types import (BVH_ARRAYS, BVH, Background, Camera, LightTable,
+from .types import (BVH_ARRAYS, BVH, Background, Camera, EnvMap, LightTable,
                     MaterialTable, Scene, SceneBounds, TextureAtlas,
                     Triangles, scene_device)
 
@@ -52,15 +52,14 @@ def scene_from_numpy(tree, device="cuda") -> Scene:
     card raises)."""
     device = scene_device(device)
     bg = tree.background
-    if bg.envmap is not None:
-        raise NotImplementedError("environment maps are not ported yet")
+    env = None if bg.envmap is None else _fields(EnvMap, bg.envmap, device)
     cam = tree.camera
     return Scene(
         triangles=_fields(Triangles, tree.triangles, device),
         materials=_fields(MaterialTable, tree.materials, device),
         textures=_fields(TextureAtlas, tree.textures, device),
         lights=_fields(LightTable, tree.lights, device),
-        background=Background(int(bg.kind), _value(bg.colour, device)),
+        background=Background(int(bg.kind), _value(bg.colour, device), env),
         camera=Camera(
             p=_tensor(cam.p, device), p_inv=_tensor(cam.p_inv, device),
             cam_to_world=_tensor(cam.cam_to_world, device),

@@ -16,8 +16,9 @@ and the light table's triangle ids are remapped; the tree carries the
 4-wide collapse (`ops/bvh_kernel.widen`) as the JAX loader's does.
 Scenes of 64 triangles or fewer still brute-force every ray
 (geometry/intersect.py), as in the JAX package, which builds their tree
-all the same.  The JAX loader's sharded trees (`scene_shards`) are not
-ported; environment-map backgrounds raise NotImplementedError.
+all the same.  A scene.json "envmap" makes the background that map, its
+sampling tables built as the JAX loader builds them (lights/envmap.py).
+The JAX loader's sharded trees (`scene_shards`) are not ported.
 """
 from __future__ import annotations
 
@@ -33,11 +34,11 @@ from ..core.vec import V3
 from ..io.hdr import read_hdr
 from ..io.png import read_png_float
 from .gem import load_gem
-from .types import (BG_NONE, MAT_CONDUCTOR, MAT_DIELECTRIC, MAT_DIFFUSE,
-                    MAT_GLASS, MAT_MIRROR, MAT_OREN_NAYAR, MAT_PLASTIC,
-                    Background, Camera, LightTable, MaterialTable, Scene,
-                    SceneBounds, TextureAtlas, Triangles, scene_device,
-                    v3_from_np)
+from .types import (BG_ENVMAP, BG_NONE, MAT_CONDUCTOR, MAT_DIELECTRIC,
+                    MAT_DIFFUSE, MAT_GLASS, MAT_MIRROR, MAT_OREN_NAYAR,
+                    MAT_PLASTIC, Background, Camera, LightTable,
+                    MaterialTable, Scene, SceneBounds, TextureAtlas,
+                    Triangles, scene_device, v3_from_np)
 
 # Leaf size and SAH quality of the loader's build, as the JAX loader's:
 # 14 triangles fill one 128-lane leaf row of the packet kernel's tables;
@@ -262,11 +263,6 @@ def load_scene(scene_dir: str, device="cuda", build_bvh: bool = True,
     with open(os.path.join(scene_dir, "scene.json")) as f:
         desc = json.load(f)
 
-    if _get(desc, "envmap", ""):
-        raise NotImplementedError(
-            "environment-map backgrounds (lights/envmap.py) are not "
-            "ported yet")
-
     width = _get(desc, "width", 1920)
     height = _get(desc, "height", 1080)
     fov = _get(desc, "fov", 45.0)
@@ -383,8 +379,20 @@ def load_scene(scene_dir: str, device="cuda", build_bvh: bool = True,
         area=t(area, np.float32), mat_id=t(tmid, np.int32),
         light_id=t(light_id))
 
-    # black background, power 0, not in the light list
-    background = Background(BG_NONE, V3.of(0.0, 0.0, 0.0, device=device))
+    envmap_file = _get(desc, "envmap", "")
+    if envmap_file:
+        from ..lights.envmap import build_envmap
+        path = os.path.join(scene_dir, envmap_file)
+        # a missing file lights the scene with a constant white map
+        env_img = (read_hdr(path) if os.path.isfile(path)
+                   else np.ones((2, 4, 3), np.float32))
+        background = Background(BG_ENVMAP,
+                                V3.of(0.0, 0.0, 0.0, device=device),
+                                build_envmap(env_img, device))
+    else:
+        # black background, power 0, not in the light list
+        background = Background(BG_NONE,
+                                V3.of(0.0, 0.0, 0.0, device=device))
 
     if len(tp):
         lo = tp.reshape(-1, 3).min(axis=0)

@@ -30,7 +30,7 @@ NUM_MAT_TYPES = 7
 # Background type enum (RTBase Lights.h:84-201).
 BG_NONE = 0      # black background
 BG_CONST = 1     # constant colour
-BG_ENVMAP = 2    # lat-long environment map (not ported yet)
+BG_ENVMAP = 2    # lat-long environment map (lights/envmap.py)
 
 
 class Triangles(NamedTuple):
@@ -101,11 +101,22 @@ class LightTable(NamedTuple):
     gn: V3
 
 
+class EnvMap(NamedTuple):
+    """Lat-long environment map with a luminance alias table
+    (lights/envmap.py builds it): one row gather picks a texel's slot,
+    one more its radiance and density."""
+    data: torch.Tensor        # (H, W, 3) radiance
+    alias_row: torch.Tensor   # (H*W, 2) [accept prob, alias index as f32]
+    texel_row: torch.Tensor   # (H*W, 4) [R, G, B, pdf2d]
+    pdf2d: torch.Tensor       # (H, W) density over (u, v) in [0, 1]^2
+    mean_power: torch.Tensor  # 0-d: sin-weighted mean luminance * 4pi
+
+
 @dataclasses.dataclass
 class Background:
     kind: int            # BG_NONE / BG_CONST / BG_ENVMAP
     colour: V3           # 0-d components, for BG_CONST
-    envmap: Optional[object] = None
+    envmap: Optional[EnvMap] = None
 
 
 @dataclasses.dataclass

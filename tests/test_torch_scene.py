@@ -18,6 +18,7 @@ import torch
 from raytracingrenderer_tpu.scene import camera as jcam
 from raytracingrenderer_tpu.scene.loader import load_scene as jload
 from raytracingrenderer_tpu_torch.core.vec import V3
+from raytracingrenderer_tpu_torch.io.hdr import write_hdr
 from raytracingrenderer_tpu_torch.scene import camera as tcam
 from raytracingrenderer_tpu_torch.scene import types as tt
 from raytracingrenderer_tpu_torch.scene.convert import scene_from_numpy
@@ -182,8 +183,8 @@ def test_generate_rays(scene_dir, jscene):
 
 def test_refuses_later_slices(tmp_path, scene_dir):
     """A scene of more than 64 triangles loads with its BVH and equals
-    the JAX `load_scene`; envmaps and sharded trees are not ported and
-    raise NotImplementedError instead of degrading."""
+    the JAX `load_scene`; sharded trees are not ported and raise
+    NotImplementedError instead of degrading."""
     big = str(tmp_path / "big")
     write_cornell(big, 32, 32)
     quads = []
@@ -208,11 +209,35 @@ def test_refuses_later_slices(tmp_path, scene_dir):
     with pytest.raises(NotImplementedError, match="shard"):
         tload(big, "cpu", scene_shards=2)
 
+
+def test_envmap_scene_loads(tmp_path):
+    """A scene.json with "envmap" loads (the envmap slice): its
+    background is that map, equal to the JAX loader's, with or without a
+    BVH; a file that is not there gives the constant 2 x 4 map of the
+    JAX loader."""
+    d = write_cornell(str(tmp_path / "sky"), 16, 16)
+    img = np.random.RandomState(0).rand(8, 16, 3).astype(np.float32) + 0.1
+    write_hdr(os.path.join(d, "sky.hdr"), img)
+    with open(os.path.join(d, "scene.json")) as f:
+        desc = json.load(f)
     desc["envmap"] = "sky.hdr"
-    with open(os.path.join(big, "scene.json"), "w") as f:
+    with open(os.path.join(d, "scene.json"), "w") as f:
         json.dump(desc, f)
-    with pytest.raises(NotImplementedError, match="environment"):
-        tload(big, "cpu", build_bvh=False)
+    for build_bvh in (False, True):
+        ts = tload(d, "cpu", build_bvh=build_bvh)
+        js = jload(d, build_bvh=build_bvh)
+        assert ts.background.kind == tt.BG_ENVMAP
+        _assert_scene_equals(ts, js)
+        for f in ts.background.envmap._fields:
+            np.testing.assert_array_equal(
+                getattr(ts.background.envmap, f).numpy(),
+                np.asarray(getattr(js.background.envmap, f)), err_msg=f)
+    desc["envmap"] = "absent.hdr"
+    with open(os.path.join(d, "scene.json"), "w") as f:
+        json.dump(desc, f)
+    ts = tload(d, "cpu", build_bvh=False)
+    np.testing.assert_array_equal(ts.background.envmap.data.numpy(),
+                                  np.ones((2, 4, 3), np.float32))
 
 
 def test_vec_helpers():

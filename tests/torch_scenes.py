@@ -240,6 +240,65 @@ def write_spheres(scene_dir, width=1024, height=1024, subdiv=5):
     return scene_dir
 
 
+# Sun of write_sky's map: its direction in the map's (u, v) and its disc.
+_SUN_UV = (0.125, 0.25)           # azimuth 45 deg toward +x +z, 45 deg up
+_SUN_TEXELS = 3.0                 # disc radius in texel rows
+_SUN_GAIN = 1000.0                # the disc's radiance over the zenith's
+
+
+def sky_map(env_h, env_w):
+    """A synthetic lat-long sky (env_h, env_w, 3) float32 in the
+    renderer's convention (v = acos(y) / pi down the rows, u = atan2(z, x)
+    / 2 pi across): a smooth gradient from a blue zenith to a pale
+    horizon over a dim brown ground, and a sun disc of a few texels at
+    about 10^3 times the zenith's radiance, so that importance sampling
+    matters.  Rows are constant apart from the sun."""
+    v = (np.arange(env_h) + 0.5) / env_h
+    u = (np.arange(env_w) + 0.5) / env_w
+    elev = np.cos(v * np.pi)                   # y of each row
+    zenith = np.array([0.04, 0.08, 0.18])
+    horizon = np.array([0.18, 0.20, 0.22])
+    ground = np.array([0.03, 0.024, 0.016])
+    t = np.clip(elev, 0.0, 1.0)[:, None] ** 0.5
+    rows = np.where(elev[:, None] > 0.0, horizon + (zenith - horizon) * t,
+                    ground)
+    img = np.repeat(rows[:, None, :], env_w, axis=1)
+    # the sun: texels within _SUN_TEXELS rows' angle of its direction
+    su, sv = _SUN_UV
+    sun = np.array([np.sin(sv * np.pi) * np.cos(su * 2 * np.pi),
+                    np.cos(sv * np.pi),
+                    np.sin(sv * np.pi) * np.sin(su * 2 * np.pi)])
+    phi, theta = u[None, :] * 2 * np.pi, v[:, None] * np.pi
+    dirs = np.stack([np.sin(theta) * np.cos(phi),
+                     np.broadcast_to(np.cos(theta), (env_h, env_w)),
+                     np.sin(theta) * np.sin(phi)], axis=-1)
+    ang = np.arccos(np.clip(dirs @ sun, -1.0, 1.0))
+    disc = ang <= _SUN_TEXELS * np.pi / env_h
+    img[disc] = zenith.max() * _SUN_GAIN * np.array([1.0, 0.95, 0.85])
+    return img.astype(np.float32)
+
+
+def write_sky(scene_dir, width=1024, height=1024, subdiv=5, env_h=1024,
+              env_w=2048):
+    """The 16 icospheres of write_spheres above the cornell box's floor
+    quad (no walls, no area light), lit only by sky_map(env_h, env_w)
+    written as sky.hdr (through the port's io/hdr.write_hdr, numpy
+    only).  subdiv=5 gives 327,682 triangles, subdiv=2 5,122.  Returns
+    `scene_dir`."""
+    from raytracingrenderer_tpu_torch.io.hdr import write_hdr
+    write_spheres(scene_dir, width, height, subdiv)
+    with open(os.path.join(scene_dir, "scene.json")) as fh:
+        desc = json.load(fh)
+    desc["instances"] = [i for i in desc["instances"]
+                         if i["filename"] == "floor.gem"
+                         or i["filename"].startswith("sphere")]
+    write_hdr(os.path.join(scene_dir, "sky.hdr"), sky_map(env_h, env_w))
+    desc["envmap"] = "sky.hdr"
+    with open(os.path.join(scene_dir, "scene.json"), "w") as fh:
+        json.dump(desc, fh, indent=1)
+    return scene_dir
+
+
 PAIR_PATTERNS = ("one", "each", "runs", "sentinel_tail", "sentinel_mid",
                  "equal_t")
 PAIR_SENTINEL = 0x7FFFFF
