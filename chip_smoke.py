@@ -138,7 +138,8 @@ Phases (any failure exits non-zero):
  14. main path 6, training with the NEE visibility boundary term
      (boundary_grads=True, boundary_samples 4; integrators/boundary.py,
      whose probe rays are B1 and B2 launches): (a) the cornell box at
-     1024x1024 as in 13 (a), train_steps(n=1) timed, with the peak memory
+     512x512 (to keep the script within its time limit) as in 13 (a),
+     train_steps(n=1) timed, with the peak memory
      of a step with remat on, and one step's forward under the profiler:
      its device time by operator and under the term's stages
      (record_function ranges around `boundary_direct`, its probes and its
@@ -163,16 +164,33 @@ Phases (any failure exits non-zero):
      them (rtol 1e-3 / atol 1e-3 * max|g|);
  16. main path 8, integrators.dispatch.render_with: direct, albedo,
      normals, lighttrace (1024^2 light paths a pass) and vpl (MAX_VPL x
-     (max_depth + 2) shadow batches a pass) at 1024x1024, 8 spp, on the
+     (max_depth + 2) shadow batches a pass; 2 spp) at 1024x1024, 8 spp, on the
      cornell box (B1) and the spheres scene (B2, B1's pre-pass), each
      with the counts set to 0 just before: every launch the passes make
      (a traversal call is one launch; on the spheres scene a shadow batch
      is a B1 pre-pass and a B2 any-hit launch), finite images with sane
      means, pixel-paths/s (light paths/s), one profiled pass of
-     lighttrace and vpl; then each integrator on the cornell box and the
-     5,156-triangle scene at 128x128, 2 spp, on "cuda" and "cpu" (vpl at
-     max_depth 2), held as in phase 7.  Every phase prints the script's
-     wall time as it starts.
+     lighttrace and vpl on the spheres scene; then each integrator on
+     the cornell box and the 5,156-triangle scene at 128x128, 2 spp, on
+     "cuda" and "cpu" (vpl at max_depth 0), held as in phase 7;
+ 17. main path 9, the adaptive integrator and the command line:
+     render_with(integrator="adaptive") at 1024x1024, 8 spp (2 uniform
+     passes, then 8 rounds of 786,432 rays drawn from the tiles'
+     variance) on the cornell box and the spheres scene after a 3-spp
+     warm-up, every launch of its 10 traces asserted (a scan pass's),
+     a finite image with a sane mean, pixel-paths/s, one round profiled;
+     then `cli.main` in this process, counts reset before each run:
+     adaptive 8 spp with -denoise -profile -checkpoint at 1024x1024 on
+     the cornell box, the same again (it resumes to 16 spp), and -keys
+     w,left,p,l,esc at 256x256, each with its exit code, its files, a
+     finite image with a sane mean, its phase report and its B1
+     launches; adaptive at 128x128, 4 spp, on "cuda" and "cpu" for the
+     cornell box and the 5,156-triangle scene, held as in phase 7, with
+     the card's draws that land in another tile than the CPU's from the
+     same state counted (each must lie within 4 * 2^-24 of the boundary);
+     the denoiser on the 1024x1024 adaptive image with its albedo and
+     normal guides, cuda against cpu (max |diff| <= 1e-4 * max).  Every
+     phase prints the script's wall time as it starts.
 
 Each kernel's line carries its bound: the least time the card could
 take for the same work, the larger of its operations over the peak rate
@@ -204,7 +222,7 @@ N_BVH_CHECK = (1 << 20) + 77      # B2: the render's primary width + a tail
 BENCH_CFG = dict(mis=True, jitter=True, max_depth=4)
 SPP = 8
 TRAIN_STEPS = 8         # bench.py's training call: 8 SGD steps, lr 0.01
-BOUNDARY_STEPS = 1      # main path 6's cornell train_steps (10.5 s a step)
+BOUNDARY_STEPS = 1      # main path 6's cornell train_steps (at 512x512)
 TRAIN_LR = 0.01
 PEAK_FP32 = 67e12       # FLOP/s, FP32 outside the tensor cores
 PEAK_TF32 = 495e12      # FLOP/s, dense TF32 on the tensor cores
@@ -1456,7 +1474,8 @@ def render_full(torch, scene, name, card, out_dir, **cfg_over):
     return img, dt
 
 
-def profile_pass(torch, scene, name, run=None):
+def profile_pass(torch, scene, name, run=None,
+                 what="one 1024x1024 sample pass"):
     """One sample pass of the full-size render (or of `run()`, another
     entry point's pass) under torch.profiler: the wall time, the device's
     busy time (each kernel's self time counted once) and idle share, and
@@ -1469,6 +1488,7 @@ def profile_pass(torch, scene, name, run=None):
     if run is None:
         cfg = RenderConfig(**BENCH_CFG)
         run = lambda: render(scene, cfg, spp=1)  # noqa: E731
+    t_all = time.perf_counter()
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1490,7 +1510,7 @@ def profile_pass(torch, scene, name, run=None):
         hit = [(us, n) for key, us, n in rows if mark in key.replace(
             "(bool)0", "false").replace("(bool)1", "true")]
         own[tag] = (sum(us for us, _ in hit) / 1e3, sum(n for _, n in hit))
-    log(f"profile {name}, one 1024x1024 sample pass under torch.profiler: "
+    log(f"profile {name}, {what} under torch.profiler: "
         f"wall {wall_ms:.1f} ms, device busy {busy_ms:.2f} ms (idle "
         f"{1 - busy_ms / wall_ms:.1%}); "
         + "; ".join(f"{k} {ms:.3f} ms in {n} launches ({ms / busy_ms:.1%} "
@@ -1501,7 +1521,8 @@ def profile_pass(torch, scene, name, run=None):
                   if e.device_type == DeviceType.CPU), key=lambda r: -r[1])
     log(f"profile {name}, device time by operator: " + "; ".join(
         f"{key} {us / 1e3:.2f} ms x{n} ({us / 1e3 / busy_ms:.1%})"
-        for key, us, n in ops[:6]))
+        for key, us, n in ops[:6]) + f" (profiling took "
+        f"{time.perf_counter() - t_all:.1f} s of wall time)")
     return 1 - busy_ms / wall_ms
 
 
@@ -1941,7 +1962,8 @@ def sky_phase(torch, card, scenes, tmp, out_dir):
 
 
 DISPATCH = ("direct", "albedo", "normals", "lighttrace", "vpl")
-GATE_VPL_DEPTH = 2      # the 128x128 vpl gate: 200 slots a pass, not 300
+GATE_VPL_DEPTH = 0      # the 128x128 vpl gate: 100 slots a pass, not 300
+VPL_SPP = 2             # the 1024x1024 vpl renders: 300 shadow batches a pass
 
 
 def dispatch_expected(integ, max_depth):
@@ -1959,13 +1981,13 @@ def dispatch_phase(torch, card, scenes, tmp, out_dir, cornell, spheres,
                    spheres128):
     """Phase 16, main path 8: integrators.dispatch.render_with for each
     of direct, albedo, normals, lighttrace and vpl at 1024x1024, 8 spp
-    (lighttrace: 1024^2 light paths a pass) on the cornell box (B1) and
+    (vpl 2 spp; lighttrace: 1024^2 light paths a pass) on the cornell box (B1) and
     the spheres scene (B2, B1's pre-pass), each after a warm-up pass and
     with the counts set to 0 just before: the kernels' launches as the
     passes make them, finite images with sane means, pixel-paths/s
-    (light paths/s); one profiled pass of lighttrace and vpl on each
-    scene; then every integrator at 128x128, 2 spp, on "cuda" and "cpu"
-    (vpl at max_depth 2), held as phase 7."""
+    (light paths/s); one profiled pass of lighttrace and vpl on the
+    spheres scene; then every integrator at 128x128, 2 spp, on "cuda" and "cpu"
+    (vpl at max_depth 0), held as phase 7."""
     from raytracingrenderer_tpu_torch.config import RenderConfig
     from raytracingrenderer_tpu_torch.imaging import film as film_mod
     from raytracingrenderer_tpu_torch.integrators.dispatch import render_with
@@ -1977,11 +1999,12 @@ def dispatch_phase(torch, card, scenes, tmp, out_dir, cornell, spheres,
         brute = scene.triangles.count <= 64
         for integ in DISPATCH:
             cfg = RenderConfig(**BENCH_CFG, integrator=integ)
+            spp = VPL_SPP if integ == "vpl" else SPP
             render_with(scene, cfg, 1)                 # warm-up pass
             torch.cuda.synchronize()
             reset_counts()
             t0 = time.perf_counter()
-            film = render_with(scene, cfg, SPP)
+            film = render_with(scene, cfg, spp)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             b1, b2 = b12_counts()
@@ -1990,25 +2013,27 @@ def dispatch_phase(torch, card, scenes, tmp, out_dir, cornell, spheres,
                 fail(f"{integ} {sname}: non-finite pixels")
             mean = img.mean().item()
             closest, any_ = dispatch_expected(integ, cfg.max_depth)
-            want = ({"mt": SPP * (closest + any_)} if brute else
-                    {"mt": SPP * any_, "closest_hit": SPP * closest,
-                     "any_hit": SPP * any_})
+            want = ({"mt": spp * (closest + any_)} if brute else
+                    {"mt": spp * any_, "closest_hit": spp * closest,
+                     "any_hit": spp * any_})
             got = {"mt": b1, **({} if brute else b2)}
-            pps = cam.width * cam.height * SPP / dt
+            pps = cam.width * cam.height * spp / dt
             unit = "light paths/s" if integ == "lighttrace" else \
                 "pixel-paths/s"
             log(f"render_with {integ} {sname} {cam.width}x{cam.height}, "
-                f"{SPP} spp: {dt:.3f} s, {pps:.6g} {unit} [{card}], image "
+                f"{spp} spp: {dt:.3f} s, {pps:.6g} {unit} [{card}], image "
                 f"mean {mean:.5f}, launches {got} (expected {want})")
             if got != want:
                 fail(f"{integ} {sname}: launches {got}, expected {want}")
             if not 0.01 < mean < 1.0:
                 fail(f"{integ} {sname}: implausible image mean {mean}")
             write_hdr(os.path.join(out_dir, f"{integ}_{sname}_{cam.width}x"
-                                   f"{cam.height}_{SPP}spp.hdr"),
+                                   f"{cam.height}_{spp}spp.hdr"),
                       img.cpu().numpy())
             idle = None
-            if integ in ("lighttrace", "vpl"):
+            # on the spheres only, to keep the script within its time
+            # limit (walking a vpl pass's events takes 28-48 s)
+            if integ in ("lighttrace", "vpl") and not brute:
                 idle = profile_pass(torch, scene, f"{integ} {sname}",
                                     run=lambda: render_with(scene, cfg, 1))
             out[f"{integ}_{sname}"] = dict(pps=pps, s=dt, idle=idle, **got)
@@ -2031,6 +2056,271 @@ def dispatch_phase(torch, card, scenes, tmp, out_dir, cornell, spheres,
             same_image(f"render_with {integ} {sname} 128x128 2 spp, cuda vs "
                        f"cpu (cuda {secs['cuda']:.1f} s, cpu "
                        f"{secs['cpu']:.1f} s)", imgs["cuda"], imgs["cpu"])
+    return out
+
+
+ADAPTIVE_SPP_WARM = 3     # the warm-up call: 2 init passes, 8 small rounds
+ADAPTIVE_ROUNDS = 8       # adaptive_render's default rounds
+CUMSUM_ULPS = 4 * 2.0 ** -24
+
+
+class LogTap:
+    """The messages of the `rtr` loggers (the CLI's) while the block runs."""
+
+    def __enter__(self):
+        import logging
+        from raytracingrenderer_tpu_torch.utils.log import get_logger
+        get_logger("cli")        # the rtr handler and level first
+        self.lines = []
+        tap = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                tap.lines.append(record.getMessage())
+
+        self.handler = Handler()
+        logging.getLogger("rtr").addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+        logging.getLogger("rtr").removeHandler(self.handler)
+
+    @property
+    def text(self):
+        return "\n".join(self.lines)
+
+
+class DrawTap:
+    """Every round's (state, key, px, py) of `adaptive._sample_pixels`,
+    with that function wrapped for the block."""
+
+    def __enter__(self):
+        from raytracingrenderer_tpu_torch.integrators import adaptive
+        self.mod, self.orig, self.calls = adaptive, adaptive._sample_pixels, []
+
+        def spy(st, key, n_rays, h, w):
+            px, py = self.orig(st, key, n_rays, h, w)
+            self.calls.append((st, key, px, py))
+            return px, py
+
+        adaptive._sample_pixels = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._sample_pixels = self.orig
+
+
+def moved_draws(torch, calls, h, w):
+    """The cumsum rule, the card's draws against the CPU's on the same
+    state and key: (draws in another tile, draws) over `calls`; fails if a
+    moved draw is not within CUMSUM_ULPS of the boundary between its two
+    tiles, or a draw that stayed picks another pixel."""
+    from raytracingrenderer_tpu_torch.config import TILE_SIZE as ts
+    from raytracingrenderer_tpu_torch.integrators import adaptive
+    from raytracingrenderer_tpu_torch.sampling import rng
+    tw = -(-w // ts)
+    moved = total = 0
+    for st, key, px, py in calls:
+        cst = adaptive.AdaptiveState(*(a.cpu() for a in st))
+        n = px.shape[0]
+        cx, cy = adaptive._sample_pixels(cst, key, n, h, w)
+        gx, gy = px.cpu(), py.cpu()
+        gt = (gy // ts) * tw + gx // ts
+        ct = (cy // ts) * tw + cx // ts
+        same = gt == ct
+        if not (torch.equal(gx[same], cx[same])
+                and torch.equal(gy[same], cy[same])):
+            fail("adaptive: a draw in the same tile picked another pixel "
+                 "on the card")
+        i = torch.nonzero(~same).flatten()
+        if i.numel():
+            var = adaptive._tile_variance(cst) + 1e-8
+            cdf = torch.cumsum((var / var.sum()).reshape(-1), 0)
+            u = (torch.arange(n, dtype=torch.float32)
+                 + rng.raw_uniform(key, (n,))) / n
+            k = torch.minimum(gt[i], ct[i])
+            if not (bool(((gt[i] - ct[i]).abs() == 1).all()) and bool(
+                    ((u[i] - cdf[k]).abs() <= CUMSUM_ULPS).all())):
+                fail("adaptive: a draw moved tiles away from a boundary")
+        moved += int(i.numel())
+        total += n
+    return moved, total
+
+
+def adaptive_phase(torch, card, scenes, tmp, out_dir, cornell, cornell_dir,
+                   spheres, spheres128):
+    """Phase 17, main path 9: the adaptive integrator and the command line.
+    (1) render_with(integrator="adaptive") at 1024x1024, 8 spp (2 init
+    passes and 8 rounds of 786,432 rays, 10 traces) on the cornell box
+    and the spheres scene, after a 3-spp warm-up call, with the counts
+    set to 0 just before: every launch asserted (a trace is a scan
+    pass: 12 B1 launches on the cornell box; 6 B2 closest-hit, 6 B2
+    any-hit and 6 B1 pre-pass launches on the spheres), a finite image
+    with a sane mean, pixel-paths/s, one round profiled; (2) cli.main in
+    this process, counts reset before each: adaptive, 8 spp, -denoise
+    -profile -checkpoint at 1024x1024 on the cornell box, the same again
+    (it resumes to 16 spp), and -keys w,left,p,l,esc at 256x256, each
+    with its exit code, files, a finite image with a sane mean, the phase
+    report, and its B1 launches; (3) adaptive at 128x128, 4 spp, on the
+    cornell box and the 5,156-triangle scene on "cuda" and "cpu", held as
+    phase 7, with the draws that landed in another tile counted (the
+    cumsum rule), and the denoiser on a noisy 1024x1024 image with its
+    guides, cuda against cpu (max |diff| <= 1e-4 * max|image|)."""
+    from raytracingrenderer_tpu_torch import cli
+    from raytracingrenderer_tpu_torch.config import INIT_SAMPLES, RenderConfig
+    from raytracingrenderer_tpu_torch.imaging import film as film_mod
+    from raytracingrenderer_tpu_torch.imaging.denoise import denoise
+    from raytracingrenderer_tpu_torch.integrators import adaptive, aov
+    from raytracingrenderer_tpu_torch.integrators.dispatch import render_with
+    from raytracingrenderer_tpu_torch.io.hdr import read_hdr, write_hdr
+    from raytracingrenderer_tpu_torch.render import specialize_config
+    from raytracingrenderer_tpu_torch.sampling import rng
+    from raytracingrenderer_tpu_torch.scene.loader import load_scene
+    import numpy as np
+    cfg = RenderConfig(**BENCH_CFG, integrator="adaptive")
+    per_trace = 2 * (cfg.max_depth + 2)         # closest + any a bounce
+    traces = INIT_SAMPLES + ADAPTIVE_ROUNDS
+    out = {}
+    films = {}
+    # (1) the renders
+    for sname, scene in (("cornell", cornell), ("spheres", spheres)):
+        cam = scene.camera
+        brute = scene.triangles.count <= 64
+        render_with(scene, cfg, ADAPTIVE_SPP_WARM)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        film = render_with(scene, cfg, SPP)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        b1, b2 = b12_counts()
+        got = {"mt": b1, **({} if brute else b2)}
+        half = traces * per_trace // 2
+        want = ({"mt": traces * per_trace} if brute else
+                {"mt": half, "closest_hit": half, "any_hit": half})
+        img = film_mod.to_hdr(film)
+        if not bool(torch.isfinite(img).all()):
+            fail(f"adaptive {sname}: non-finite pixels")
+        mean = img.mean().item()
+        pps = cam.width * cam.height * SPP / dt
+        log(f"adaptive {sname} {cam.width}x{cam.height}, {SPP} spp "
+            f"(2 init passes, 8 rounds of "
+            f"{(SPP - 2) * cam.width * cam.height // 8} rays): {dt:.3f} s, "
+            f"{pps:.6g} pixel-paths/s [{card}], film spp "
+            f"{float(film.spp):.4f}, image mean {mean:.5f}, launches {got} "
+            f"(expected {want})")
+        if got != want:
+            fail(f"adaptive {sname}: launches {got}, expected {want}")
+        if not 0.03 < mean < 0.5:
+            fail(f"adaptive {sname}: implausible image mean {mean}")
+        write_hdr(os.path.join(out_dir, f"adaptive_{sname}_{cam.width}x"
+                               f"{cam.height}_{SPP}spp.hdr"),
+                  img.cpu().numpy())
+        h, w = cam.height, cam.width
+        z = torch.zeros((h, w), device=scene.device)
+        st = adaptive.AdaptiveState(film.buffer, torch.full_like(z, SPP), z,
+                                    z, z)
+        n_round = (SPP - 2) * h * w // 8
+        idle = profile_pass(
+            torch, scene, f"adaptive {sname}",
+            run=lambda: adaptive._scatter_round(
+                scene, st, rng.PRNGKey(99), specialize_config(cfg, scene),
+                n_round, h, w), what=f"one round of {n_round} rays")
+        out[sname] = dict(pps=pps, s=dt, idle=idle, **got)
+        films[sname] = img
+    # (2) the command line
+    ck = os.path.join(out_dir, "cli_adaptive.npz")
+    if os.path.exists(ck):
+        os.remove(ck)
+    runs = (("adaptive", ["-integrator", "adaptive", "-SPP", str(SPP),
+                          "-denoise", "-profile", "-checkpoint", ck],
+             traces * per_trace + 2, SPP),
+            ("adaptive resumed", ["-integrator", "adaptive", "-SPP",
+                                  str(SPP), "-denoise", "-profile",
+                                  "-checkpoint", ck],
+             traces * per_trace + 2, 2 * SPP),
+            ("keys", ["-keys", "w,left,p,l,esc", "-width", "256",
+                      "-height", "256", "-profile"], 3 * per_trace, None))
+    for name, extra, want_b1, want_spp in runs:
+        hdr = os.path.join(out_dir, f"cli_{name.split()[0]}.hdr")
+        reset_counts()
+        t0 = time.perf_counter()
+        with LogTap() as tap:
+            rc = cli.main(["-scene", cornell_dir, "-outputFilename", hdr,
+                           "-maxDepth", str(cfg.max_depth)] + extra)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        b1 = b12_counts()[0]
+        files = [hdr] + ([ck] if "-checkpoint" in extra else []) + (
+            [hdr[:-4] + ".png"] if name == "keys" else [])
+        missing = [f for f in files if not os.path.exists(f)]
+        img = read_hdr(hdr) if not missing else None
+        mean = float(img.mean()) if img is not None else float("nan")
+        spp = None
+        if "-checkpoint" in extra and not missing:
+            with np.load(ck) as zf:
+                spp = float(zf["spp"])
+        report = tap.text.split("phase report:")[-1].split(
+            "device memory")[0] if "phase report:" in tap.text else ""
+        log(f"cli {name}: rc {rc}, {dt:.3f} s, files {files} "
+            f"(missing {missing}), image {None if img is None else img.shape}"
+            f" mean {mean:.5f}, checkpoint spp {spp}, B1 launches {b1} "
+            f"(expected {want_b1}); phase report: "
+            f"{report.strip().replace(chr(10), '; ')}")
+        if rc != 0 or missing:
+            fail(f"cli {name}: rc {rc}, missing {missing}")
+        if not (np.isfinite(img).all() and 0.03 < mean < 0.5):
+            fail(f"cli {name}: non-finite or implausible image (mean {mean})")
+        if b1 != want_b1:
+            fail(f"cli {name}: {b1} B1 launches, expected {want_b1}")
+        if "render:" not in report or ("-denoise" in extra
+                                       and "denoise:" not in report):
+            fail(f"cli {name}: no phase report")
+        if want_spp is not None and abs(spp - want_spp) > 1e-3:
+            fail(f"cli {name}: checkpoint at {spp} spp, not {want_spp}")
+        out[f"cli_{name.replace(' ', '_')}"] = dict(s=dt, mt=b1)
+    # (3) cuda against cpu
+    cornell128 = scenes.write_cornell(os.path.join(tmp, "cornell128a"), 128,
+                                      128)
+    for sname, sdir in (("cornell", cornell128),
+                        ("spheres-5156", spheres128)):
+        imgs, secs, taps = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            sc = load_scene(sdir, device=dev)
+            t0 = time.perf_counter()
+            with DrawTap() as taps[dev]:
+                imgs[dev] = film_mod.to_hdr(render_with(sc, cfg, 4)).cpu() \
+                    .numpy()
+            secs[dev] = time.perf_counter() - t0
+        moved, total = moved_draws(torch, taps["cuda"].calls, 128, 128)
+        log(f"adaptive {sname} 128x128 4 spp: {moved} of {total} draws on "
+            f"the card landed in another tile than the CPU's draws from the "
+            f"same state (each within {CUMSUM_ULPS:.3g} of its boundary)")
+        same_image(f"adaptive {sname} 128x128 4 spp, cuda vs cpu (cuda "
+                   f"{secs['cuda']:.1f} s, cpu {secs['cpu']:.1f} s)",
+                   imgs["cuda"], imgs["cpu"])
+    img = films["cornell"]
+    g_cfg = RenderConfig(jitter=False)
+    alb = aov.albedo_image(cornell, rng.PRNGKey(0), g_cfg)
+    nrm = aov.normals_image(cornell, rng.PRNGKey(0), g_cfg)
+    denoise(img, albedo=alb, normal=nrm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dn = denoise(img, albedo=alb, normal=nrm)
+    torch.cuda.synchronize()
+    dn_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref = denoise(img.cpu(), albedo=alb.cpu(), normal=nrm.cpu()).numpy()
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.abs(dn.cpu().numpy() - ref).max())
+    tol = 1e-4 * max(float(np.abs(ref).max()), 1.0)
+    log(f"denoise 1024x1024 with albedo and normal guides: cuda {dn_ms:.2f} "
+        f"ms, cpu {cpu_ms:.1f} ms, max |cuda - cpu| {err:.3g} (tolerance "
+        f"{tol:.3g}) [{card}]")
+    if not err <= tol:
+        fail("denoise: cuda and cpu disagree")
+    out["denoise"] = dict(ms=dn_ms, cpu_ms=cpu_ms, max_abs_err=err)
     return out
 
 
@@ -2227,16 +2517,20 @@ def main() -> None:
     # -- 14. main path 6: training with the boundary term --------------------
     mark(14)
     bnd = dict(boundary_grads=True)
-    tr_c = train_cornell(torch, card, cornell, cornell_pps,
+    # the cornell step at 512x512, to keep the script within its time limit
+    cornell512 = load_scene(scenes.write_cornell(
+        os.path.join(tmp, "cornell512"), 512, 512), device="cuda")
+    tr_c = train_cornell(torch, card, cornell512, cornell_pps,
                          steps=BOUNDARY_STEPS, remats=(True,),
                          name="cornell-boundary", profiled=("forward",),
                          **bnd)
     tr_d = train_spheres(torch, card, spheres, spheres_pps,
                          name="spheres-boundary", profiled=(), **bnd)
-    for name, with_b, without in (("cornell", tr_c, tr_a),
-                                  ("spheres", tr_d, tr_b)):
-        log(f"training {name} 1024x1024: fwdbwd_pps with the boundary term "
-            f"{with_b['fwdbwd_pps']:.6g}, without (phase 13) "
+    for name, res, with_b, without in (
+            ("cornell", "512x512", tr_c, tr_a),
+            ("spheres", "1024x1024", tr_d, tr_b)):
+        log(f"training {name} {res}: fwdbwd_pps with the boundary term "
+            f"{with_b['fwdbwd_pps']:.6g}, without (phase 13, 1024x1024) "
             f"{without['fwdbwd_pps']:.6g} (with / without "
             f"{with_b['fwdbwd_pps'] / without['fwdbwd_pps']:.3f}) [{card}]")
     # at 64x64, to keep the script within its time limit
@@ -2256,8 +2550,14 @@ def main() -> None:
     mark(16)
     disp = dispatch_phase(torch, card, scenes, tmp, out_dir, cornell,
                           spheres, spheres128)
+
+    # -- 17. main path 9: the adaptive integrator and the command line ------
+    mark(17)
+    adapt = adaptive_phase(torch, card, scenes, tmp, out_dir, cornell,
+                           cornell_dir, spheres, spheres128)
     log("new paths " + json.dumps({"card": card, "sky": sky,
-                                   "render_with": disp}))
+                                   "render_with": disp,
+                                   "adaptive": adapt}))
     log(f"-- every phase done at {time.perf_counter() - T_START:.1f} s")
 
     def brief(tr):
@@ -2304,6 +2604,8 @@ def main() -> None:
             tr_c["bwd_launches"]["mt"] + tr_d["bwd_launches"]["mt"]),
         "launches_sky_prepass": sky["launches"]["mt"],
         "launches_render_with": {k: v["mt"] for k, v in disp.items()},
+        "launches_adaptive": {k: v["mt"] for k, v in adapt.items()
+                              if "mt" in v},
     }] + [dict(name=f"bvh_traverse/{v}", **bvh_src,
                launches=b2_launches[v],
                launches_treelet_path=tl_launches[v],
@@ -2318,6 +2620,7 @@ def main() -> None:
                launches_sky=sky["launches"][v],
                launches_render_with={k: c[v] for k, c in disp.items()
                                      if v in c},
+               launches_adaptive=adapt["spheres"][v],
                library_ms=None,
                **b2[v])
           for v in ("closest_hit", "any_hit")]

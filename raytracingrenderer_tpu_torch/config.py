@@ -4,8 +4,8 @@ packages.
 
 `render.render` and the gradient entry points (diff.py) run the path
 tracer and refuse any other `integrator`; "direct", "albedo",
-"normals", "lighttrace" and "vpl" run through
-integrators.dispatch.render_with ("adaptive" is not ported yet).
+"normals", "lighttrace", "vpl" and "adaptive" run through
+integrators.dispatch.render_with.
 `geom_grads` attaches the hit-point reparameterisation (diff.py turns it
 on); `boundary_grads` adds the NEE visibility boundary term
 (integrators/boundary.py, `boundary_samples` edge samples a bounce, each

@@ -40,18 +40,20 @@ def render_with(scene: Scene, cfg: RenderConfig, spp: int,
     """`spp` passes of cfg.integrator ("direct", "albedo", "normals",
     "lighttrace": width * height light paths a pass, "vpl") into `film`
     (a new one on the scene's device by default); `on_sample(s, film)`
-    after every pass.  The path tracer is render.render's."""
-    if cfg.integrator == "adaptive":
-        raise NotImplementedError(
-            "integrator='adaptive' (integrators/adaptive.py) is not ported "
-            "yet: it comes with the next slice of the port")
+    after every pass.  "adaptive" spends a budget of `spp` samples a
+    pixel through integrators.adaptive.adaptive_render.  The path tracer
+    is render.render's."""
     from ..render import specialize_config
     cam = scene.camera
+    if film is None:
+        film = film_mod.new_film(cam.height, cam.width, scene.device)
+    if cfg.integrator == "adaptive":
+        from .adaptive import adaptive_render
+        return adaptive_render(scene, cfg, total_spp=spp, film=film,
+                               on_sample=on_sample)
     # the scene's material set: the BSDF evaluates only the lobes present,
     # with the same values
     pass_fn = _pass_fn(specialize_config(cfg, scene), cam.height * cam.width)
-    if film is None:
-        film = film_mod.new_film(cam.height, cam.width, scene.device)
     base = rng.PRNGKey(cfg.seed)
     start = int(film.spp)
     with torch.no_grad():

@@ -87,6 +87,12 @@ def decision_key(key: Key, bounce: int, decision: int) -> Key:
     return fold_in(key, bounce * _NUM_DECISIONS + decision)
 
 
+def split(key: Key) -> Tuple[Key, Key]:
+    """`jax.random.split(key)` (partitionable threefry): key i of the
+    split is `fold_in(key, i)`."""
+    return fold_in(key, 0), fold_in(key, 1)
+
+
 def random_bits(key: Key, shape, device=None) -> torch.Tensor:
     """`jax.random.bits(key, shape)` (32-bit, partitionable layout):
     counters (0, flat index), hi and lo words XORed."""
@@ -111,6 +117,30 @@ def uniform(key: Key, bounce: int, decision: int, shape,
     (= `jax.random.uniform(decision_key(...), shape)`)."""
     return _bits_to_unit_float(
         random_bits(decision_key(key, bounce, decision), shape, device))
+
+
+def raw_uniform(key: Key, shape, device=None) -> torch.Tensor:
+    """`jax.random.uniform(key, shape)`: U[0,1) straight from `key`, with
+    no decision key folded in (the adaptive sampler's draws)."""
+    return _bits_to_unit_float(random_bits(key, shape, device))
+
+
+def randint(key: Key, shape, lo: int, hi: int, device=None) -> torch.Tensor:
+    """`jax.random.randint(key, shape, lo, hi)` as int32 in [lo, hi)
+    (`hi <= lo` gives `lo`): two 32-bit words a value, from the two keys
+    of `split(key)`, reduced mod the span in wrapping uint32 arithmetic
+    (jax/_src/random.py::_randint)."""
+    lo, hi = int(lo), int(hi)
+    if not -2**31 <= lo < 2**31 or not -2**31 <= hi < 2**31:
+        raise ValueError(f"randint bounds ({lo}, {hi}) do not fit int32")
+    k1, k2 = split(key)
+    hi_bits = random_bits(k1, shape, device)
+    lo_bits = random_bits(k2, shape, device)
+    span = (hi - lo) & MASK if hi > lo else 1
+    multiplier = ((2**16 % span) ** 2 & MASK) % span
+    offset = (((hi_bits % span) * multiplier & MASK)
+              + lo_bits % span) & MASK
+    return (lo + offset % span).to(torch.int32)
 
 
 def uniform_ids(key: Key, bounce: int, decision: int,

@@ -48,7 +48,9 @@ term (32x32) on the card is held to the CPU's by chip_smoke.py's
 gradient gate, with no kernel launched in the backward.  The sky scene
 (envmap lighting) and every integrator of `dispatch.render_with`, on the
 cornell box and the spheres scene, are held to the CPU at 32x32 as the
-renders are."""
+renders are, the adaptive one too; so are the denoiser and the command
+line (cli.main on the card, adaptive, with -denoise, -profile and a
+checkpoint resumed)."""
 import numpy as np
 import pytest
 import torch
@@ -852,3 +854,74 @@ def test_render_with_cuda_matches_cpu(cuda, scene_dir, spheres_dir, which,
                     or bvh_kernel.launches["closest_hit"] > before[1])
     _agree(imgs["cuda"], imgs["cpu"],
            0.98 if (which, integ) == ("spheres", "vpl") else 0.99)
+
+
+@pytest.mark.parametrize("which", ["cornell", "spheres"])
+def test_adaptive_cuda_matches_cpu(cuda, scene_dir, spheres_dir, which):
+    """render_with(integrator="adaptive") on the card (B1 on the cornell
+    box; B2 and B1's pre-pass on the spheres scene) against "cpu" at
+    32x32, 4 spp (2 init passes, 8 rounds of 256 rays): one tile, so
+    every draw is the same on both devices."""
+    from raytracingrenderer_tpu_torch.integrators.dispatch import \
+        render_with
+    d = scene_dir if which == "cornell" else spheres_dir
+    cfg = RenderConfig(mis=True, jitter=True, integrator="adaptive")
+    imgs, seen = {}, []
+    for dev in (cuda, torch.device("cpu")):
+        before = (mt_kernel.launches, bvh_kernel.launches["closest_hit"])
+        film = render_with(load_scene(d, dev), cfg, 4,
+                           on_sample=lambda s, f: seen.append(s))
+        imgs[dev.type] = film_mod.to_hdr(film).cpu().numpy()
+        if dev.type == "cuda":
+            assert film.buffer.device.type == "cuda"
+            assert mt_kernel.launches > before[0]
+            if which == "spheres":
+                assert bvh_kernel.launches["closest_hit"] > before[1]
+    assert seen == list(range(10)) * 2
+    _agree(imgs["cuda"], imgs["cpu"])
+
+
+def test_denoise_cuda_matches_cpu(cuda):
+    from raytracingrenderer_tpu_torch.imaging.denoise import denoise
+    g = np.random.default_rng(4)
+    img, alb, nrm = (torch.from_numpy(g.gamma(0.7, 0.5, (96, 128, 3))
+                                      .astype(np.float32)) for _ in range(3))
+    for guides in ({}, {"albedo": alb, "normal": nrm}):
+        got = denoise(img.to(cuda), **{k: v.to(cuda)
+                                       for k, v in guides.items()})
+        assert got.device.type == "cuda"
+        np.testing.assert_allclose(got.cpu().numpy(),
+                                   denoise(img, **guides).numpy(),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_cli_on_the_card(cuda, scene_dir, tmp_path):
+    """cli.main on "cuda" (the default device) at 32x32: adaptive with
+    -denoise, -profile and -checkpoint, B1 launched, the film
+    checkpointed and a resume adding its spp; the image held to the
+    same command on "cpu"."""
+    from raytracingrenderer_tpu_torch import cli
+    from raytracingrenderer_tpu_torch.io.hdr import read_hdr
+    imgs = {}
+    for dev in ("cuda", "cpu"):
+        out, ck = str(tmp_path / f"{dev}.hdr"), str(tmp_path / f"{dev}.npz")
+        args = ["-scene", scene_dir, "-outputFilename", out, "-SPP", "4",
+                "-integrator", "adaptive", "-checkpoint", ck, "-profile"]
+        before = mt_kernel.launches
+        assert cli.main(args + (["-device", "cpu"] if dev == "cpu"
+                                else [])) == 0
+        if dev == "cuda":
+            assert mt_kernel.launches > before
+        with np.load(ck) as z:
+            assert float(z["spp"]) == 4.0
+            imgs[dev] = z["buffer"] / 4.0
+        assert np.isfinite(read_hdr(out)).all()
+    _agree(imgs["cuda"], imgs["cpu"])
+    out = str(tmp_path / "dn.hdr")
+    assert cli.main(["-scene", scene_dir, "-outputFilename", out, "-SPP",
+                     "4", "-checkpoint", str(tmp_path / "cuda.npz"),
+                     "-denoise"]) == 0
+    with np.load(str(tmp_path / "cuda.npz")) as z:
+        assert float(z["spp"]) == 8.0
+    img = read_hdr(out)
+    assert np.isfinite(img).all() and img.mean() > 0.01

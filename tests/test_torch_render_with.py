@@ -7,7 +7,8 @@ Each image holds the render tests' bar: >= 99% of pixels within rtol
 1e-3 / atol 1e-5 and means within 0.5% (a hit, a Russian-roulette
 decision or an occlusion bit can flip on an ulp of XLA's CPU math
 against torch's).  Also: a film resumes, `render` and the gradients
-still refuse these integrators, `adaptive` waits for its slice, and the
+still refuse these integrators, `adaptive_render` refuses `mesh=` (the
+adaptive integrator itself is tests/test_torch_adaptive.py's), and the
 wrappers' CPU branch, which walks live lanes only, equals the plain
 versions on every lane."""
 import dataclasses
@@ -23,6 +24,7 @@ from raytracingrenderer_tpu.scene.loader import load_scene as jload
 from raytracingrenderer_tpu_torch.config import RenderConfig
 from raytracingrenderer_tpu_torch.core.vec import V3
 from raytracingrenderer_tpu_torch.imaging import film as film_mod
+from raytracingrenderer_tpu_torch.integrators.adaptive import adaptive_render
 from raytracingrenderer_tpu_torch.integrators.dispatch import render_with
 from raytracingrenderer_tpu_torch.ops import bvh_kernel, mt_kernel
 from raytracingrenderer_tpu_torch.render import render
@@ -99,11 +101,16 @@ def test_render_with_film_and_on_sample(cornell):
                                        ("path", ValueError),
                                        ("bdpt", ValueError)])
 def test_render_with_refuses(cornell, integ, err):
-    """adaptive waits for its slice; the path tracer is render()'s, and
-    an unknown name raises as in the JAX package."""
+    """The adaptive integrator's multi-device round (`mesh=`) waits for
+    the port of parallel/; the path tracer is render()'s, and an unknown
+    name raises as in the JAX package."""
     ts, _ = cornell
     with pytest.raises(err):
-        render_with(ts, RenderConfig(integrator=integ), 1)
+        if integ == "adaptive":
+            adaptive_render(ts, RenderConfig(integrator=integ), 1,
+                            mesh=object())
+        else:
+            render_with(ts, RenderConfig(integrator=integ), 1)
 
 
 def test_render_refuses_dispatch_integrators(cornell):

@@ -102,3 +102,49 @@ def test_decision_ids_match():
     assert names
     for n in names:
         assert getattr(trng, n) == getattr(jrng, n), n
+
+
+def _keys(n, seed):
+    g = np.random.default_rng(seed)
+    words = g.integers(0, 2**32, (n, 2), dtype=np.uint64).astype(np.uint32)
+    return [(int(a), int(b)) for a, b in words] + [trng.PRNGKey(0),
+                                                   trng.PRNGKey(7)]
+
+
+def _jkey_of(k):
+    return jax.random.wrap_key_data(jnp.asarray(k, dtype=jnp.uint32))
+
+
+def test_split_is_fold_in_bit_exact():
+    """jax.random.split(k)[i] == fold_in(k, i), checked, not assumed."""
+    for k in _keys(40, 3):
+        jk = _jkey_of(k)
+        want = [_tuple(s) for s in jax.random.split(jk)]
+        assert list(trng.split(k)) == want
+        assert want == [_tuple(jax.random.fold_in(jk, i)) for i in (0, 1)]
+
+
+@pytest.mark.parametrize("shape", [(1,), (33,), (4096,), (7, 9)])
+def test_raw_uniform_bit_exact(shape):
+    for k in _keys(6, 4):
+        want = np.asarray(jax.random.uniform(_jkey_of(k), shape))
+        got = trng.raw_uniform(k, shape).numpy()
+        assert got.dtype == np.float32 and got.shape == shape
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 32), (0, 7), (0, 1000), (5, 37),
+                                   (-3, 4), (0, 1), (4, 4), (9, 2),
+                                   (0, 2**31 - 1), (-2**31, 2**31 - 1)])
+@pytest.mark.parametrize("shape", [(1,), (1001,), (64, 3)])
+def test_randint_bit_exact(lo, hi, shape):
+    """jax.random.randint's two words a value reduced mod the span, for
+    power-of-two spans (multiplier 0), others, empty and huge ones."""
+    for k in _keys(5, 5):
+        want = np.asarray(jax.random.randint(_jkey_of(k), shape, lo, hi))
+        got = trng.randint(k, shape, lo, hi).numpy()
+        assert got.dtype == np.int32 and got.shape == shape
+        np.testing.assert_array_equal(got, want)
+        if hi > lo:
+            assert (got >= lo).all() and (got < hi).all()
