@@ -189,8 +189,37 @@ Phases (any failure exits non-zero):
      the card's draws that land in another tile than the CPU's from the
      same state counted (each must lie within 4 * 2^-24 of the boundary);
      the denoiser on the 1024x1024 adaptive image with its albedo and
-     normal guides, cuda against cpu (max |diff| <= 1e-4 * max).  Every
-     phase prints the script's wall time as it starts.
+     normal guides, cuda against cpu (max |diff| <= 1e-4 * max);
+ 18. main path 10, parallel/ (one rank a device, torch.distributed):
+     (a) in this process, a process group of one rank over NCCL:
+     mesh.render_sharded, 1 spp on the spheres scene at 1024x1024, equal
+     to render.sample_image bit for bit, B1 and B2 launched; (b) RANKS
+     gloo ranks, both on cuda:0 (NCCL takes one rank a card), processes
+     of this script (`rank_main`), each with its counts set to 0 before
+     every step and read after it: render_sharded 2 spp on the spheres
+     scene (the assembled image against this process's by phase 7's bar,
+     the differing pixels counted), load_scene(scene_shards=RANKS) and
+     traverse_sharded on 2^20 + 77 rays with 10% dead lanes, closest-hit
+     and any-hit, against the replicated walk here (ids, mapped by the
+     triangles' geometry, agree on >= 99.999% of the live rays, t bit
+     for bit there; the others counted as exact ties or not), a 1 spp
+     scene-sharded render against the replicated scan render,
+     param_grads_sharded (a reduction a bounce, and one at the end) on
+     the cornell box at 256x256 and on the spheres scene at 1024x1024
+     (tri_p0's 327,716 x 3 floats in every reduction, B2 launched) with
+     jitter off against diff.param_grads here under phase 13's gradient
+     gate, with the reductions counted,
+     two train_step_overlap steps that must descend, adaptive_render
+     (mesh=) 8 spp on the cornell box at 1024x1024 (the ranks' films bit
+     for bit; 120 B1 launches a rank), light_trace_pass(mesh=) with 1024^2
+     light paths against one process (film sums within rel 1e-4, >= 99%
+     of pixels by phase 7's bar); the ranks' wall times, pixel-paths/s
+     and all_reduce ms (a 1024x1024 film, the spheres' tri_p0); (c)
+     parallel.elastic.render_elastic: two command-line workers on the
+     card, the cornell box at 256x256, 4 spp each, worker 0 killed after
+     its first checkpoint: its resumed film equals an uninterrupted
+     worker's bit for bit.  Every phase prints the script's wall time as
+     it starts.
 
 Each kernel's line carries its bound: the least time the card could
 take for the same work, the larger of its operations over the peak rate
@@ -1874,33 +1903,10 @@ def grads_gpu_vs_cpu(torch, name, scene_dir, wave, **cfg_over):
         else:
             loss, g = diff.value_and_grad(sc, target, key,
                                           diff._diff_cfg(cfg, sc))
-        got[dev] = (loss.item(), {
-            k: (v.stacked() if hasattr(v, "stacked") else v).cpu().numpy()
-            for k, v in g.items()})
+        got[dev] = (loss.item(), grads_np(g))
         secs[dev] = time.perf_counter() - t0
-    (lg, gg), (lc, gc) = got["cuda"], got["cpu"]
-    rel = abs(lg - lc) / max(abs(lc), 1e-30)
-    ok = rel <= 1e-4
-    parts = [f"loss {lg:.7f} vs {lc:.7f} (rel {rel:.2e}; cuda "
-             f"{secs['cuda']:.1f} s, cpu {secs['cpu']:.1f} s)"]
-    for k in diff.param_keys(gc):
-        a, b = gg[k], gc[k]
-        if b.size == 0:       # light_le of a scene without area lights
-            continue
-        if not np.isfinite(a).all():
-            ok = False
-        if k == "tri_p0":
-            err = np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
-            ok &= bool(err <= 1e-2)
-            parts.append(f"{k} relative L2 {err:.2e}")
-        else:
-            m = float(np.abs(b).max())
-            ok &= bool(np.allclose(a, b, rtol=1e-3, atol=1e-3 * m))
-            parts.append(f"{k} max|dg| {float(np.abs(a - b).max()):.3e} "
-                         f"(max|g| {m:.3e})")
-    log(f"gradients {name}, cuda vs cpu: " + "; ".join(parts))
-    if not ok:
-        fail(f"gradients {name}: cuda and cpu disagree")
+    grads_gate(f"{name}, cuda vs cpu", got["cuda"], got["cpu"],
+               f"; cuda {secs['cuda']:.1f} s, cpu {secs['cpu']:.1f} s")
 
 
 def b12_counts():
@@ -2324,12 +2330,564 @@ def adaptive_phase(torch, card, scenes, tmp, out_dir, cornell, cornell_dir,
     return out
 
 
+def grads_gate(name, got, ref, note="") -> None:
+    """Phase 13's gradient gate on (loss, {key: array}) pairs: loss
+    within rel 1e-4; each material and light array within rtol 1e-3 /
+    atol 1e-3 * max|g|; tri_p0 within a relative L2 error of 1e-2."""
+    import numpy as np
+    from raytracingrenderer_tpu_torch import diff
+    (lg, gg), (lc, gc) = got, ref
+    rel = abs(lg - lc) / max(abs(lc), 1e-30)
+    ok = rel <= 1e-4
+    parts = [f"loss {lg:.7f} vs {lc:.7f} (rel {rel:.2e}{note})"]
+    for k in diff.param_keys(gc):
+        a, b = gg[k], gc[k]
+        if b.size == 0:       # light_le of a scene without area lights
+            continue
+        if not np.isfinite(a).all():
+            ok = False
+        if k == "tri_p0":
+            err = np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
+            ok &= bool(err <= 1e-2)
+            parts.append(f"{k} relative L2 {err:.2e}")
+        else:
+            m = float(np.abs(b).max())
+            ok &= bool(np.allclose(a, b, rtol=1e-3, atol=1e-3 * m))
+            parts.append(f"{k} max|dg| {float(np.abs(a - b).max()):.3e} "
+                         f"(max|g| {m:.3e})")
+    log(f"gradients {name}: " + "; ".join(parts))
+    if not ok:
+        fail(f"gradients {name}: they disagree")
+
+
+def grads_np(g):
+    return {k: (v.stacked() if hasattr(v, "stacked") else v).cpu().numpy()
+            for k, v in g.items()}
+
+
+RANKS = 2                 # phase 18's gloo ranks, both on cuda:0
+RANK_TIMEOUT_S = 420      # their spawn's deadline
+ELASTIC_SPP = 4
+
+
+def collective_ms(torch, mesh, shape, reps=5):
+    """Median ms of an all_reduce of a float32 tensor of `shape` on the
+    card (gloo stages it through the host), after one warm-up."""
+    x = torch.ones(shape, device="cuda")
+    mesh.all_reduce(x)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        mesh.all_reduce(x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def rank_main(rank: int, world: int, work: str) -> None:
+    """Phase 18 (b) in one of RANKS processes: a gloo rank on cuda:0.
+    Writes rank{rank}.json (times, counts, small results) and
+    rank{rank}.pt (images, hits, films) into `work`; the parent holds
+    them against its one-process results."""
+    import torch
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+    from raytracingrenderer_tpu_torch.config import RenderConfig
+    from raytracingrenderer_tpu_torch.core.vec import V3
+    from raytracingrenderer_tpu_torch.imaging import film as film_mod
+    from raytracingrenderer_tpu_torch.integrators.adaptive import (
+        adaptive_render)
+    from raytracingrenderer_tpu_torch.integrators.lighttracer import (
+        light_trace_pass)
+    from raytracingrenderer_tpu_torch.parallel import overlap
+    from raytracingrenderer_tpu_torch.parallel.distributed import (
+        init_distributed)
+    from raytracingrenderer_tpu_torch.parallel.mesh import (
+        make_mesh, render_sharded)
+    from raytracingrenderer_tpu_torch.parallel.scene_shard import (
+        traverse_sharded)
+    from raytracingrenderer_tpu_torch.render import sample_image
+    from raytracingrenderer_tpu_torch.sampling import rng
+    from raytracingrenderer_tpu_torch.scene.loader import load_scene
+    with open(os.path.join(work, "spec.json")) as f:
+        spec = json.load(f)
+    init_distributed(f"file://{os.path.join(work, 'store')}", world, rank,
+                     backend="gloo", device="cuda:0")
+    mesh = make_mesh()
+    cfg = RenderConfig(**BENCH_CFG)
+    base = rng.PRNGKey(cfg.seed)
+    info, arrays = {"rank": rank}, {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # 1. render_sharded, 2 spp, on the spheres scene; the first pass
+    # also loads the kernels and packs the tables, the second is timed
+    spheres = load_scene(spec["spheres_dir"], device="cuda")
+    cam = spheres.camera
+    reset_counts()
+    passes = [timed(lambda: render_sharded(spheres, rng.spp_key(base, s),
+                                           cfg, mesh)) for s in range(2)]
+    lo, hi = mesh.band(cam.height)
+    info["render"] = dict(s=[t for _, t in passes], band_rows=(lo, hi),
+                          pps=(hi - lo) * cam.width / passes[1][1],
+                          launches=b12_counts())
+    arrays["render"] = ((passes[0][0] + passes[1][0]) * 0.5).cpu()
+    del passes
+    # 2. the scene sharded over the ranks: traversal, then a render
+    t0 = time.perf_counter()
+    sharded = load_scene(spec["spheres_dir"], device="cuda",
+                         scene_shards=world)
+    info["sharded_load_s"] = time.perf_counter() - t0
+    sb = sharded.bvh
+    rays = torch.load(os.path.join(work, "rays.pt"))
+    o, d = (V3(*(c.cuda() for c in rays[k])) for k in ("o", "d"))
+    t_cl, t_any = rays["t_closest"].cuda(), rays["t_any"].cuda()
+    traverse_sharded(sb, o, d, t_cl)                 # packs the tables
+    reset_counts()
+    hc, s_cl = timed(lambda: traverse_sharded(sb, o, d, t_cl))
+    ha, s_any = timed(lambda: traverse_sharded(sb, o, d, t_any,
+                                               any_hit=True))
+    info["traverse"] = dict(closest_s=s_cl, any_s=s_any,
+                            launches=b12_counts())
+    sh = sb.shards[rank]
+    arrays["geometry"] = torch.stack(
+        [c for f in (sh.triangles.p0, sh.triangles.e1, sh.triangles.e2)
+         for c in f], -1).cpu()
+    arrays["closest"] = [a.cpu() for a in hc]
+    arrays["any"] = [a.cpu() for a in ha]
+    reset_counts()
+    img, secs = timed(lambda: sample_image(sharded, rng.spp_key(base, 0),
+                                           cfg))
+    info["sharded_render"] = dict(s=secs, pps=cam.height * cam.width / secs,
+                                  launches=b12_counts())
+    arrays["sharded_render"] = img.cpu()
+    del sharded, sb, sh, img, hc, ha
+    # 3. the overlapped step on the cornell box, and the collectives
+    c256 = load_scene(spec["cornell256_dir"], device="cuda")
+    target = torch.zeros((256, 256, 3), device="cuda")
+    nojit = RenderConfig(**dict(BENCH_CFG, jitter=False))
+    # in turns, overlap then barriered twice: the second round is timed
+    for ov in (True, False, True, False):
+        before = overlap.reductions
+        reset_counts()
+        (g, loss), secs = timed(lambda: overlap.param_grads_sharded(
+            c256, target, rng.PRNGKey(3), nojit, mesh, overlap=ov))
+        name = "overlap" if ov else "barriered"
+        info[name] = dict(s=secs, cold_s=info.get(name, {}).get("s"),
+                          loss=float(loss),
+                          reductions=overlap.reductions - before,
+                          launches=b12_counts())
+        arrays[name] = grads_np(g)
+    losses, sc = [], c256
+    for _ in range(2):
+        sc, loss = overlap.train_step_overlap(sc, target, rng.PRNGKey(8),
+                                              cfg, mesh, lr=0.5)
+        losses.append(float(loss))
+    info["train_losses"] = losses
+    # the spheres scene's gradients: a reduction of a flat gradient led
+    # by tri_p0 (327,716 x 3) a bounce, or one at the end; B2 and B1's
+    # pre-pass in every forward
+    s_target = torch.zeros((cam.height, cam.width, 3), device="cuda")
+    for ov in (True, False):
+        before = overlap.reductions
+        reset_counts()
+        (g, loss), secs = timed(lambda: overlap.param_grads_sharded(
+            spheres, s_target, rng.PRNGKey(3), nojit, mesh, overlap=ov))
+        name = "spheres_overlap" if ov else "spheres_barriered"
+        arrays[name] = grads_np(g)
+        info[name] = dict(s=secs, loss=float(loss),
+                          reductions=overlap.reductions - before,
+                          floats=sum(a.size for a in arrays[name].values()),
+                          launches=b12_counts())
+    del g, s_target
+    info["collective_ms"] = {
+        "film_1024x1024x3": collective_ms(torch, mesh, (1024, 1024, 3)),
+        "tri_p0_327716x3": collective_ms(torch, mesh, (327_716, 3))}
+    # 4. adaptive over the ranks, 8 spp on the cornell box at 1024x1024
+    cornell = load_scene(spec["cornell_dir"], device="cuda")
+    reset_counts()
+    film, secs = timed(lambda: adaptive_render(
+        cornell, RenderConfig(integrator="adaptive", **BENCH_CFG), 8,
+        mesh=mesh))
+    info["adaptive"] = dict(s=secs, launches=b12_counts(),
+                            spp=float(film.spp))
+    arrays["adaptive"] = film.buffer.cpu()
+    # 5. the light tracer over the ranks, 1024^2 light paths
+    reset_counts()
+    film, secs = timed(lambda: light_trace_pass(
+        cornell, film_mod.new_film(1024, 1024, "cuda"), rng.PRNGKey(7), cfg,
+        1024 * 1024, mesh=mesh))
+    info["lighttrace"] = dict(s=secs, launches=b12_counts())
+    arrays["lighttrace"] = film.buffer.cpu()
+    dist.destroy_process_group()
+    torch.save(arrays, os.path.join(work, f"rank{rank}.pt"))
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+
+
+def spawn_ranks(work: str, world: int):
+    """Start `world` rank processes of this script, wait for them up to
+    RANK_TIMEOUT_S, kill any left, and fail unless every one exited 0."""
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         "--world", str(world), "--work", work], cwd=ROOT,
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.perf_counter() + RANK_TIMEOUT_S
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode:
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                log(f.read()[-4000:])
+            fail(f"phase 18 rank {r} exited {p.returncode} (-9: killed at "
+                 f"the {RANK_TIMEOUT_S} s deadline)")
+
+
+def geometry_index(geom, rep):
+    """For each row of `geom` ((n, 9) p0 e1 e2), the replicated scene's
+    triangle with those exact floats, or -1 (a padding slot)."""
+    import numpy as np
+    tr = rep.triangles
+    mine = np.stack([c.cpu().numpy() for f in (tr.p0, tr.e1, tr.e2)
+                     for c in f], -1)
+    where = {row.tobytes(): i for i, row in enumerate(mine)}
+    return np.asarray([where.get(row.tobytes(), -1)
+                       for row in np.ascontiguousarray(geom)], np.int64)
+
+
+def parallel_launches(par, variant):
+    """Main path 10's launches of B1 (variant None) or of a B2 variant:
+    (a)'s, and each rank's by step."""
+    def pick(counts):
+        mt, b2 = counts
+        return mt if variant is None else b2[variant]
+    return {"nccl_render_sharded": pick(par["nccl"]["launches"]),
+            "ranks": [{step: pick(inf[step]["launches"]) for step in (
+                "render", "traverse", "sharded_render", "overlap",
+                "barriered", "spheres_overlap", "spheres_barriered",
+                "adaptive", "lighttrace")}
+                for inf in par["ranks"]]}
+
+
+def parallel_phase(torch, card, scenes, tmp, cornell, spheres,
+                   spheres_dir):
+    """Phase 18, main path 10: parallel/.  (a) NCCL at world size 1 in
+    this process; (b) RANKS gloo ranks on cuda:0 (rank_main), held here
+    against one-process results; (c) render_elastic's CLI workers on the
+    card with one killed and resumed."""
+    import datetime
+    import numpy as np
+    import torch.distributed as dist
+    from raytracingrenderer_tpu_torch import diff
+    from raytracingrenderer_tpu_torch.config import RenderConfig
+    from raytracingrenderer_tpu_torch.geometry import intersect
+    from raytracingrenderer_tpu_torch.imaging import film as film_mod
+    from raytracingrenderer_tpu_torch.integrators.lighttracer import (
+        light_trace_pass)
+    from raytracingrenderer_tpu_torch.parallel.elastic import (
+        _ckpt_spp, render_elastic)
+    from raytracingrenderer_tpu_torch.parallel.mesh import (
+        make_mesh, render_sharded)
+    from raytracingrenderer_tpu_torch.render import sample_image
+    from raytracingrenderer_tpu_torch.sampling import rng
+    from raytracingrenderer_tpu_torch.scene.loader import load_scene
+    from raytracingrenderer_tpu_torch.utils.checkpoint import load_film
+    cfg = RenderConfig(**BENCH_CFG)
+    base = rng.PRNGKey(cfg.seed)
+    out = {"card": card}
+    t_phase = time.perf_counter()
+
+    # (a) NCCL, world size 1: render_sharded is sample_image bit for bit
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(tmp, 'nccl_store')}",
+        world_size=1, rank=0, timeout=datetime.timedelta(seconds=60),
+        device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh()
+        reset_counts()
+        t0 = time.perf_counter()
+        img_a = render_sharded(spheres, rng.spp_key(base, 0), cfg, mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = b12_counts()
+        ref0 = sample_image(spheres, rng.spp_key(base, 0), cfg)
+        if not torch.equal(img_a, ref0):
+            fail("render_sharded over NCCL at world size 1 differs from "
+                 "sample_image")
+        if counts[0] == 0 or min(counts[1].values()) == 0:
+            fail(f"render_sharded (NCCL) launched B1/B2 {counts}")
+    finally:
+        dist.destroy_process_group()
+    log(f"(a) NCCL world size 1: render_sharded 1 spp on the spheres scene "
+        f"1024x1024 equals sample_image bit for bit; {secs:.3f} s, "
+        f"launches B1 {counts[0]}, B2 {counts[1]} [{card}]")
+    out["nccl"] = dict(s=secs, launches=counts)
+
+    # (b) RANKS gloo ranks on cuda:0
+    work = os.path.join(tmp, "ranks")
+    os.makedirs(work)
+    c256_dir = scenes.write_cornell(os.path.join(tmp, "cornell256"), 256,
+                                    256)
+    cornell_dir = scenes.write_cornell(os.path.join(tmp, "cornell_p18"))
+    o, d, t_cl, t_any = make_rays(torch, N_BVH_CHECK, 18)
+    torch.save({"o": tuple(c.cpu() for c in o),
+                "d": tuple(c.cpu() for c in d),
+                "t_closest": t_cl.cpu(), "t_any": t_any.cpu()},
+               os.path.join(work, "rays.pt"))
+    with open(os.path.join(work, "spec.json"), "w") as f:
+        json.dump({"spheres_dir": spheres_dir, "cornell256_dir": c256_dir,
+                   "cornell_dir": cornell_dir}, f)
+    t0 = time.perf_counter()
+    spawn_ranks(work, RANKS)
+    spawn_s = time.perf_counter() - t0
+    info = []
+    arrays = []
+    for r in range(RANKS):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            info.append(json.load(f))
+        arrays.append(torch.load(os.path.join(work, f"rank{r}.pt"),
+                                 weights_only=False))
+    log(f"(b) {RANKS} gloo ranks on cuda:0 ran in {spawn_s:.1f} s (each "
+        f"process's start, loads and checks)")
+    cam_res = f"{spheres.camera.width}x{spheres.camera.height}"
+    for r, inf in enumerate(info):
+        log(f"rank {r}: render_sharded 2 spp, rows "
+            f"{inf['render']['band_rows']}, passes {inf['render']['s'][0]:.3f} s (the first loads the "
+            f"kernels and packs the tables) and {inf['render']['s'][1]:.3f} "
+            f"s, {inf['render']['pps']:.6g} pixel-paths/s in the second, "
+            f"launches {inf['render']['launches']}; sharded "
+            f"load {inf['sharded_load_s']:.2f} s; traverse_sharded closest "
+            f"{inf['traverse']['closest_s'] * 1e3:.1f} ms, any-hit "
+            f"{inf['traverse']['any_s'] * 1e3:.1f} ms; sharded render 1 spp "
+            f"{inf['sharded_render']['s']:.3f} s "
+            f"({inf['sharded_render']['pps']:.6g} pixel-paths/s); 256x256 "
+            f"gradients, overlap {inf['overlap']['s']:.3f} s, barriered "
+            f"{inf['barriered']['s']:.3f} s (the first round "
+            f"{inf['overlap']['cold_s']:.3f}, {inf['barriered']['cold_s']:.3f}"
+            f" s); spheres {cam_res} gradients ("
+            f"{inf['spheres_overlap']['floats']} floats a reduction), "
+            f"overlap {inf['spheres_overlap']['s']:.3f} s, barriered "
+            f"{inf['spheres_barriered']['s']:.3f} s, launches "
+            f"{inf['spheres_overlap']['launches']}; adaptive 8 spp "
+            f"{inf['adaptive']['s']:.3f} s; lighttrace "
+            f"{inf['lighttrace']['s']:.3f} s; all_reduce ms (gloo, staged "
+            f"through the host) {inf['collective_ms']} [{card}]")
+        for step in ("render", "traverse", "sharded_render", "overlap",
+                     "spheres_overlap", "spheres_barriered", "adaptive",
+                     "lighttrace"):
+            mt, b2 = inf[step]["launches"]
+            if mt == 0 or (step in ("render", "traverse", "sharded_render",
+                                    "spheres_overlap", "spheres_barriered")
+                           and min(b2.values()) == 0):
+                fail(f"rank {r} {step}: launches B1 {mt}, B2 {b2}")
+        if inf["adaptive"]["launches"][0] != 120:
+            fail(f"rank {r}: adaptive launched B1 "
+                 f"{inf['adaptive']['launches'][0]} times, not 120")
+    # 1. the ranks' 2-spp image against this process's
+    ref1 = sample_image(spheres, rng.spp_key(base, 1), cfg)
+    ref = ((ref0 + ref1) * 0.5).cpu().numpy()
+    for r in range(RANKS):
+        got = arrays[r]["render"].numpy()
+        diff_px = int((got != ref).any(-1).sum())
+        log(f"rank {r} render_sharded 2 spp vs one process: {diff_px} "
+            f"pixels differ")
+        same_image(f"rank {r} render_sharded 1024x1024 2 spp", got, ref)
+    # 2. traverse_sharded against the replicated walk
+    to_rep = geometry_index(np.concatenate(
+        [a["geometry"].numpy() for a in arrays]), spheres)
+    live = t_cl.cpu().numpy() > 0
+    trav = {}
+    for any_hit, t0_ in ((False, t_cl), (True, t_any)):
+        with torch.no_grad():
+            h = intersect._walk(spheres, o, d, t0_, any_hit, False)
+        t_r, tri_r = h.t.cpu().numpy(), h.tri.cpu().numpy()
+        t_s, tri_s = (a.numpy() for a in arrays[0]["any" if any_hit
+                                                   else "closest"][:2])
+        for a, b in zip(arrays[1]["any" if any_hit else "closest"],
+                        arrays[0]["any" if any_hit else "closest"]):
+            if not torch.equal(a, b):
+                fail("the ranks' traverse_sharded results differ")
+        mapped = np.where(tri_s >= 0, to_rep[np.maximum(tri_s, 0)], -1)
+        name = "any-hit" if any_hit else "closest-hit"
+        if any_hit:
+            agree_bits = ((tri_s >= 0) == (tri_r >= 0))[live]
+            share = agree_bits.mean()
+            trav[name] = dict(bits_agree=float(share),
+                              differ=int((~agree_bits).sum()))
+            log(f"traverse_sharded {name}, 2^20+77 rays: occlusion bits "
+                f"agree on {share:.6%} of {live.sum()} live rays "
+                f"({int((~agree_bits).sum())} differ)")
+        else:
+            same = (mapped == tri_r)[live]
+            t_eq = (t_s == t_r)[live]
+            if not t_eq[same].all():
+                fail("traverse_sharded: t differs where the triangle agrees")
+            other = ~same
+            ties = int((other & t_eq).sum())
+            share = same.mean()
+            trav[name] = dict(ids_agree=float(share), ties=ties,
+                              other=int(other.sum()) - ties)
+            log(f"traverse_sharded {name}, 2^20+77 rays (10% dead): ids "
+                f"agree on {share:.6%} of {live.sum()} live rays, t bit for "
+                f"bit there; {int(other.sum())} differ: {ties} exact ties, "
+                f"{int(other.sum()) - ties} with another t (grazing box "
+                f"tests)")
+        if share < 0.99999:
+            fail(f"traverse_sharded {name}: agreement {share:.6%} < "
+                 f"99.999%")
+    out["traverse"] = trav
+    same_image("scene-sharded render 1024x1024 1 spp vs replicated scan",
+               arrays[0]["sharded_render"].numpy(), ref0.cpu().numpy())
+    # 3. the overlapped gradients against diff.param_grads
+    c256 = load_scene(c256_dir, device="cuda")
+    nojit = RenderConfig(**dict(BENCH_CFG, jitter=False))
+    target = torch.zeros((256, 256, 3), device="cuda")
+    loss, g = diff.value_and_grad(c256, target, rng.PRNGKey(3),
+                                  diff._diff_cfg(nojit, c256))
+    ref_g = (loss.item(), grads_np(g))
+    for name, red in (("overlap", BENCH_CFG["max_depth"] + 2),
+                      ("barriered", 1)):
+        for r in range(RANKS):
+            if info[r][name]["reductions"] != red:
+                fail(f"rank {r} {name}: {info[r][name]['reductions']} "
+                     f"reductions, not {red}")
+        for k, v in arrays[1][name].items():
+            if not np.array_equal(v, arrays[0][name][k]):
+                fail(f"{name}: the ranks' gradients differ ({k})")
+        grads_gate(f"cornell 256x256 {name} over {RANKS} ranks vs "
+                   f"diff.param_grads", (info[0][name]["loss"],
+                                         arrays[0][name]), ref_g,
+                   f"; {red} reduction(s) a step")
+    t0 = time.perf_counter()
+    s_target = torch.zeros((spheres.camera.height, spheres.camera.width, 3),
+                           device="cuda")
+    loss, g = diff.value_and_grad(spheres, s_target, rng.PRNGKey(3),
+                                  diff._diff_cfg(nojit, spheres))
+    ref_g = (loss.item(), grads_np(g))
+    log(f"spheres {cam_res} diff.param_grads in one process (the "
+        f"wavefront backward): {time.perf_counter() - t0:.3f} s")
+    del g, s_target
+    for name, red in (("spheres_overlap", BENCH_CFG["max_depth"] + 2),
+                      ("spheres_barriered", 1)):
+        for r in range(RANKS):
+            if info[r][name]["reductions"] != red:
+                fail(f"rank {r} {name}: {info[r][name]['reductions']} "
+                     f"reductions, not {red}")
+        for k, v in arrays[1][name].items():
+            if not np.array_equal(v, arrays[0][name][k]):
+                fail(f"{name}: the ranks' gradients differ ({k})")
+        grads_gate(f"spheres {cam_res} {name[8:]} over {RANKS} ranks vs "
+                   f"diff.param_grads", (info[0][name]["loss"],
+                                         arrays[0][name]), ref_g,
+                   f"; {red} reduction(s) a step")
+    l0, l1 = info[0]["train_losses"]
+    log(f"train_step_overlap x2 (lr 0.5): loss {l0:.6f} -> {l1:.6f}")
+    if not l1 < l0:
+        fail("train_step_overlap did not descend")
+    # 4. adaptive: the same film on every rank
+    a0 = arrays[0]["adaptive"].numpy()
+    if not all(np.array_equal(a["adaptive"].numpy(), a0) for a in arrays):
+        fail("adaptive_render(mesh=): the ranks' films differ")
+    mean = float(a0.mean() / info[0]["adaptive"]["spp"])
+    log(f"adaptive_render(mesh=) 8 spp 1024x1024 cornell: the films of "
+        f"both ranks equal bit for bit, image mean {mean:.5f}")
+    if not (np.isfinite(a0).all() and 0.03 < mean < 0.5):
+        fail(f"adaptive_render(mesh=): implausible film (mean {mean})")
+    # 5. the light tracer against one process
+    reset_counts()
+    lt = light_trace_pass(cornell, film_mod.new_film(1024, 1024, "cuda"),
+                          rng.PRNGKey(7), cfg, 1024 * 1024).buffer
+    lt = lt.cpu().numpy()
+    for r in range(RANKS):
+        got = arrays[r]["lighttrace"].numpy()
+        rel = abs(got.sum() - lt.sum()) / abs(lt.sum())
+        close = np.isclose(got, lt, rtol=1e-3, atol=1e-5).all(-1).mean()
+        log(f"rank {r} light_trace_pass(mesh=) vs one process: film sums "
+            f"rel {rel:.2e}, {close:.4%} of pixels within rtol 1e-3/atol "
+            f"1e-5")
+        if rel > 1e-4 or close < 0.99:
+            fail("light_trace_pass(mesh=) disagrees with one process")
+    out["ranks"] = info
+
+    # (c) render_elastic: CLI workers on the card, one killed and resumed
+    c_dir = scenes.write_cornell(os.path.join(tmp, "cornell_elastic"), 256,
+                                 256)
+    el = os.path.join(tmp, "elastic")
+    ck0 = os.path.join(el, "worker0.npz")
+    state = {"killed": False}
+
+    def injector(procs):
+        p = procs.get(0)
+        if not state["killed"] and p is not None and p.poll() is None \
+                and 1 <= _ckpt_spp(ck0) < ELASTIC_SPP:
+            p.kill()
+            state["killed"] = True
+
+    # the uninterrupted worker runs beside them, in a thread
+    from concurrent.futures import ThreadPoolExecutor
+    oracle = os.path.join(tmp, "elastic_oracle")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        plain = pool.submit(render_elastic, c_dir, oracle, n_workers=1,
+                            spp_per_worker=ELASTIC_SPP, extra_args=[
+                                "-maxDepth", "4", "-device", "cuda"])
+        film = render_elastic(c_dir, el, n_workers=2,
+                              spp_per_worker=ELASTIC_SPP, extra_args=[
+                                  "-maxDepth", "4", "-device", "cuda"],
+                              on_poll=injector, poll_s=0.05)
+        plain.result()
+    el_s = time.perf_counter() - t0
+    if not state["killed"]:
+        fail("render_elastic: the fault was never injected")
+    w0 = load_film(ck0, "cpu").buffer.numpy()
+    w0_ref = load_film(os.path.join(oracle, "worker0.npz"),
+                       "cpu").buffer.numpy()
+    if float(film.spp) != 2 * ELASTIC_SPP or not np.array_equal(w0, w0_ref):
+        fail("render_elastic: the resumed worker's film differs from an "
+             "uninterrupted one")
+    log(f"(c) render_elastic 2 CLI workers x {ELASTIC_SPP} spp at 256x256 on "
+        f"the card, worker 0 killed after its first checkpoint and resumed: "
+        f"its film equals an uninterrupted worker's (run beside them) bit "
+        f"for bit; {el_s:.1f} s wall")
+    out["elastic_s"] = el_s
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 18 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="directory for the rendered .hdr files (default: "
                          "a temporary directory)")
+    ap.add_argument("--rank", type=int, default=None,
+                    help=argparse.SUPPRESS)   # phase 18's rank processes
+    ap.add_argument("--world", type=int, default=RANKS,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--work", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.rank is not None:
+        rank_main(args.rank, args.world, args.work)
+        return
 
     try:
         import torch
@@ -2555,9 +3113,14 @@ def main() -> None:
     mark(17)
     adapt = adaptive_phase(torch, card, scenes, tmp, out_dir, cornell,
                            cornell_dir, spheres, spheres128)
+
+    # -- 18. main path 10: parallel/ (ranks, scene shards, elastic) --------
+    mark(18)
+    par = parallel_phase(torch, card, scenes, tmp, cornell, spheres,
+                         spheres_dir)
     log("new paths " + json.dumps({"card": card, "sky": sky,
                                    "render_with": disp,
-                                   "adaptive": adapt}))
+                                   "adaptive": adapt, "parallel": par}))
     log(f"-- every phase done at {time.perf_counter() - T_START:.1f} s")
 
     def brief(tr):
@@ -2606,6 +3169,7 @@ def main() -> None:
         "launches_render_with": {k: v["mt"] for k, v in disp.items()},
         "launches_adaptive": {k: v["mt"] for k, v in adapt.items()
                               if "mt" in v},
+        "launches_parallel": parallel_launches(par, None),
     }] + [dict(name=f"bvh_traverse/{v}", **bvh_src,
                launches=b2_launches[v],
                launches_treelet_path=tl_launches[v],
@@ -2621,6 +3185,7 @@ def main() -> None:
                launches_render_with={k: c[v] for k, c in disp.items()
                                      if v in c},
                launches_adaptive=adapt["spheres"][v],
+               launches_parallel=parallel_launches(par, v),
                library_ms=None,
                **b2[v])
           for v in ("closest_hit", "any_hit")]

@@ -8,11 +8,18 @@ reports progress, writes HDR (and an optional PNG preview) and
 checkpoints the film.  One flag more than the JAX package's: -device,
 the card by default ("cpu" runs the kernels' plain versions; "cuda"
 without a card raises); and -profile reports the interactive session's
-phases too.  Multi-device rendering (-sceneShards) waits
-for the port of parallel/.
+phases too.
+
+Under torchrun every rank runs this (parallel/distributed.py joins them;
+one process needs no group), and only rank 0 logs and writes files.
+-sceneShards N shards the scene's triangles and BVH over N ranks
+(parallel/scene_shard.py): every rank renders the whole image, each
+walking its own shard.
 
     python -m raytracingrenderer_tpu_torch.cli -scene <dir> -SPP 8 \\
         -outputFilename out.hdr [-device cpu]
+    torchrun --nproc_per_node N -m raytracingrenderer_tpu_torch.cli \\
+        -scene <dir> -sceneShards N -SPP 8 -outputFilename out.hdr
 """
 from __future__ import annotations
 
@@ -52,7 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="edge-aware denoise of the final image")
     p.add_argument("-sceneShards", type=int, default=0,
                    help="shard the BVH + triangle geometry over this "
-                        "many devices (not ported yet: above 0 raises)")
+                        "many ranks (torchrun --nproc_per_node N); 0 = "
+                        "replicate")
     p.add_argument("-interactive", action="store_true",
                    help="fly-camera loop on stdin (reference Main.cpp "
                         "main loop: keys move + clear film, p/l save)")
@@ -73,9 +81,23 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    # every rank of a torchrun launch joins here (a no-op for one
+    # process); a group made here is taken down on the way out
+    from .parallel.distributed import init_distributed
+    owned = init_distributed(device=args.device)
+    try:
+        return _main(args)
+    finally:
+        if owned:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _main(args) -> int:
 
     import contextlib
     import dataclasses
+    import logging
 
     from .config import RenderConfig
     from .imaging import film as film_mod
@@ -87,13 +109,19 @@ def main(argv=None) -> int:
     from .utils.log import get_logger
     from .utils.profiling import Timer, wait_for
 
+    import torch.distributed as dist
     log = get_logger("cli")
-    # one process, one device: the JAX package's init_distributed() and
-    # -sceneShards come with the port of parallel/ (the loader refuses
-    # scene_shards above 0)
+    # rank 0 alone logs and writes files; the others render in silence
+    main_rank = not dist.is_initialized() or dist.get_rank() == 0
+    if not main_rank:
+        logging.getLogger("rtr").setLevel(logging.WARNING)
     prof = Timer() if args.profile else None
     t0 = time.time()
-    scene = load_scene(args.scene, device=args.device,
+    device = args.device
+    if device == "cuda" and dist.is_initialized():
+        from .parallel.distributed import rank_device
+        device = rank_device()
+    scene = load_scene(args.scene, device=device,
                        scene_shards=args.sceneShards)
     if prof is not None:
         prof.totals["load"] = time.time() - t0
@@ -127,6 +155,9 @@ def main(argv=None) -> int:
                      {k: v for k, v in mem.items() if "bytes" in k})
 
     if args.interactive or args.keys:
+        if dist.is_initialized():
+            raise ValueError("-interactive and -keys drive one process; "
+                             "run them without torchrun")
         from .interactive import run_scripted, run_stdin
         out_base = args.outputFilename.rsplit(".", 1)[0]
         with phase("render"):
@@ -161,13 +192,14 @@ def main(argv=None) -> int:
         log.info("spp %d  %.3fs/frame  %.2f Mpaths/s  total %.1fs",
                  s + 1, dt, h * w / max(dt, 1e-9) / 1e6,
                  now - state["t_start"])
-        if args.preview and (s + 1) % args.preview == 0:
+        if main_rank and args.preview and (s + 1) % args.preview == 0:
             write_png(args.outputFilename + ".png",
                       film_mod.tonemap(f).cpu().numpy())
-        if args.checkpoint and args.checkpointEvery and \
+        if main_rank and args.checkpoint and args.checkpointEvery and \
                 (s + 1) % args.checkpointEvery == 0:
             save_film(args.checkpoint, f)
-        if args.timeBudget and now - state["t_start"] > args.timeBudget:
+        if args.timeBudget and _agree(now - state["t_start"]
+                                      > args.timeBudget, f.buffer.device):
             state["stop"] = True
             raise StopIteration
 
@@ -205,14 +237,27 @@ def main(argv=None) -> int:
             img = dn(img, albedo=alb, normal=nrm)
             wait_for(img)
     img = img.detach().cpu().numpy()
-    with phase("write"):
-        write_hdr(args.outputFilename, img)
-    log.info("wrote %s (%d spp, mean %.4f)", args.outputFilename,
-             int(film.spp), float(img.mean()))
-    if args.checkpoint:
-        save_film(args.checkpoint, film)
+    if main_rank:
+        with phase("write"):
+            write_hdr(args.outputFilename, img)
+        log.info("wrote %s (%d spp, mean %.4f)", args.outputFilename,
+                 int(film.spp), float(img.mean()))
+        if args.checkpoint:
+            save_film(args.checkpoint, film)
     report(img, int(film.spp))
     return 0
+
+
+def _agree(flag: bool, device) -> bool:
+    """Rank 0's `flag` on every rank (the time budget: ranks that walk a
+    sharded scene together must stop at the same sample)."""
+    import torch
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return flag
+    t = torch.tensor([int(flag)], device=device)
+    dist.broadcast(t, 0)
+    return bool(t.item())
 
 
 if __name__ == "__main__":

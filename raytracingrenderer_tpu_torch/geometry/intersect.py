@@ -24,6 +24,9 @@ Counterpart of raytracingrenderer_tpu/geometry/intersect.py.
   (`_packet_fits`, 96 MB) is a TPU limit and is not ported.
 - `_traverse_stackless` (with `closest_hit_bvh` / `any_hit_bvh`) is the
   oracle: a lockstep walk over the DFS skip links in plain torch.
+- A scene-sharded scene (parallel/scene_shard.ShardedBVH, ahead of all
+  the above) walks each rank's shard through the same dispatch (`_walk`)
+  and merges the ranks' hits.
 
 Triangle test is Moller-Trumbore on (p0, e1, e2); barycentrics map as
 alpha = 1-u-v (v0), beta = u (v1), gamma = v (v2).
@@ -296,6 +299,54 @@ def _rays(o: V3, d: V3):
             V3(*(c.detach().contiguous() for c in d)))
 
 
+def _walk(scene, o: V3, d: V3, t_init: torch.Tensor, any_hit: bool,
+          presorted: bool) -> Hit:
+    """The dispatch over one whole triangle set: `scene` is anything with
+    `triangles`, `bvh` and `bounds` (a Scene, or one shard of a
+    scene-sharded one, parallel/scene_shard.py).  Rays are detached and
+    contiguous; t_init seeds each ray's search (negative: a dead lane).
+    Any-hit: occluded where tri >= 0."""
+    global stackless_calls, treelet_calls
+    from ..ops import bvh_kernel, mt_kernel, treelet
+    tris, bvh = scene.triangles, scene.bvh
+    if not _use_bvh(scene):
+        return mt_kernel.intersect(tris, o, d, t_init)
+    if treelet.has_treelets(bvh):
+        treelet_calls += 1
+        pre = _proxy_prepass(scene, o, d, t_init)
+        if not any_hit:
+            # the proxy pre-pass's t is the candidate search's radius
+            return treelet.closest_hit_treelet(bvh, tris, o, d,
+                                               torch.minimum(pre.t, t_init))
+        return _first_hit(pre, treelet.traverse_treelet(
+            bvh, tris, o, d, torch.where(pre.tri >= 0, -1.0, t_init),
+            any_hit=True))
+    if not bvh_kernel.usable(bvh):
+        stackless_calls += 1
+        return _traverse_stackless(bvh, tris, o, d, t_init, any_hit,
+                                   bvh.leaf_max)
+    pre = None
+    if any_hit:
+        # segments blocked by a big surface resolve in the pre-pass and
+        # skip traversal (their radius goes negative)
+        pre = _proxy_prepass(scene, o, d, t_init)
+        t_init = torch.where(pre.tri >= 0, -1.0, t_init)
+    if presorted:
+        h = bvh_kernel.traverse_packet(bvh, tris, o, d, t_init,
+                                       any_hit=any_hit)
+    else:
+        h = _sorted_call(scene, o, d, t_init > 0.0, (t_init,),
+                         lambda so, sd, st: bvh_kernel.traverse_packet(
+                             bvh, tris, so, sd, st, any_hit=any_hit))
+    return h if pre is None else _first_hit(pre, h)
+
+
+def _first_hit(pre: Hit, h: Hit) -> Hit:
+    """The pre-pass's hit where it has one, else the walk's."""
+    got = pre.tri >= 0
+    return Hit(*(torch.where(got, a, b) for a, b in zip(pre, h)))
+
+
 def closest_hit(scene, o: V3, d: V3, active=None,
                 presorted: bool = False) -> Hit:
     """Scene-level closest hit (RTBase Scene::traverse, Scene.h:107-130).
@@ -303,36 +354,18 @@ def closest_hit(scene, o: V3, d: V3, active=None,
     `active` marks live lanes; inactive lanes return misses without
     paying for the test (their search radius is negative).  `presorted`
     promises that the caller already sorted the batch by the coherence
-    key (wavefront mode), which skips the sort and unsort here."""
-    global stackless_calls, treelet_calls
-    from ..ops import bvh_kernel, mt_kernel, treelet
+    key (wavefront mode), which skips the sort and unsort here.  A
+    scene-sharded scene (parallel/scene_shard.ShardedBVH) walks every
+    rank's shard and merges the hits there."""
     o, d = _rays(o, d)
     n = o.x.shape[0]
     t_init = torch.full((n,), BIG_T, dtype=torch.float32, device=o.x.device)
     if active is not None:
         t_init = torch.where(active.detach(), t_init, -1.0)
-    tris = scene.triangles
     with torch.no_grad():
-        if not _use_bvh(scene):
-            h = mt_kernel.intersect(tris, o, d, t_init)
-        elif treelet.has_treelets(scene.bvh):
-            # the proxy pre-pass's t is the candidate search's radius
-            treelet_calls += 1
-            pre = _proxy_prepass(scene, o, d, t_init)
-            h = treelet.closest_hit_treelet(scene.bvh, tris, o, d,
-                                            torch.minimum(pre.t, t_init))
-        elif not bvh_kernel.usable(scene.bvh):
-            stackless_calls += 1
-            h = _traverse_stackless(scene.bvh, tris, o, d, t_init, False,
-                                    scene.bvh.leaf_max)
-        elif presorted:
-            h = bvh_kernel.traverse_packet(scene.bvh, tris, o, d, t_init)
-        else:
-            act = (torch.ones(n, dtype=torch.bool, device=o.x.device)
-                   if active is None else active.detach())
-            h = _sorted_call(scene, o, d, act, (t_init,),
-                             lambda so, sd, st: bvh_kernel.traverse_packet(
-                                 scene.bvh, tris, so, sd, st))
+        if scene.sharded:
+            return scene.bvh.closest_hit(o, d, t_init)
+        h = _walk(scene, o, d, t_init, False, presorted)
         return h._replace(t=torch.where(h.tri >= 0, h.t, BIG_T))
 
 
@@ -341,33 +374,9 @@ def occluded(scene, o: V3, d: V3, max_t: torch.Tensor,
     """Scene-level any-hit (RTBase Scene::visible, Scene.h:161-169).
     Lanes with max_t < 0 are inactive and never occluded.  `presorted`:
     the batch is already coherence-sorted, so it is walked as it is."""
-    global stackless_calls, treelet_calls
-    from ..ops import bvh_kernel, mt_kernel, treelet
     o, d = _rays(o, d)
     max_t = max_t.detach().contiguous()
-    tris = scene.triangles
     with torch.no_grad():
-        if not _use_bvh(scene):
-            return mt_kernel.any_hit(tris, o, d, max_t)
-        if treelet.has_treelets(scene.bvh):
-            treelet_calls += 1
-            pre_occ = _proxy_prepass(scene, o, d, max_t).tri >= 0
-            rem_t = torch.where(pre_occ, -1.0, max_t)
-            return treelet.any_hit_treelet(scene.bvh, tris, o, d,
-                                           rem_t) | pre_occ
-        if not bvh_kernel.usable(scene.bvh):
-            stackless_calls += 1
-            return any_hit_bvh(scene.bvh, tris, o, d, max_t)
-        # segments blocked by a big surface resolve in the pre-pass and
-        # skip traversal (their radius goes negative)
-        pre_occ = _proxy_prepass(scene, o, d, max_t).tri >= 0
-        rem_t = torch.where(pre_occ, -1.0, max_t)
-        if presorted:
-            occ = bvh_kernel.traverse_packet(scene.bvh, tris, o, d, rem_t,
-                                             any_hit=True).tri >= 0
-        else:
-            occ = _sorted_call(
-                scene, o, d, rem_t > 0.0, (rem_t,),
-                lambda so, sd, st: bvh_kernel.traverse_packet(
-                    scene.bvh, tris, so, sd, st, any_hit=True).tri >= 0)
-        return occ | pre_occ
+        if scene.sharded:
+            return scene.bvh.occluded(o, d, max_t)
+        return _walk(scene, o, d, max_t, True, presorted).tri >= 0

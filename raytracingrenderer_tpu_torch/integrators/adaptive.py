@@ -17,8 +17,16 @@ tile, and every other draw lands alike (tests/test_torch_adaptive.py).
 The film contract: an incoming film resumes as a uniform-count prior
 (its variance population restarts empty), `on_sample` fires after every
 init pass and round, and the returned film divides to the per-pixel
-mean under Film.spp.  The JAX package's cross-device round (`mesh=`)
-waits for the port of parallel/.
+mean under Film.spp.
+
+Under a mesh of ranks (parallel/mesh.py) the init passes are
+mesh.render_sharded's (each rank renders a band of rows), and each
+round is `_sharded_round`: every rank draws ceil(round_rays / size)
+rays from the same state with the round's key folded with its rank,
+traces and scatters them into zeros, and an all_reduce sum of those
+partials is added to the state, so every rank holds the same state
+(the collective stands for RTBase's shared variance array and its
+mutex, Renderer.h:636-639).
 """
 from __future__ import annotations
 
@@ -104,7 +112,13 @@ def _scatter_round(scene: Scene, st: AdaptiveState, key: rng.Key,
     duplicates differ from the JAX package's only in their order)."""
     kp, kt = rng.split(key)
     px, py = _sample_pixels(st, kp, n_rays, h, w)
-    rgb = _trace_pixels(scene, px, py, kt, cfg).stacked()
+    return _scatter(st, _trace_pixels(scene, px, py, kt, cfg), px, py, w)
+
+
+def _scatter(st: AdaptiveState, radiance, px, py, w: int) -> AdaptiveState:
+    """The traced radiance of pixels (px, py) added into the state."""
+    h = st.count.shape[0]
+    rgb = radiance.stacked()
     lum = rgb.mean(dim=-1)
     flat = py * w + px
     ones = torch.ones_like(lum)
@@ -116,6 +130,25 @@ def _scatter_round(scene: Scene, st: AdaptiveState, key: rng.Key,
     return AdaptiveState(add(st.sum1, rgb), add(st.count, ones),
                          add(st.lsum, lum), add(st.sum2, lum * lum),
                          add(st.vcount, ones))
+
+
+def _sharded_round(scene: Scene, st: AdaptiveState, key: rng.Key,
+                   cfg: RenderConfig, rays_per_shard: int, h: int, w: int,
+                   mesh) -> AdaptiveState:
+    """A round over `mesh`: this rank's rays_per_shard rays, drawn with
+    the key folded with its rank from the state every rank holds,
+    scattered into zeros; the partials' all_reduce sum joins the
+    state."""
+    zero = AdaptiveState(*(torch.zeros_like(a) for a in st))
+    k = rng.fold_in(key, mesh.rank)
+    kp, kt = rng.split(k)
+    px, py = _sample_pixels(st, kp, rays_per_shard, h, w)
+    part = _scatter(zero, _trace_pixels(scene, px, py, kt, cfg), px, py, w)
+    flat = torch.cat([a.reshape(-1) for a in part])
+    mesh.all_reduce(flat)
+    sizes = [a.numel() for a in st]
+    return AdaptiveState(*(a + d.reshape(a.shape) for a, d in
+                           zip(st, torch.split(flat, sizes))))
 
 
 def _to_film(st: AdaptiveState) -> film_mod.Film:
@@ -136,12 +169,18 @@ def adaptive_render(scene: Scene, cfg: RenderConfig, total_spp: int,
     `rounds` variance-allocated batches of equal size
     (path.trace_radiance on the drawn pixels).  An incoming `film`
     resumes as a uniform-count prior; `on_sample(step, film)` fires
-    after every init pass and round.  `mesh` (the JAX package's
-    cross-device round) is refused."""
-    if mesh is not None:
+    after every init pass and round.  With `mesh` (a
+    parallel.mesh.Mesh) the passes and rounds are split over its ranks,
+    and every rank returns the same film."""
+    from ..parallel.mesh import Mesh, render_sharded
+    if mesh is not None and not isinstance(mesh, Mesh):
         raise NotImplementedError(
-            "adaptive_render(mesh=...): multi-device rounds (parallel/) "
-            "are not ported yet")
+            f"adaptive_render(mesh={mesh!r}): not a port Mesh "
+            f"(parallel.mesh.make_mesh); other meshes have no counterpart "
+            f"here")
+    if mesh is not None and scene.sharded:
+        raise ValueError("a scene-sharded scene walks every ray on every "
+                         "rank: call adaptive_render without a mesh")
     from ..render import sample_image, specialize_config
     cfg = specialize_config(cfg, scene)
     cam = scene.camera
@@ -166,7 +205,9 @@ def adaptive_render(scene: Scene, cfg: RenderConfig, total_spp: int,
     step = start
     with torch.no_grad():
         for s in range(init_spp):
-            img = sample_image(scene, rng.spp_key(base, start + s), cfg)
+            key = rng.spp_key(base, start + s)
+            img = (sample_image(scene, key, cfg) if mesh is None
+                   else render_sharded(scene, key, cfg, mesh))
             lum = img.mean(dim=-1)
             st = AdaptiveState(st.sum1 + img, st.count + 1.0,
                                st.lsum + lum, st.sum2 + lum * lum,
@@ -179,9 +220,13 @@ def adaptive_render(scene: Scene, cfg: RenderConfig, total_spp: int,
         round_rays = max(budget // max(rounds, 1), 0)
         if round_rays:
             for r in range(rounds):
-                st = _scatter_round(scene, st,
-                                    rng.spp_key(base, 10_000 + start + r),
-                                    cfg, round_rays, h, w)
+                key = rng.spp_key(base, 10_000 + start + r)
+                if mesh is None:
+                    st = _scatter_round(scene, st, key, cfg, round_rays, h, w)
+                else:
+                    st = _sharded_round(scene, st, key, cfg,
+                                        -(-round_rays // mesh.size), h, w,
+                                        mesh)
                 step += 1
                 if on_sample is not None:
                     on_sample(step - 1, _to_film(st))

@@ -48,10 +48,22 @@ def shading_data(scene: Scene, hit: Hit, o: V3, d: V3,
     and the rays, which carry gradients, and attached straight-through:
     the values stay the kernel's bit for bit, while gradients see
     d(t, beta, gamma)/d(vertex positions), the hit-point
-    reparameterisation of the JAX package (interior term only)."""
+    reparameterisation of the JAX package (interior term only).
+
+    In scene-sharded mode (parallel/scene_shard.py) the triangles' fields
+    come from their owners' shading rows (`shading_triangles`, one
+    all_reduce); geom_grads needs the replicated vertex arrays there and
+    is refused, as in the JAX package."""
     tris = scene.triangles
     m = scene.materials
     tri = torch.clamp(hit.tri, min=0).long()
+    if scene.sharded:
+        if geom_grads:
+            raise NotImplementedError(
+                "geom_grads requires a replicated triangle table "
+                "(scene_shards=0)")
+        tris = scene.bvh.shading_triangles(tri)
+        tri = torch.arange(tri.shape[0], device=tri.device)
     beta = hit.u
     gamma = hit.v
     t_hit = hit.t

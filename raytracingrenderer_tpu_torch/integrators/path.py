@@ -29,13 +29,16 @@ from .boundary import boundary_direct
 from .common import balance_heuristic, compute_direct, shading_data
 
 
-def init_state(o: V3, d: V3) -> dict:
-    """Fresh per-ray bounce state for a batch of primary rays."""
+def init_state(o: V3, d: V3, first_id: int = 0) -> dict:
+    """Fresh per-ray bounce state for a batch of primary rays; ray i
+    draws its numbers as pixel first_id + i (a band of rows of a larger
+    image passes its first pixel, parallel/mesh.render_sharded)."""
     n = o.x.shape[0]
     dev = o.x.device
     return dict(
         o=o, d=d,
-        ids=torch.arange(n, dtype=torch.int64, device=dev),
+        ids=torch.arange(first_id, first_id + n, dtype=torch.int64,
+                         device=dev),
         throughput=V3.full((n,), 1.0, 1.0, 1.0, device=dev),
         radiance=V3.zeros((n,), device=dev),
         alive=torch.ones(n, dtype=torch.bool, device=dev),
@@ -198,9 +201,10 @@ def step(scene: Scene, state: dict, depth: int, key: rng.Key,
 
 
 def trace_radiance(scene: Scene, o: V3, d: V3, key: rng.Key,
-                   cfg: RenderConfig) -> V3:
-    """Estimate radiance along a batch of primary rays (one sample/ray)."""
-    state = init_state(o, d)
+                   cfg: RenderConfig, first_id: int = 0) -> V3:
+    """Estimate radiance along a batch of primary rays (one sample/ray);
+    `first_id` as in init_state."""
+    state = init_state(o, d, first_id)
     for depth in range(cfg.max_depth + 2):  # depths 0..max_depth+1
         state = step(scene, state, depth, key, cfg)
     return state["radiance"]

@@ -25,7 +25,7 @@ import torch
 
 from ..core.vec import V3
 from ..geometry.intersect import BIG_T, Hit, _mt_test, on_live_lanes
-from ..scene.types import Triangles
+from ..scene.types import Triangles, same_data
 from .launch import I32, PTR, bind, launch
 
 MAX_SMEM_TRIS = 4096   # the TPU kernel's dispatch cap, kept as the contract
@@ -45,11 +45,11 @@ def pack_tris(tris: Triangles) -> torch.Tensor:
     """(T, ROW) contiguous f32 rows [p0 e1 e2 0 0 0]: what the kernel
     reads, three 16-byte loads a row.  Packed once a triangle set: the
     rows are kept with the nine component tensors they were made from
-    (checked by identity and version, so a new or an updated `Triangles`
-    packs anew), the last few sets only."""
+    (checked by `same_data`, so a new or an updated `Triangles` packs
+    anew), the last few sets only."""
     parts = (*tris.p0, *tris.e1, *tris.e2)
     for kept, rows in _packed:
-        if all(a is b and a._version == v for a, (b, v) in zip(parts, kept)):
+        if all(same_data(a, b, v) for a, (b, v) in zip(parts, kept)):
             return rows
     zero = torch.zeros_like(parts[0])
     rows = torch.stack([*parts] + [zero] * (ROW - 9), dim=-1).contiguous()

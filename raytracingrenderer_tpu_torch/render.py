@@ -52,10 +52,12 @@ def _check_supported(cfg: RenderConfig) -> None:
 
 def _use_wavefront(scene: Scene, cfg: RenderConfig) -> bool:
     """Auto policy for the wavefront integrator: BVH-scale scenes, where
-    per-bounce traversal dominates; cfg.wavefront overrides it."""
+    per-bounce traversal dominates, but not a scene-sharded one (every
+    rank walks the whole batch there); cfg.wavefront overrides it."""
     if cfg.wavefront is not None:
         return cfg.wavefront
-    return scene.bvh is not None and scene.triangles.count > 4096
+    return (scene.bvh is not None and not scene.sharded
+            and scene.triangles.count > 4096)
 
 
 def pixel_grid(height: int, width: int, device=None):
@@ -67,20 +69,28 @@ def pixel_grid(height: int, width: int, device=None):
             ys.reshape(-1).to(torch.float32))
 
 
-def sample_image(scene: Scene, key: rng.Key, cfg: RenderConfig
-                 ) -> torch.Tensor:
-    """One radiance sample per pixel -> (H, W, 3)."""
+def sample_image(scene: Scene, key: rng.Key, cfg: RenderConfig,
+                 rows=None) -> torch.Tensor:
+    """One radiance sample per pixel -> (H, W, 3).  `rows` = (r0, r1)
+    renders that band of rows alone -> (r1 - r0, W, 3), equal bit for
+    bit to those rows of the whole image: its pixels draw their jitter
+    and their paths' numbers by their index in the whole image."""
     cfg = specialize_config(cfg, scene)
     cam = scene.camera
-    xs, ys = pixel_grid(cam.height, cam.width, scene.device)
+    r0, r1 = (0, cam.height) if rows is None else rows
+    xs, ys = pixel_grid(r1 - r0, cam.width, scene.device)
+    ys = ys + float(r0)
+    first = r0 * cam.width
     if cfg.jitter:
-        jx = rng.uniform(key, 0, rng.PIXEL_JITTER_X, xs.shape, xs.device)
-        jy = rng.uniform(key, 0, rng.PIXEL_JITTER_Y, ys.shape, ys.device)
+        jx = rng.uniform(key, 0, rng.PIXEL_JITTER_X, xs.shape, xs.device,
+                         first)
+        jy = rng.uniform(key, 0, rng.PIXEL_JITTER_Y, ys.shape, ys.device,
+                         first)
     else:
         jx = jy = 0.5  # pixel centres only
     o, d = generate_rays(cam, xs + jx, ys + jy)
-    radiance = path_mod.trace_radiance(scene, o, d, key, cfg)
-    return radiance.stacked().reshape(cam.height, cam.width, 3)
+    radiance = path_mod.trace_radiance(scene, o, d, key, cfg, first)
+    return radiance.stacked().reshape(r1 - r0, cam.width, 3)
 
 
 def render(scene: Scene, cfg: Optional[RenderConfig] = None,

@@ -93,13 +93,22 @@ def split(key: Key) -> Tuple[Key, Key]:
     return fold_in(key, 0), fold_in(key, 1)
 
 
-def random_bits(key: Key, shape, device=None) -> torch.Tensor:
+def random_bits(key: Key, shape, device=None, offset: int = 0
+                ) -> torch.Tensor:
     """`jax.random.bits(key, shape)` (32-bit, partitionable layout):
-    counters (0, flat index), hi and lo words XORed."""
+    counters (0, flat index), hi and lo words XORed.
+
+    `offset` is the flat index of the first lane: the lanes of a band
+    that starts at lane `offset` of a larger draw get exactly the bits
+    that the larger draw gives them, so a rank's share of a batch
+    (parallel/) draws what the whole batch draws there."""
     n = 1
     for s in shape:
         n *= int(s)
-    lo = torch.arange(n, dtype=torch.int64, device=device)
+    if not (0 <= offset and offset + n <= 2**32):
+        raise ValueError(f"lanes [{offset}, {offset + n}) exceed the "
+                         f"32-bit counter")
+    lo = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     y0, y1 = threefry2x32(key, 0, lo)
     return (y0 ^ y1).reshape(shape)
 
@@ -112,17 +121,19 @@ def _bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
 
 
 def uniform(key: Key, bounce: int, decision: int, shape,
-            device=None) -> torch.Tensor:
+            device=None, offset: int = 0) -> torch.Tensor:
     """U[0,1) tensor of `shape` for one decision point of one bounce
-    (= `jax.random.uniform(decision_key(...), shape)`)."""
-    return _bits_to_unit_float(
-        random_bits(decision_key(key, bounce, decision), shape, device))
+    (= `jax.random.uniform(decision_key(...), shape)`); `offset` as in
+    `random_bits`."""
+    return _bits_to_unit_float(random_bits(
+        decision_key(key, bounce, decision), shape, device, offset))
 
 
-def raw_uniform(key: Key, shape, device=None) -> torch.Tensor:
+def raw_uniform(key: Key, shape, device=None, offset: int = 0
+                ) -> torch.Tensor:
     """`jax.random.uniform(key, shape)`: U[0,1) straight from `key`, with
     no decision key folded in (the adaptive sampler's draws)."""
-    return _bits_to_unit_float(random_bits(key, shape, device))
+    return _bits_to_unit_float(random_bits(key, shape, device, offset))
 
 
 def randint(key: Key, shape, lo: int, hi: int, device=None) -> torch.Tensor:

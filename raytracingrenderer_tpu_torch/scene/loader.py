@@ -38,7 +38,7 @@ from .types import (BG_ENVMAP, BG_NONE, MAT_CONDUCTOR, MAT_DIELECTRIC,
                     MAT_DIFFUSE, MAT_GLASS, MAT_MIRROR, MAT_OREN_NAYAR,
                     MAT_PLASTIC, Background, Camera, LightTable,
                     MaterialTable, Scene, SceneBounds, TextureAtlas,
-                    Triangles, scene_device, v3_from_np)
+                    Triangles, map_triangles, scene_device, v3_from_np)
 
 # Leaf size and SAH quality of the loader's build, as the JAX loader's:
 # 14 triangles fill one 128-lane leaf row of the packet kernel's tables;
@@ -255,10 +255,25 @@ class _MaterialRows:
 def load_scene(scene_dir: str, device="cuda", build_bvh: bool = True,
                scene_shards: int = 0) -> Scene:
     """Load an RTBase-format scene directory onto `device` (the card
-    unless the caller names another; "cuda" without a card raises)."""
-    if scene_shards:
-        raise NotImplementedError(
-            "sharded BVHs (parallel/scene_shard.py) are not ported yet")
+    unless the caller names another; "cuda" without a card raises).
+
+    scene_shards > 0 builds the primitive-sharded form
+    (parallel/scene_shard.py) under a process group of that many ranks
+    (parallel/distributed.init_distributed first): the triangles are
+    globally SAH-ordered and chunked into that many shards, each with its
+    own sub-BVH; this rank keeps its own shard and its shading rows on
+    `device`, the scene's triangle table is a one-row stub, and the light
+    table's triangle ids follow the padded global order."""
+    ranks = None
+    if scene_shards and build_bvh:
+        from ..parallel.mesh import make_mesh
+        ranks = make_mesh()
+        if ranks.size != scene_shards:
+            raise ValueError(
+                f"scene_shards={scene_shards} needs {scene_shards} ranks, one "
+                f"a shard, and this process group has {ranks.size}: start "
+                f"them with torchrun --nproc_per_node {scene_shards} and call "
+                f"parallel.distributed.init_distributed() first")
     device = scene_device(device)
     with open(os.path.join(scene_dir, "scene.json")) as f:
         desc = json.load(f)
@@ -342,9 +357,9 @@ def load_scene(scene_dir: str, device="cuda", build_bvh: bool = True,
     light_id = np.full(len(tp), -1, np.int32)
     light_id[light_tri] = np.arange(len(light_tri), dtype=np.int32)
 
-    def t(a, dtype=None):
+    def t(a, dtype=None, dev=None):
         a = np.ascontiguousarray(a if dtype is None else np.asarray(a, dtype))
-        return torch.from_numpy(a).to(device)
+        return torch.from_numpy(a).to(device if dev is None else dev)
 
     def v3(a):
         return v3_from_np(a, device)
@@ -356,7 +371,32 @@ def load_scene(scene_dir: str, device="cuda", build_bvh: bool = True,
         e2=v3(e2[light_tri]), gn=v3(gn[light_tri]))
 
     bvh = None
-    if build_bvh and len(tp):
+    tri_device = device
+    verts = tp      # the bounds' vertices (padding slots are not geometry)
+    if ranks is not None and len(tp):
+        from ..parallel.scene_shard import build_sharded, place_sharded
+        bvh, order = build_sharded(tp, scene_shards, max_leaf=BVH_MAX_LEAF)
+        bvh = place_sharded(bvh, ranks, device)
+        pad = order < 0
+        inv = np.empty(len(tp), np.int64)
+        inv[order[~pad]] = np.nonzero(~pad)[0]
+        lights = lights._replace(tri=t(inv[light_tri], np.int32))
+        # padding slots: degenerate triangles (zero geometry, material 0,
+        # no light), the other fields triangle 0's, as the JAX loader's
+        safe = np.where(pad, 0, order)
+        tp, tn, tuv, tmid = tp[safe], tn[safe], tuv[safe], tmid[safe]
+        e1, e2, area, gn = e1[safe], e2[safe], area[safe], gn[safe]
+        light_id = light_id[safe]
+        tp[pad] = 0.0
+        e1[pad] = 0.0
+        e2[pad] = 0.0
+        area[pad] = 0.0
+        tmid[pad] = 0
+        light_id[pad] = -1
+        # the padded table stays on the host: each rank's shading rows
+        # are cut from it and only the one-row stub reaches the device
+        tri_device = torch.device("cpu")
+    elif build_bvh and len(tp):
         from ..geometry.bvh_native import build as bvh_build
         from ..ops.bvh_kernel import widen
         bvh, order = bvh_build(tp, max_leaf=BVH_MAX_LEAF, bins=BVH_BINS,
@@ -372,12 +412,23 @@ def load_scene(scene_dir: str, device="cuda", build_bvh: bool = True,
         e1, e2, area, gn = e1[order], e2[order], area[order], gn[order]
         light_id = light_id[order]
 
+    def tv3(a):
+        return v3_from_np(a, tri_device)
+
+    def tt(a, dtype=None):
+        return t(a, dtype, tri_device)
+
     triangles = Triangles(
-        p0=v3(tp[:, 0]), e1=v3(e1), e2=v3(e2), gn=v3(gn),
-        n0=v3(tn[:, 0]), n1=v3(tn[:, 1]), n2=v3(tn[:, 2]),
-        uv0=t(tuv[:, 0]), uv1=t(tuv[:, 1]), uv2=t(tuv[:, 2]),
-        area=t(area, np.float32), mat_id=t(tmid, np.int32),
-        light_id=t(light_id))
+        p0=tv3(tp[:, 0]), e1=tv3(e1), e2=tv3(e2), gn=tv3(gn),
+        n0=tv3(tn[:, 0]), n1=tv3(tn[:, 1]), n2=tv3(tn[:, 2]),
+        uv0=tt(tuv[:, 0]), uv1=tt(tuv[:, 1]), uv2=tt(tuv[:, 2]),
+        area=tt(area, np.float32), mat_id=tt(tmid, np.int32),
+        light_id=tt(light_id))
+    if ranks is not None and len(tp):
+        from ..parallel.scene_shard import attach_attrs, stub_triangles
+        bvh = attach_attrs(bvh, triangles)
+        triangles = map_triangles(lambda a: a.to(device),
+                                  stub_triangles(triangles))
 
     envmap_file = _get(desc, "envmap", "")
     if envmap_file:
@@ -394,9 +445,9 @@ def load_scene(scene_dir: str, device="cuda", build_bvh: bool = True,
         background = Background(BG_NONE,
                                 V3.of(0.0, 0.0, 0.0, device=device))
 
-    if len(tp):
-        lo = tp.reshape(-1, 3).min(axis=0)
-        hi = tp.reshape(-1, 3).max(axis=0)
+    if len(verts):
+        lo = verts.reshape(-1, 3).min(axis=0)
+        hi = verts.reshape(-1, 3).max(axis=0)
     else:
         lo = hi = np.zeros(3, np.float32)
     centre = 0.5 * (lo + hi)

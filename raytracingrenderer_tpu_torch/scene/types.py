@@ -190,11 +190,12 @@ class BVH:
 
     def cached(self, key, deps, build):
         """build() kept in the cache under `key`, made again when a tensor
-        of `deps` is another object or was changed in place (its
-        `_version`) since; one entry a key, so stale tables are freed."""
+        of `deps` holds other data (`same_data`) or was changed in place
+        (its `_version`) since; one entry a key, so stale tables are
+        freed."""
         hit = self.cache.get(key)
         if hit is not None and len(hit[0]) == len(deps) and all(
-                a is b and a._version == v for a, (b, v) in zip(deps, hit[0])):
+                same_data(a, b, v) for a, (b, v) in zip(deps, hit[0])):
             return hit[1]
         value = build()
         self.cache[key] = (tuple((a, a._version) for a in deps), value)
@@ -225,6 +226,18 @@ class BVH:
             tc_start=_int32(tc_start, dev), tc_count=_int32(tc_count, dev))
 
 
+def same_data(a: torch.Tensor, b: torch.Tensor, version: int) -> bool:
+    """True when `a` is `b`, or an alias of it (the same storage, offset,
+    shape and strides, as an identity autograd op returns), and neither
+    was changed in place since `b` was at `version` (an alias shares its
+    base's version counter).  The caller keeps `b` alive, so its memory
+    is not another tensor's."""
+    return a._version == version and (a is b or (
+        a.data_ptr() == b.data_ptr() and a.shape == b.shape
+        and a.stride() == b.stride() and a.dtype == b.dtype
+        and a.device == b.device))
+
+
 BVH_ARRAYS = ("lo", "hi", "right", "start", "count", "skip",
                "wsel", "wcode", "waxis", "tl_nodes", "tl_start", "tl_count",
                "tc_nodes", "tc_start", "tc_count")
@@ -232,6 +245,12 @@ BVH_ARRAYS = ("lo", "hi", "right", "start", "count", "skip",
 
 def _int32(a, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.int32)).to(device)
+
+
+def map_triangles(fn, tris: Triangles) -> Triangles:
+    """fn over every tensor of a triangle table (each V3 componentwise)."""
+    return Triangles(*(V3(*(fn(c) for c in f)) if isinstance(f, V3)
+                       else fn(f) for f in tris))
 
 
 def tree_depth(right: np.ndarray) -> int:
@@ -265,6 +284,13 @@ class Scene(NamedTuple):
     @property
     def device(self) -> torch.device:
         return self.triangles.area.device
+
+    @property
+    def sharded(self) -> bool:
+        """True where the triangles are split over ranks
+        (parallel/scene_shard.ShardedBVH): `bvh` then walks the rays and
+        serves the shading rows, and `triangles` is a stub."""
+        return getattr(self.bvh, "sharded", False)
 
 
 def scene_device(device) -> torch.device:

@@ -17,7 +17,7 @@ plain version) and the 5,156-triangle spheres scene (the BVH walk's
 plain version and its pre-pass), held to the render tests' bar: >= 99%
 of pixels within rtol 1e-3 / atol 1e-5, means within 0.5%; the counts
 exactly.  Then the resume and on_sample contract of the JAX package's
-TestAdaptiveContract, and `mesh=` refused."""
+TestAdaptiveContract, and a `mesh=` that is not a port Mesh refused."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -195,7 +195,9 @@ def test_adaptive_resume_and_on_sample(cornell):
 
 
 def test_adaptive_mesh_refused(cornell):
+    """A mesh that is not a port Mesh (parallel/mesh.py) is refused; the
+    working mesh= path is held in tests/test_torch_parallel.py."""
     ts, _ = cornell
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(NotImplementedError, match="not a port Mesh"):
         tad.adaptive_render(ts, RenderConfig(integrator="adaptive"), 2,
                             mesh=object())

@@ -16,7 +16,7 @@ the two packages' denoised means within 0.5% (one guide pixel that
 differs spreads over the a-trous filter's 31-pixel reach, so the files
 are not compared pixel by pixel).  Also `-profile`'s phase report,
 `-timeBudget`, `-keys`, `-preview`, `-trace`, the resolution override,
-and `-sceneShards` refused."""
+and `-sceneShards` refused in one process."""
 import logging
 import os
 
@@ -165,7 +165,8 @@ def test_cli_preview_trace_and_resolution(scene_dir, tmp_path):
 
 def test_cli_refuses(scene_dir, tmp_path):
     out = str(tmp_path / "o.hdr")
-    with pytest.raises(NotImplementedError, match="shard"):
+    # -sceneShards needs its ranks (tests/test_torch_elastic.py runs it)
+    with pytest.raises(ValueError, match="torchrun"):
         cli.main(_args(scene_dir, out, "-device", "cpu", "-sceneShards",
                        "2"))
     if not torch.cuda.is_available():

@@ -50,7 +50,12 @@ gradient gate, with no kernel launched in the backward.  The sky scene
 cornell box and the spheres scene, are held to the CPU at 32x32 as the
 renders are, the adaptive one too; so are the denoiser and the command
 line (cli.main on the card, adaptive, with -denoise, -profile and a
-checkpoint resumed)."""
+checkpoint resumed).  parallel/ on the card: two gloo ranks sharing
+cuda:0 (tests/torch_dist.py) at 128x128, render_sharded on both scenes
+and the overlapped gradients held to the CPU's one-process results, and
+traverse_sharded over the scene sharded between them held to the CPU's
+replicated walk; render_elastic's command-line workers on the card, one
+killed and resumed bit for bit, held to a CPU worker."""
 import numpy as np
 import pytest
 import torch
@@ -925,3 +930,124 @@ def test_cli_on_the_card(cuda, scene_dir, tmp_path):
         assert float(z["spp"]) == 8.0
     img = read_hdr(out)
     assert np.isfinite(img).all() and img.mean() > 0.01
+
+
+@pytest.fixture(scope="module")
+def card_ranks(tmp_path_factory):
+    """2 gloo ranks on cuda:0 (tests/torch_dist.py::job_card) at 128x128,
+    with what they were given; None without a card."""
+    if not torch.cuda.is_available():
+        return None
+    from torch_dist import run
+    base = tmp_path_factory.mktemp("ranks")
+    dirs = dict(cornell_dir=write_cornell(str(base / "c"), 128, 128),
+                spheres_dir=write_spheres(str(base / "s"), 128, 128,
+                                          subdiv=2))
+    o, d, _, max_t, _ = _rays_n("cpu", 20_000, 18)
+    return dict(dirs, o=o, d=d, max_t=max_t, ranks=run(
+        "card", 2, base, device="cuda:0", o=tuple(o), d=tuple(d),
+        max_t=max_t, **dirs))
+
+
+def test_render_sharded_on_the_card(cuda, card_ranks):
+    """render_sharded on 2 gloo ranks on one card at 128x128: the same
+    image on both ranks, B1 and B2 launched, each held to sample_image on
+    the CPU by the render bar."""
+    from raytracingrenderer_tpu_torch.render import sample_image
+    from raytracingrenderer_tpu_torch.sampling import rng
+    r0, r1 = card_ranks["ranks"]
+    for name in ("cornell", "spheres"):
+        np.testing.assert_array_equal(r0[name], r1[name])
+        sc = load_scene(card_ranks[f"{name}_dir"], "cpu")
+        ref = sample_image(sc, rng.PRNGKey(3), RenderConfig(
+            max_depth=4, mis=True, jitter=True)).numpy()
+        _agree(r0[name], ref)
+    assert min(r0["render_launches"]) > 0 and min(r1["render_launches"]) > 0
+
+
+def test_traverse_sharded_on_the_card(cuda, card_ranks):
+    """traverse_sharded over 2 ranks' shards on the card against the
+    replicated walk on the CPU (the plain version): the triangles (mapped
+    by geometry) agree on >= 99.9% of 20,000 rays, with t bit for bit
+    there; the occlusion bits on as many."""
+    r0, r1 = card_ranks["ranks"]
+    for a, b in zip(r0["closest"], r1["closest"]):
+        np.testing.assert_array_equal(a, b)
+    assert r0["traverse_launches"] > 0
+    rep = load_scene(card_ranks["spheres_dir"], "cpu")
+    tr = rep.triangles
+    where = {row.tobytes(): i for i, row in enumerate(np.stack(
+        [c.numpy() for f in (tr.p0, tr.e1, tr.e2) for c in f], -1))}
+    geom = np.concatenate([r0["geometry"], r1["geometry"]])
+    to_rep = np.asarray([where.get(row.tobytes(), -1) for row in geom])
+    o, d, max_t = card_ranks["o"], card_ranks["d"], card_ranks["max_t"]
+    h = intersect.closest_hit(rep, o, d)
+    t_s, tri_s = r0["closest"][:2]
+    assert (tri_s >= 0).mean() > 0.5
+    mapped = np.where(tri_s >= 0, to_rep[np.maximum(tri_s, 0)], -1)
+    same = mapped == h.tri.numpy()
+    assert same.mean() >= 0.999
+    np.testing.assert_array_equal(t_s[same], h.t.numpy()[same])
+    occ = intersect.occluded(rep, o, d, max_t).numpy()
+    assert (r0["occluded"].astype(bool) == occ).mean() >= 0.999
+
+
+def test_overlap_grads_on_the_card(cuda, card_ranks):
+    """param_grads_sharded (a reduction a bounce) over 2 ranks on the
+    card at 128x128 against diff.param_grads on the CPU (jitter off),
+    under chip_smoke.py's gradient gate."""
+    from raytracingrenderer_tpu_torch import diff
+    from raytracingrenderer_tpu_torch.sampling import rng
+    r0, r1 = card_ranks["ranks"]
+    assert r0["reductions"] == r1["reductions"] == 6
+    sc = load_scene(card_ranks["cornell_dir"], "cpu")
+    cfg = RenderConfig(max_depth=4, mis=True, jitter=False)
+    loss, g = diff.value_and_grad(sc, torch.zeros((128, 128, 3)),
+                                  rng.PRNGKey(3), diff._diff_cfg(cfg, sc))
+    (lg, gg) = r0["grads"]
+    assert lg == pytest.approx(loss.item(), rel=1e-4)
+    for k, v in g.items():
+        a = gg[k]
+        b = (v.stacked() if hasattr(v, "stacked") else v).numpy()
+        np.testing.assert_array_equal(a, r1["grads"][1][k])
+        assert np.isfinite(a).all(), k
+        if k == "tri_p0":
+            assert (np.linalg.norm(a - b)
+                    / max(np.linalg.norm(b), 1e-30)) <= 1e-2
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-3,
+                                       atol=1e-3 * np.abs(b).max(),
+                                       err_msg=k)
+
+
+def test_render_elastic_on_the_card(cuda, tmp_path):
+    """render_elastic's CLI workers on the card: worker 0 killed after
+    its first checkpoint and resumed equals an uninterrupted worker bit
+    for bit, and a worker on the CPU by the render bar."""
+    from raytracingrenderer_tpu_torch.parallel.elastic import (
+        _ckpt_spp, render_elastic)
+    from raytracingrenderer_tpu_torch.utils.checkpoint import load_film
+    scene = write_cornell(str(tmp_path / "c"), 128, 128)
+    ck0 = str(tmp_path / "run" / "worker0.npz")
+    state = {"killed": False}
+
+    def injector(procs):
+        p = procs.get(0)
+        if not state["killed"] and p is not None and p.poll() is None \
+                and 1 <= _ckpt_spp(ck0) < 4:
+            p.kill()
+            state["killed"] = True
+
+    films = {}
+    for name, dev, poll in (("run", "cuda", injector), ("oracle", "cuda",
+                                                        None),
+                            ("cpu", "cpu", None)):
+        f = render_elastic(scene, str(tmp_path / name), n_workers=1,
+                           spp_per_worker=4, extra_args=["-device", dev],
+                           on_poll=poll, poll_s=0.05)
+        assert float(f.spp) == 4.0
+        films[name] = load_film(str(tmp_path / name / "worker0.npz"),
+                                "cpu").buffer.numpy()
+    assert state["killed"]
+    np.testing.assert_array_equal(films["run"], films["oracle"])
+    _agree(films["run"] / 4.0, films["cpu"] / 4.0)

@@ -101,9 +101,10 @@ def test_render_with_film_and_on_sample(cornell):
                                        ("path", ValueError),
                                        ("bdpt", ValueError)])
 def test_render_with_refuses(cornell, integ, err):
-    """The adaptive integrator's multi-device round (`mesh=`) waits for
-    the port of parallel/; the path tracer is render()'s, and an unknown
-    name raises as in the JAX package."""
+    """The adaptive integrator refuses a `mesh=` that is not a port Mesh
+    (parallel/mesh.py; the working path is in test_torch_parallel.py);
+    the path tracer is render()'s, and an unknown name raises as in the
+    JAX package."""
     ts, _ = cornell
     with pytest.raises(err):
         if integ == "adaptive":

@@ -183,8 +183,9 @@ def test_generate_rays(scene_dir, jscene):
 
 def test_refuses_later_slices(tmp_path, scene_dir):
     """A scene of more than 64 triangles loads with its BVH and equals
-    the JAX `load_scene`; sharded trees are not ported and raise
-    NotImplementedError instead of degrading."""
+    the JAX `load_scene`; a sharded load in one process, which has no
+    ranks for its shards, raises and names torchrun
+    (tests/test_torch_scene_shard.py loads it under ranks)."""
     big = str(tmp_path / "big")
     write_cornell(big, 32, 32)
     quads = []
@@ -206,7 +207,7 @@ def test_refuses_later_slices(tmp_path, scene_dir):
     ts = tload(big, "cpu", build_bvh=False)
     assert ts.triangles.count == 76
     _assert_scene_equals(ts, jload(big, build_bvh=False))
-    with pytest.raises(NotImplementedError, match="shard"):
+    with pytest.raises(ValueError, match="torchrun"):
         tload(big, "cpu", scene_shards=2)
 
 
