@@ -142,9 +142,9 @@ Phases (any failure exits non-zero):
      train_steps(n=1) timed, with the peak memory
      of a step with remat on, and one step's forward under the profiler:
      its device time by operator and under the term's stages
-     (record_function ranges around `boundary_direct`, its probes and its
-     cell masks; the backward is not profiled, to keep the script within
-     its time limit); (b)
+     (the program's spans `rtr.boundary`, `rtr.boundary.probes` and
+     `rtr.boundary.cells`; the backward is not profiled, to keep the
+     script within its time limit); (b)
      the spheres scene as in 13 (b), its step on the refitted scene not
      profiled (to keep the script within its time limit); each prints
      its fwdbwd_pps beside phase 13's and its B1 / B2 launches (none
@@ -1624,36 +1624,10 @@ class WatchBackward:
         return out
 
 
-class BoundaryRanges:
-    """With `on`, the boundary term's stages wrapped in
-    torch.profiler.record_function ranges for the block: the whole term
-    a bounce (`boundary_direct`), its probe rays (`occluded`, B1 or B2)
-    and its cell masks (`_valid_cells`), so that a profile splits its
-    device time by stage."""
-    NAMES = ("boundary_direct", "boundary_probes", "boundary_cells")
-
-    def __init__(self, torch, on):
-        self.torch, self.on = torch, on
-
-    def __enter__(self):
-        if not self.on:
-            return self
-        from raytracingrenderer_tpu_torch.integrators import boundary, path
-        rf = self.torch.profiler.record_function
-        self.saved = [(path, "boundary_direct"), (boundary, "occluded"),
-                      (boundary, "_valid_cells")]
-        self.saved = [(m, a, getattr(m, a)) for m, a in self.saved]
-        for (mod, attr, fn), name in zip(self.saved, self.NAMES):
-            def wrapped(*args, _fn=fn, _name=name, **kwargs):
-                with rf(_name):
-                    return _fn(*args, **kwargs)
-            setattr(mod, attr, wrapped)
-        return self
-
-    def __exit__(self, *exc):
-        if self.on:
-            for mod, attr, fn in self.saved:
-                setattr(mod, attr, fn)
+# the program's spans of the boundary term (utils/profiling): the whole
+# term a bounce, its probe rays (`occluded`, B1 or B2) and its cell masks
+BOUNDARY_SPANS = ("rtr.boundary", "rtr.boundary.probes",
+                  "rtr.boundary.cells")
 
 
 def finite_params(torch, scene) -> bool:
@@ -1669,12 +1643,11 @@ def profile_step(torch, card, name, scene, cfg, target, key,
     profiled half its device busy time and idle share, and the
     backward's device time by operator (the host rows' own kernels);
     with the boundary term on, also the forward's by operator and the
-    device time under the boundary term's ranges in each half; returns
+    device time under the boundary term's spans in each half; returns
     (gradients by key, the numbers)."""
     from raytracingrenderer_tpu_torch.probes import profile_train_step
-    with BoundaryRanges(torch, cfg.boundary_grads):
-        grads, prof = profile_train_step(scene, cfg, target, key,
-                                         BoundaryRanges.NAMES, halves)
+    grads, prof = profile_train_step(scene, cfg, target, key,
+                                     BOUNDARY_SPANS, halves)
     fwd_ms, bwd_ms = prof["fwd_ms"], prof["bwd_ms"]
     busy = prof["fwd_busy_ms"], prof["bwd_busy_ms"]
 

@@ -38,6 +38,7 @@ from .config import RenderConfig
 from .core.vec import V3
 from .sampling import rng
 from .scene.types import Scene
+from .utils.profiling import span, spanned
 
 # every scene's parameters; an envmap scene's add ENV_KEY
 PARAM_KEYS = ("albedo", "emission", "alpha", "light_le", "tri_p0")
@@ -135,15 +136,16 @@ def value_and_grad(scene: Scene, target: torch.Tensor, key,
     leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
     live = _rebuild(params, leaves)
     with torch.enable_grad():
-        with around("forward"):
+        with around("forward"), span("rtr.forward"):
             loss = render_loss(live, scene, target, key, cfg, sample)
-        with around("backward"):
+        with around("backward"), span("rtr.backward"):
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     return loss.detach(), _rebuild(params, grads)
 
 
+@spanned("rtr.sgd")
 def _sgd(scene: Scene, grads, lr: float) -> Scene:
     """p - lr * g for every parameter: new tensors, no graph."""
     params, _ = _split_scene(scene)
@@ -166,6 +168,7 @@ def loss_and_grads(scene: Scene, target, key, cfg: RenderConfig,
                           around=around)
 
 
+@spanned("rtr.train_step")
 def train_step(scene: Scene, target: torch.Tensor, key, cfg: RenderConfig,
                lr: float = 0.1) -> Tuple[Scene, torch.Tensor]:
     """One SGD step on (albedo, emission, roughness, light Le, vertex

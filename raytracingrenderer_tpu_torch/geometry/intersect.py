@@ -43,6 +43,7 @@ import torch
 
 from ..core.vec import V3
 from ..scene.types import BVH, Triangles
+from ..utils.profiling import spanned
 
 DET_EPS = 1e-12
 BIG_T = 3.4e38
@@ -299,6 +300,7 @@ def _rays(o: V3, d: V3):
             V3(*(c.detach().contiguous() for c in d)))
 
 
+@spanned("rtr.intersect")
 def _walk(scene, o: V3, d: V3, t_init: torch.Tensor, any_hit: bool,
           presorted: bool) -> Hit:
     """The dispatch over one whole triangle set: `scene` is anything with

@@ -25,6 +25,7 @@ import torch
 
 from ..core.vec import V3
 from ..scene.types import BVH, Scene, SceneBounds
+from ..utils.profiling import spanned
 
 # level lists by topology: (size, blake2b of `right`), not id(), which a
 # freed array's address can alias
@@ -103,6 +104,7 @@ def refit_bvh(bvh: BVH, tris) -> BVH:
                      hi=torch.from_numpy(hi).to(dev))
 
 
+@spanned("rtr.refit")
 def refit(scene: Scene) -> Scene:
     """Refresh every position-derived table after `tri_p0` moved:
 

@@ -52,6 +52,7 @@ from ..lights import lights as lights_mod
 from ..materials import bsdf as bsdf_mod
 from ..sampling import rng
 from ..scene.types import Scene, Triangles
+from ..utils.profiling import span, spanned
 from .common import Shading
 
 S_CELLS = 8      # cells of an edge for the guided choice of t
@@ -117,6 +118,7 @@ class _Light(NamedTuple):
         return (al >= 0.0) & (be >= 0.0) & (al + be <= 1.0)
 
 
+@spanned("rtr.boundary.cells")
 def _valid_cells(light: _Light, n_l: V3, num: torch.Tensor, x: V3, a: V3,
                  b: V3) -> torch.Tensor:
     """(S_CELLS, N) bool: the cells of edge (a, b) with an end whose
@@ -136,6 +138,7 @@ def _valid_cells(light: _Light, n_l: V3, num: torch.Tensor, x: V3, a: V3,
     return ends[:-1] | ends[1:]
 
 
+@spanned("rtr.boundary")
 def boundary_direct(scene: Scene, sh: Shading, active: torch.Tensor, key,
                     depth: int, ids: torch.Tensor, cfg: RenderConfig,
                     saved_occ: Optional[torch.Tensor] = None
@@ -295,10 +298,11 @@ def boundary_direct(scene: Scene, sh: Shading, active: torch.Tensor, key,
                     occ = saved_occ[i]
                 else:
                     # inactive lanes: a fixed direction, a negative radius
-                    occ = occluded(
-                        scene, x_det + wi * EPSILON,
-                        vwhere(ok, wi, V3(0.0, 0.0, 1.0)),
-                        torch.where(ok, dist - 2.0 * EPSILON, -1.0))
+                    with span("rtr.boundary.probes"):
+                        occ = occluded(
+                            scene, x_det + wi * EPSILON,
+                            vwhere(ok, wi, V3(0.0, 0.0, 1.0)),
+                            torch.where(ok, dist - 2.0 * EPSILON, -1.0))
                 occs.append(occ)
                 return ok & ~occ, wi, dist
 

@@ -21,6 +21,7 @@ from ..imaging import texture as tex_mod
 from ..lights import lights as lights_mod
 from ..materials import bsdf as bsdf_mod
 from ..scene.types import Scene
+from ..utils.profiling import spanned
 
 
 class Shading(NamedTuple):
@@ -37,6 +38,7 @@ class Shading(NamedTuple):
     light_id: torch.Tensor  # light-table row if the hit triangle is emissive
 
 
+@spanned("rtr.shade")
 def shading_data(scene: Scene, hit: Hit, o: V3, d: V3,
                  geom_grads: bool = False) -> Shading:
     """Interpolate attributes at the hit: barycentric normal and uv,
@@ -128,6 +130,7 @@ def balance_heuristic(pdf_a, pdf_b):
     return torch.where(ok, pdf_a / torch.where(ok, den, 1.0), 0.0)
 
 
+@spanned("rtr.nee")
 def compute_direct(scene: Scene, sh: Shading, active, r_pick, r1, r2,
                    mis: bool, types=None, r3=None, presorted: bool = False,
                    geom_grads: bool = False, saved_occ=None,

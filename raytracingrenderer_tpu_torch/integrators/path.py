@@ -25,6 +25,7 @@ from ..lights import lights as lights_mod
 from ..materials import bsdf as bsdf_mod
 from ..sampling import rng
 from ..scene.types import Scene
+from ..utils import profiling
 from .boundary import boundary_direct
 from .common import balance_heuristic, compute_direct, shading_data
 
@@ -48,6 +49,7 @@ def init_state(o: V3, d: V3, first_id: int = 0) -> dict:
     )
 
 
+@profiling.spanned("rtr.bounce")
 def bounce_step(scene: Scene, state: dict, depth: int, key: rng.Key,
                 cfg: RenderConfig, presorted: bool = False, saved=None,
                 return_saved: bool = False):
@@ -143,21 +145,22 @@ def bounce_step(scene: Scene, state: dict, depth: int, key: rng.Key,
     else:
         survive = cont
 
-    r1 = rng.uniform_ids(key, depth, rng.BSDF_U, ids)
-    r2 = rng.uniform_ids(key, depth, rng.BSDF_V, ids)
-    rl = rng.uniform_ids(key, depth, rng.BSDF_LOBE, ids)
-    wi_local, colour, pdf, ok = bsdf_mod.sample(
-        sh.mp, sh.wo_local, r1, r2, rl, cfg.mat_types)
-    specular = bsdf_mod.is_specular(sh.mp.mtype)
-    # throughput update: specular lanes skip the cosine (their colour/pdf
-    # already account for it)
-    cos_term = torch.where(specular, 1.0, torch.abs(wi_local.z))
-    weight = colour * (cos_term / torch.clamp(pdf, min=1e-9))
-    alive_next = survive & ok & (weight.max_comp() > 0.0)
-    beta = vwhere(alive_next, beta * weight, beta)
+    with profiling.span("rtr.bsdf"):
+        r1 = rng.uniform_ids(key, depth, rng.BSDF_U, ids)
+        r2 = rng.uniform_ids(key, depth, rng.BSDF_V, ids)
+        rl = rng.uniform_ids(key, depth, rng.BSDF_LOBE, ids)
+        wi_local, colour, pdf, ok = bsdf_mod.sample(
+            sh.mp, sh.wo_local, r1, r2, rl, cfg.mat_types)
+        specular = bsdf_mod.is_specular(sh.mp.mtype)
+        # throughput update: specular lanes skip the cosine (their
+        # colour/pdf already account for it)
+        cos_term = torch.where(specular, 1.0, torch.abs(wi_local.z))
+        weight = colour * (cos_term / torch.clamp(pdf, min=1e-9))
+        alive_next = survive & ok & (weight.max_comp() > 0.0)
+        beta = vwhere(alive_next, beta * weight, beta)
 
-    wi = sh.frame.to_world(wi_local)
-    new_o = sh.x + wi * EPSILON
+        wi = sh.frame.to_world(wi_local)
+        new_o = sh.x + wi * EPSILON
     out = dict(
         o=vwhere(alive_next, new_o, o),
         d=vwhere(alive_next, wi, d),
@@ -203,8 +206,14 @@ def step(scene: Scene, state: dict, depth: int, key: rng.Key,
 def trace_radiance(scene: Scene, o: V3, d: V3, key: rng.Key,
                    cfg: RenderConfig, first_id: int = 0) -> V3:
     """Estimate radiance along a batch of primary rays (one sample/ray);
-    `first_id` as in init_state."""
+    `first_id` as in init_state.  Inside profiling.counting(), each
+    bounce adds the batch's width to `lanes` and its live lanes (a
+    device sum) to `live`."""
     state = init_state(o, d, first_id)
+    counts = profiling.counts()
     for depth in range(cfg.max_depth + 2):  # depths 0..max_depth+1
+        if counts is not None:
+            counts["lanes"] += state["alive"].shape[0]
+            counts["live"] = counts["live"] + state["alive"].sum()
         state = step(scene, state, depth, key, cfg)
     return state["radiance"]

@@ -29,6 +29,7 @@ from ..geometry import intersect
 from ..sampling import rng
 from ..scene.camera import generate_rays
 from ..scene.types import Scene
+from ..utils import profiling
 from . import path as path_mod
 
 # Bucket widths are multiples of n/16 with a floor of n/8 (and of
@@ -50,6 +51,7 @@ def _map(state: dict, fn) -> dict:
             for k, v in state.items()}
 
 
+@profiling.spanned("rtr.compact")
 def _sort_flush(scene: Scene, img: torch.Tensor, state: dict):
     """Add the radiance of dead rays into `img` (in place) and zero it,
     sort the state by the coherence key (live rays first, stable) and
@@ -71,7 +73,9 @@ def _final_flush(img: torch.Tensor, state: dict) -> torch.Tensor:
 def sample_image_wavefront(scene: Scene, key: rng.Key, cfg: RenderConfig
                            ) -> torch.Tensor:
     """One radiance sample per pixel -> (H, W, 3); the image of
-    render.sample_image, with per-bounce live-ray compaction."""
+    render.sample_image, with per-bounce live-ray compaction.  Inside
+    profiling.counting(), each bounce adds its width to `lanes` and the
+    live count it was cut to to `live` (both known on the host here)."""
     from ..render import pixel_grid, specialize_config
     cfg = specialize_config(cfg, scene)
     cam = scene.camera
@@ -85,7 +89,8 @@ def sample_image_wavefront(scene: Scene, key: rng.Key, cfg: RenderConfig
     n = cam.height * cam.width
     state = path_mod.init_state(o, d)
     img = torch.zeros((n, 3), dtype=torch.float32, device=scene.device)
-    w = n
+    w = n_live = n
+    counts = profiling.counts()
     for depth in range(cfg.max_depth + 2):
         # primaries skip the sort: every ray is live and the raster order
         # is as coherent as the sort would make it
@@ -97,6 +102,9 @@ def sample_image_wavefront(scene: Scene, key: rng.Key, cfg: RenderConfig
             if w2 < w:
                 state = _map(state, lambda a: a[:w2])
                 w = w2
+        if counts is not None:
+            counts["lanes"] += w
+            counts["live"] += n_live
         state = path_mod.step(scene, state, depth, key, cfg,
                               presorted=True)
     img = _final_flush(img, state)

@@ -39,7 +39,8 @@ decides nothing but ties between equal t in different leaves.
 cannot; for CPU tensors it runs `traverse_plain`, the plain torch
 version (a lockstep loop over the batch with per-ray stacks, the same
 child order and arithmetic), which is also the kernels' reference on
-the card.  `launches` counts kernel launches per variant;
+the card.  `launches` counts kernel launches per variant, `rays`
+the rays handed to them;
 `plain_visits` counts the node visits of the plain walks and the
 triangle tests their leaf visits need (filled slots, for an any-hit ray
 up to its first hit).
@@ -66,6 +67,8 @@ LANE16_START = 120      # its lane in the odd constant-form row
 # kernel launches since import (or the last reset), per variant
 launches: Dict[str, int] = {"closest_hit": 0, "any_hit": 0,
                              "wide_closest_hit": 0, "wide_any_hit": 0}
+# the rays of those launches (dead lanes included), by the same variants
+rays: Dict[str, int] = dict.fromkeys(launches, 0)
 # node visits of the plain walks since import (or the last reset): rows of
 # internal nodes and of leaves; each walk runs in lockstep with its kernel,
 # so on the same rays these are the kernel's visits too
@@ -820,6 +823,7 @@ def traverse_packet(bvh: BVH, tris: Triangles, o: V3, d: V3, t_init,
     else:
         launch(_library()["bvh_traverse"], dev, *ptrs, int(leaf16), counter)
     launches[name] += 1
+    rays[name] += n
     return _finish(t, tri, u, v, t_init, n)
 
 

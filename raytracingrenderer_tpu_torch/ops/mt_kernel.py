@@ -17,7 +17,7 @@ triangle index.
 for CPU tensors it calls `intersect_plain`, the plain torch version of
 the same function (a chunked form of closest_hit_brute with t_init
 seeding), which is also the kernel's reference on the card.  `launches`
-counts kernel launches.
+counts kernel launches, `rays` the rays handed to them.
 """
 from __future__ import annotations
 
@@ -37,6 +37,7 @@ ROW = 12               # floats of a packed row: 9 and the padding
 _PACKED_SETS = 8       # triangle sets whose packed rows are kept
 
 launches = 0           # kernel launches since import (or the last reset)
+rays = 0               # the rays of those launches, dead lanes included
 _lib = None
 _packed = []           # [(the 9 tensors and their versions, rows)]
 
@@ -127,7 +128,7 @@ def _check(rows: torch.Tensor, arrays, n: int) -> None:
 def intersect(tris: Triangles, o: V3, d: V3, t_init: torch.Tensor) -> Hit:
     """All-pairs MT; t_init bounds each ray's search.  CUDA tensors launch
     the kernel; CPU tensors take `intersect_plain`."""
-    global launches
+    global launches, rays
     rows = pack_tris(tris)
     n = o.x.shape[0]
     _check(rows, (("o.x", o.x), ("o.y", o.y), ("o.z", o.z), ("d.x", d.x),
@@ -154,6 +155,7 @@ def intersect(tris: Triangles, o: V3, d: V3, t_init: torch.Tensor) -> Hit:
            t_init.data_ptr(), t.data_ptr(), tri.data_ptr(), u.data_ptr(),
            v.data_ptr(), n)
     launches += 1
+    rays += n
     return Hit(t, tri, u, v)
 
 

@@ -41,7 +41,7 @@ rather than a second sort; the candidate stage runs in chunks of
 `pair_test` launches the kernel for CUDA tensors and raises if it
 cannot; for CPU tensors it runs `pair_test_plain`, the plain torch
 version (also the kernel's reference on the card).  `launches` counts
-kernel launches.
+kernel launches, `pairs` the (ray, treelet) pairs handed to them.
 """
 from __future__ import annotations
 
@@ -67,6 +67,7 @@ _PAIR_CHUNK = 8192      # pairs per chunk of the plain pair test (its
                         # gathered (chunk, 16, T_LEAF) tiles: 64 MB)
 
 launches = 0            # kernel launches since import (or the last reset)
+pairs = 0               # the pairs of those launches
 _lib = None
 
 
@@ -306,7 +307,7 @@ def pair_test(consts: torch.Tensor, feats_p: torch.Tensor,
               tid_p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The pair test of `pair_test_plain` (same contract) over P pairs:
     CUDA tensors launch the kernel; CPU tensors take the plain version."""
-    global launches
+    global launches, pairs
     if consts.dim() != 2 or consts.shape[1] != T_LEAF or consts.shape[0] % 16:
         raise ValueError(f"constants must be (K*16, {T_LEAF}), got "
                          f"{tuple(consts.shape)}")
@@ -340,6 +341,7 @@ def pair_test(consts: torch.Tensor, feats_p: torch.Tensor,
            consts.data_ptr(), feats_p.data_ptr(), tid_p.data_ptr(),
            t.data_ptr(), col.data_ptr(), p, consts.shape[0] // 16)
     launches += 1
+    pairs += p
     return t, col
 
 

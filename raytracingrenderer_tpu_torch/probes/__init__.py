@@ -150,15 +150,19 @@ def visit_work(cfg: Dict) -> Dict[str, int]:
 def device_rows(prof, avgs=None):
     """[(name, self device microseconds, count)] of the profile's device
     rows: the kernels and copies themselves.  A host operator's row
-    carries its kernels' time again as its own self device time, so the
-    host rows are left out and each kernel counts once.  `avgs` is the
-    profile's key_averages() where the caller has it: each call walks
-    every event again (tens of seconds for a training step's half)."""
+    carries its kernels' time again as its own self device time, and a
+    record_function range (a span of the program's, utils/profiling)
+    has a device-side row spanning the kernels launched inside it, gaps
+    and all: both are left out, so each kernel counts once.  `avgs` is
+    the profile's key_averages() where the caller has it: each call
+    walks every event again (tens of seconds for a training step's
+    half)."""
     from torch.autograd import DeviceType
     if avgs is None:
         avgs = prof.key_averages()
     return [(e.key, getattr(e, "self_device_time_total", 0) or 0, e.count)
-            for e in avgs if e.device_type != DeviceType.CPU]
+            for e in avgs if e.device_type != DeviceType.CPU
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def device_ms(fn: Callable, iters: int = 50):
@@ -195,15 +199,17 @@ def profile_train_step(scene, cfg, target, key, ranges=(),
     the wall times, fwd_busy_ms / bwd_busy_ms, the device rows' time
     (None for a half not profiled), fwd_ops / bwd_ops, [(host operator,
     its own device ms, calls)] of each half by device time, and
-    fwd_ranges / bwd_ranges, {name: (device ms, calls)} of the
-    record_function ranges named in `ranges` that a half entered).
-    Walking a profiled half's events takes tens of seconds with the
-    boundary term on, the backward's most."""
+    fwd_ranges / bwd_ranges, {name: (device ms, calls)} of the program's
+    spans named in `ranges` (utils/profiling, recorded for the step)
+    that a half entered).  Walking a profiled half's events takes tens
+    of seconds with the boundary term on, the backward's most."""
     import contextlib
     import time
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from raytracingrenderer_tpu_torch import diff
+    from raytracingrenderer_tpu_torch.utils.profiling import (SPAN_PREFIX,
+                                                              spans_on)
     profs, wall = {}, {}
 
     @contextlib.contextmanager
@@ -219,11 +225,11 @@ def profile_train_step(scene, cfg, target, key, ranges=(),
         if prof is not None:
             profs[half] = prof
 
-    _, grads = diff.loss_and_grads(scene, target, key, cfg, around)
+    with spans_on():
+        _, grads = diff.loss_and_grads(scene, target, key, cfg, around)
     averages = {h: p.key_averages() for h, p in profs.items()}
-    # a range's own device row spans its kernels: left out of the busy time
-    busy = {h: sum(us for k, us, _ in device_rows(p, averages[h])
-                   if k not in ranges) / 1e3 for h, p in profs.items()}
+    busy = {h: sum(us for _, us, _ in device_rows(p, averages[h])) / 1e3
+            for h, p in profs.items()}
     out = dict(fwd_ms=wall["forward"], bwd_ms=wall["backward"],
                fwd_busy_ms=busy.get("forward"),
                bwd_busy_ms=busy.get("backward"))
@@ -236,7 +242,8 @@ def profile_train_step(scene, cfg, target, key, ranges=(),
                 if e.device_type == DeviceType.CPU]
         ops = sorted(((e.key, (getattr(e, "self_device_time_total", 0)
                                or 0) / 1e3, e.count) for e in avgs
-                      if e.key not in ranges), key=lambda r: -r[1])
+                      if not e.key.startswith(SPAN_PREFIX)),
+                     key=lambda r: -r[1])
         out[f"{tag}_ops"] = [r for r in ops if r[1] > 0][:10]
         out[f"{tag}_ranges"] = {
             e.key: ((getattr(e, "device_time_total", 0) or 0) / 1e3, e.count)

@@ -23,6 +23,7 @@ from .integrators import path as path_mod
 from .sampling import rng
 from .scene.camera import generate_rays
 from .scene.types import Scene
+from .utils.profiling import span
 
 
 def specialize_config(cfg: RenderConfig, scene: Scene) -> RenderConfig:
@@ -116,8 +117,9 @@ def render(scene: Scene, cfg: Optional[RenderConfig] = None,
         sample = sample_image_wavefront
     with torch.no_grad():
         for s in range(start, start + spp):
-            img = sample(scene, rng.spp_key(base, s), cfg)
-            film = film_mod.add_sample_image(film, img)
+            with span("rtr.pass"):
+                img = sample(scene, rng.spp_key(base, s), cfg)
+                film = film_mod.add_sample_image(film, img)
             if on_sample is not None:
                 on_sample(s, film)
     return film

@@ -18,6 +18,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils.profiling import spanned
+
 # Decision ids: stable enumeration of every RNG consumption point so that
 # adding a new decision never perturbs existing streams.
 PIXEL_JITTER_X = 0
@@ -93,6 +95,7 @@ def split(key: Key) -> Tuple[Key, Key]:
     return fold_in(key, 0), fold_in(key, 1)
 
 
+@spanned("rtr.rng")
 def random_bits(key: Key, shape, device=None, offset: int = 0
                 ) -> torch.Tensor:
     """`jax.random.bits(key, shape)` (32-bit, partitionable layout):
@@ -120,6 +123,7 @@ def _bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
     return f - 1.0
 
 
+@spanned("rtr.rng")
 def uniform(key: Key, bounce: int, decision: int, shape,
             device=None, offset: int = 0) -> torch.Tensor:
     """U[0,1) tensor of `shape` for one decision point of one bounce
@@ -129,6 +133,7 @@ def uniform(key: Key, bounce: int, decision: int, shape,
         decision_key(key, bounce, decision), shape, device, offset))
 
 
+@spanned("rtr.rng")
 def raw_uniform(key: Key, shape, device=None, offset: int = 0
                 ) -> torch.Tensor:
     """`jax.random.uniform(key, shape)`: U[0,1) straight from `key`, with
@@ -136,6 +141,7 @@ def raw_uniform(key: Key, shape, device=None, offset: int = 0
     return _bits_to_unit_float(random_bits(key, shape, device, offset))
 
 
+@spanned("rtr.rng")
 def randint(key: Key, shape, lo: int, hi: int, device=None) -> torch.Tensor:
     """`jax.random.randint(key, shape, lo, hi)` as int32 in [lo, hi)
     (`hi <= lo` gives `lo`): two 32-bit words a value, from the two keys
@@ -154,6 +160,7 @@ def randint(key: Key, shape, lo: int, hi: int, device=None) -> torch.Tensor:
     return (lo + offset % span).to(torch.int32)
 
 
+@spanned("rtr.rng")
 def uniform_ids(key: Key, bounce: int, decision: int,
                 ids: torch.Tensor) -> torch.Tensor:
     """U[0,1) per lane, keyed by the lane's PIXEL id: one threefry block

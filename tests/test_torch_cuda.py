@@ -41,7 +41,8 @@ on a side stream; both dots at TT 16, 48, 128 and 512 and R 128, 4096
 and 65536, the TF32 dot also back to back on a side stream; a refused launch raises and
 leaves no error behind; a launch with the tensors' device already
 current, or on a side stream, stays correct; binary walks back to back
-share one ray counter.  The relayout kernel is also held bit for bit at
+share one ray counter; a cornell pass hands B1 12 x pixels
+rays (mt_kernel.rays).  The relayout kernel is also held bit for bit at
 one block of 32 rows, odd block counts and past one wave of its grid,
 on values >= 2^25 and fractions.  A cornell gradient with the boundary
 term (32x32) on the card is held to the CPU's by chip_smoke.py's
@@ -189,6 +190,20 @@ def test_render_cuda_matches_cpu(cuda, scene_dir):
     _agree(a, _render(scene_dir, "cpu"))
 
 
+def test_rays_counted_where_launched(cuda, scene_dir):
+    """One cornell pass hands B1 every lane of the batch 12 times (6
+    closest-hit and 6 shadow batches, dead lanes included): mt_kernel.rays
+    rises by 12 x pixels; counting() sees 6 bounces of every lane."""
+    from raytracingrenderer_tpu_torch.utils import profiling
+    scene = load_scene(scene_dir, cuda)
+    before = mt_kernel.rays
+    with profiling.counting() as c:
+        render(scene, RenderConfig(mis=True, jitter=True, max_depth=4),
+               spp=1)
+    assert mt_kernel.rays - before == 12 * 32 * 32
+    assert c["lanes"] == 6 * 32 * 32 and 0 < c["live"] <= c["lanes"]
+
+
 def _b2_batch(dev, case):
     """(o, d, t_closest, t_any, dead) of one batch of the binary walk's
     cases."""
@@ -222,11 +237,13 @@ def test_bvh_kernel_matches_plain(cuda, spheres_dir, any_hit, leaf16, case):
     o, d, t0, max_t, dead = _b2_batch(cuda, case)
     t_init = max_t if any_hit else t0
     before = dict(bvh_kernel.launches)
+    rays = dict(bvh_kernel.rays)
     hk = bvh_kernel.traverse_packet(scene.bvh, scene.triangles, o, d,
                                     t_init, any_hit=any_hit, leaf16=leaf16)
     torch.cuda.synchronize()
     key = "any_hit" if any_hit else "closest_hit"
     assert bvh_kernel.launches[key] == before[key] + 1
+    assert bvh_kernel.rays[key] == rays[key] + o.x.shape[0]
     hp = bvh_kernel.traverse_plain(scene.bvh, scene.triangles, o, d,
                                    t_init, any_hit=any_hit, leaf16=leaf16)
     for k, p in zip(hk, hp):
@@ -321,10 +338,11 @@ def test_pair_kernel_matches_plain(cuda, spheres_dir):
     feats = treelet._feats(o, d, torch.clamp(t0, max=1e30))[
         pidx[:n_pairs] // treelet.M_SLOTS].contiguous()
     consts = treelet.pack_constants(bvh, scene.triangles)
-    before = treelet.launches
+    before = (treelet.launches, treelet.pairs)
     tk, ck = treelet.pair_test(consts, feats, tid)
     torch.cuda.synchronize()
-    assert treelet.launches == before + 1
+    assert (treelet.launches, treelet.pairs) == (before[0] + 1,
+                                                 before[1] + n_pairs)
     tp, cp = treelet.pair_test_plain(consts, feats, tid)
     assert torch.equal(tk, tp) and torch.equal(ck, cp)
     assert 0.05 < (tk < treelet.INF).float().mean().item() < 0.95
@@ -340,10 +358,11 @@ def test_pair_kernel_edges(cuda, p, pattern):
     several columns (the first is kept): bit for bit."""
     consts, feats, tid = (torch.from_numpy(a).to(cuda)
                           for a in pair_case(p, pattern))
-    before = treelet.launches
+    before = (treelet.launches, treelet.pairs)
     tk, ck = treelet.pair_test(consts, feats, tid)
     torch.cuda.synchronize()
-    assert treelet.launches == before + 1
+    assert (treelet.launches, treelet.pairs) == (before[0] + 1,
+                                                 before[1] + p)
     tp, cp = treelet.pair_test_plain(consts, feats, tid)
     assert torch.equal(tk, tp) and torch.equal(ck, cp)
     valid = (tid >= 0) & (tid < consts.shape[0] // 16)
