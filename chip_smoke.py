@@ -116,13 +116,24 @@ Phases (any failure exits non-zero):
      the same grid and block: what the card takes for any launch of that
      size;
  13. main path 5, training (diff.train_steps / train_step, zero target,
-     lr 0.01, RenderConfig(mis=True, jitter=True, max_depth=4)): (a) the
+     lr 0.01, RenderConfig(mis=True, jitter=True, max_depth=4)): (0) the
+     transpose kernel of the shading path's row gathers
+     (csrc/gather_kernel.cu, ops/gather.py) at the train cell's shapes,
+     262,144 indices into 1, 8 and 36 rows with k = 1 and 3, coherent
+     runs as a frame's hits give and random rows: gather_cols's forward
+     equal to plain indexing bit for bit, its backward within an ulp of
+     the float64 sum and the same bits in two launches; timed beside its
+     bound (bytes / 3.35 TB/s), the plain version, and autograd's
+     transposes of plain indexing (index_put_ with accumulation) and of
+     index_select (index_add_) as the library's yardsticks; (a) the
      cornell box at 1024x1024, a warm-up train_steps(n=1), then
      train_steps(n=8) timed (fwdbwd_pps, and the forward render's
-     pixel-paths/s over it): B1 must have launched, and no kernel inside
-     any torch.autograd.grad call (the backward replays the recorded
-     hits); finite losses and parameters, and the trained scene's loss on
-     the first step's key below that step's loss; one more step profiled
+     pixel-paths/s over it): B1 must have launched, and no traversal
+     kernel inside any torch.autograd.grad call (the backward replays the
+     recorded hits); the gathers' transpose kernel launched, and no
+     gradient-carrying gather left on plain indexing; finite losses and
+     parameters, and the trained scene's loss on the first step's key
+     below that step's loss; one more step profiled
      by halves (forward and backward wall and device time, the
      backward's device time by operator) with finite gradients; the peak
      memory of a step with remat on and off; (b) the spheres scene at
@@ -341,10 +352,10 @@ def build_all():
     from raytracingrenderer_tpu_torch.geometry import bvh_native
     from raytracingrenderer_tpu_torch.ops import build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         libs = [pool.submit(build.build, name)
                 for name in ("mt_kernel", "bvh_kernel", "treelet_kernel",
-                             "visit_kernel")]
+                             "visit_kernel", "gather_kernel")]
         native = pool.submit(bvh_native.library_path)
         paths = [f.result() for f in libs] + [native.result()]
     log(f"build: {', '.join(os.path.relpath(p, ROOT) for p in paths)} "
@@ -1457,8 +1468,10 @@ def dot_host_split(torch, a, b_in, prec):
 
 def reset_counts():
     from raytracingrenderer_tpu_torch.geometry import intersect
-    from raytracingrenderer_tpu_torch.ops import bvh_kernel, mt_kernel, treelet
+    from raytracingrenderer_tpu_torch.ops import (bvh_kernel, gather,
+                                                  mt_kernel, treelet)
     mt_kernel.launches = 0
+    gather.launches = gather.rows = gather.plain_grad_calls = 0
     treelet.launches = 0
     for k in bvh_kernel.launches:
         bvh_kernel.launches[k] = 0
@@ -1588,6 +1601,119 @@ def gpu_vs_cpu(name, scene_dir, treelets=False):
                imgs["cpu"])
 
 
+GATHER_N = 512 * 512     # the train cell's lanes: one gather's indices
+GATHER_SHAPES = [(rows, k) for rows in (1, 8, 36) for k in (1, 3)]
+
+
+def gather_indices(torch, rows, pattern, n=GATHER_N):
+    """n int64 indices into `rows` rows on the card: "runs", a random row
+    a run of 64 consecutive indices (a frame's hits are coherent, and a
+    warp of one row is the kernel's longest sum); "random", a random row
+    each."""
+    g = torch.Generator(device="cuda").manual_seed(rows * 131 + len(pattern))
+    if pattern == "runs":
+        per_run = torch.randint(0, rows, ((n + 63) // 64,), generator=g,
+                                device="cuda")
+        return per_run.repeat_interleave(64)[:n].contiguous()
+    return torch.randint(0, rows, (n,), generator=g, device="cuda")
+
+
+def check_gather_kernel(torch, card):
+    """Phase 13 (0): the gathers' transpose kernel at the train cell's
+    shapes.  Gates: gather_cols's forward equal to plain indexing bit for
+    bit; its backward (the kernel, through autograd) within an ulp of the
+    float64 sum (2^-24 of the sum, plus 2^-32 of the sum of magnitudes:
+    a bound on both float64 sums' own rounding up to 2^20 terms) and the
+    same bits in two launches; the launches counted.  Device times
+    (probes.device_ms: a back-to-back call's time is the host's launch
+    path): the kernel (its two passes; beside it the back-to-back call by
+    CUDA events), its bound (bytes at PEAK_BYTES), the plain version,
+    and autograd's transposes of plain
+    indexing (a zeroed column's index_put_ with accumulation, per column,
+    as IndexBackward runs it) and of index_select (a zeroed column's
+    index_add_) -> the kernels line's entry."""
+    from raytracingrenderer_tpu_torch.ops import gather
+    from raytracingrenderer_tpu_torch.probes import device_ms
+    shapes = {}
+    for rows, k in GATHER_SHAPES:
+        for pattern in ("runs", "random"):
+            idx = gather_indices(torch, rows, pattern)
+            n = idx.numel()
+            g = torch.Generator(device="cuda").manual_seed(rows + k)
+            cols = [torch.randn(rows, generator=g, device="cuda")
+                    .requires_grad_(True) for _ in range(k)]
+            grads = [torch.randn(n, generator=g, device="cuda")
+                     for _ in range(k)]
+            l0 = gather.launches
+            outs = gather.gather_cols(cols, idx)
+            if not all(torch.equal(o, c.detach()[idx])
+                       for o, c in zip(outs, cols)):
+                fail(f"gather_cols's forward is not plain indexing's "
+                     f"({rows} rows, k {k}, {pattern})")
+            got = torch.stack(torch.autograd.grad(outs, cols, grads))
+            again = gather.transpose_cols(grads, idx, rows)
+            if gather.launches - l0 != 2:
+                fail(f"the transpose kernel launched "
+                     f"{gather.launches - l0} times for 2 calls")
+            if not torch.equal(got, again):
+                fail(f"the transpose kernel gave other bits in a second "
+                     f"launch ({rows} rows, k {k}, {pattern})")
+            ref = torch.stack([torch.zeros(rows, dtype=torch.float64,
+                                           device="cuda")
+                               .index_add_(0, idx, gr.double())
+                               for gr in grads])
+            mag = torch.stack([torch.zeros(rows, dtype=torch.float64,
+                                           device="cuda")
+                               .index_add_(0, idx, gr.abs().double())
+                               for gr in grads])
+            err = (got.double() - ref).abs()
+            tol = 2.0 ** -24 * ref.abs() + 2.0 ** -32 * mag
+            if bool((err > tol).any()):
+                fail(f"the transpose kernel is off the float64 sum by "
+                     f"{float(err.max()):.3g} ({rows} rows, k {k}, "
+                     f"{pattern})")
+            plain = gather.transpose_plain(grads, idx, rows)
+            plain_off = float(((plain.double() - ref).abs() / mag).max())
+            ms = device_ms(lambda: gather._transpose(grads, idx, rows), 50)
+            call_ms = time_ms(
+                torch, lambda: gather._transpose(grads, idx, rows), 200)
+            plain_ms = device_ms(
+                lambda: gather.transpose_plain(grads, idx, rows), 10)
+            put_ms = device_ms(lambda: [
+                torch.zeros(rows, device="cuda").index_put_(
+                    (idx,), gr, accumulate=True) for gr in grads], 3)
+            add_ms = device_ms(lambda: [
+                torch.zeros(rows, device="cuda").index_add_(0, idx, gr)
+                for gr in grads], 10)
+            blocks = -(-n // gather.CHUNK)
+            nbytes = (n * (4 * k + idx.element_size())
+                      + 2 * 8 * rows * k * blocks + 4 * rows * k)
+            ent = shapes[f"{rows}x{k}/{pattern}"] = dict(
+                ms=ms, **bound(ms, nbytes=nbytes), call_ms=call_ms,
+                plain_ms=plain_ms, index_put_ms=put_ms, index_add_ms=add_ms,
+                max_rel_err=float((err / mag.clamp(min=1e-30)).max()),
+                plain_rel_err=plain_off)
+            log(f"gather transpose, {n} indices into {rows} rows, k {k}, "
+                f"{pattern}, device ms: kernel {ms:.4f} (bound "
+                f"{ent['bound_ms']:.4f}, {nbytes} B; a call back to back "
+                f"{call_ms:.4f}), plain {plain_ms:.4f}, autograd's "
+                f"index_put_ {put_ms:.3f}, index_add_ {add_ms:.4f}; off the "
+                f"float64 sum by {float(err.max()):.3g} (plain: "
+                f"{plain_off:.3g} of the magnitudes) [{card}]")
+    idx = gather_indices(torch, 36, "runs")
+    grads = [torch.randn(GATHER_N, device="cuda") for _ in range(3)]
+    host_us = host_us_a_call(torch, lambda: gather._transpose(grads, idx,
+                                                             36))
+    main = shapes["36x3/runs"]
+    return dict(name="gather_transpose", route="cuda",
+                source="raytracingrenderer_tpu_torch/csrc/gather_kernel.cu",
+                replaces=None, ms=main["ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], bound_share=main["bound_share"],
+                plain_ms=main["plain_ms"], library_ms=main["index_put_ms"],
+                index_add_ms=main["index_add_ms"], host_us_call=host_us,
+                shapes=shapes)
+
+
 class WatchBackward:
     """Counts of the kernels' launches made inside each torch.autograd.grad
     call (the backward of a training step), with that function wrapped
@@ -1688,7 +1814,7 @@ def train_cornell(torch, card, cornell, fwd_pps, steps=TRAIN_STEPS,
     import dataclasses
     from raytracingrenderer_tpu_torch import diff
     from raytracingrenderer_tpu_torch.config import RenderConfig
-    from raytracingrenderer_tpu_torch.ops import mt_kernel
+    from raytracingrenderer_tpu_torch.ops import gather, mt_kernel
     from raytracingrenderer_tpu_torch.sampling import rng
     cfg = RenderConfig(**BENCH_CFG, **cfg_over)
     cam = cornell.camera
@@ -1704,6 +1830,8 @@ def train_cornell(torch, card, cornell, fwd_pps, steps=TRAIN_STEPS,
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     launches = mt_kernel.launches
+    gathers = dict(launches=gather.launches, rows=gather.rows,
+                   plain_grad_calls=gather.plain_grad_calls)
     pps = cam.width * cam.height * steps / dt
     losses = losses.cpu().numpy()
     log(f"training {name} {cam.width}x{cam.height}, train_steps "
@@ -1712,10 +1840,13 @@ def train_cornell(torch, card, cornell, fwd_pps, steps=TRAIN_STEPS,
         f"{dt:.3f} s, fwdbwd_pps {pps:.6g} [{card}]; forward "
         f"render {fwd_pps:.6g} pixel-paths/s, fwd_over_fwdbwd "
         f"{fwd_pps / pps:.3f}; B1 launches {launches} (backward calls "
-        f"{len(bwd.calls)}, launches in them {bwd.calls}); losses "
-        f"{losses.tolist()}")
+        f"{len(bwd.calls)}, launches in them {bwd.calls}); the gathers' "
+        f"transposes {gathers}; losses {losses.tolist()}")
     if launches == 0:
         fail(f"the {name} training steps never launched B1")
+    if gathers["launches"] == 0 or gathers["plain_grad_calls"]:
+        fail(f"the {name} training steps left a gradient-carrying gather "
+             f"on plain indexing, or never launched the transpose kernel")
     if len(bwd.calls) != steps or any(bwd.launches().values()):
         fail(f"a {name} backward launched a kernel (or did not run)")
     if not (all(map(math.isfinite, losses)) and finite_params(torch,
@@ -1761,7 +1892,7 @@ def train_cornell(torch, card, cornell, fwd_pps, steps=TRAIN_STEPS,
             for r, (peak, held) in mem.items()) + f" [{card}]")
     return dict(fwdbwd_pps=pps, fwd_over_fwdbwd=fwd_pps / pps,
                 b1_launches=launches, bwd_launches=bwd.launches(),
-                losses=losses.tolist(),
+                gathers=gathers, losses=losses.tolist(),
                 **{f"peak_bytes_{'remat' if r else 'no_remat'}": m[0]
                    for r, m in mem.items()}, **prof)
 
@@ -1779,7 +1910,7 @@ def train_spheres(torch, card, spheres, fwd_pps, name="spheres",
     from raytracingrenderer_tpu_torch.config import RenderConfig
     from raytracingrenderer_tpu_torch.geometry import intersect
     from raytracingrenderer_tpu_torch.geometry.refit import refit
-    from raytracingrenderer_tpu_torch.ops import bvh_kernel, mt_kernel
+    from raytracingrenderer_tpu_torch.ops import bvh_kernel, gather, mt_kernel
     from raytracingrenderer_tpu_torch.render import _use_wavefront
     from raytracingrenderer_tpu_torch.sampling import rng
     cfg = RenderConfig(**BENCH_CFG, **cfg_over)
@@ -1802,6 +1933,8 @@ def train_spheres(torch, card, spheres, fwd_pps, name="spheres",
     peak = torch.cuda.max_memory_allocated()
     launches = dict(mt=mt_kernel.launches, **{
         k: bvh_kernel.launches[k] for k in ("closest_hit", "any_hit")})
+    gathers = dict(launches=gather.launches, rows=gather.rows,
+                   plain_grad_calls=gather.plain_grad_calls)
     pps = cam.width * cam.height / dt
     log(f"training {name} {cam.width}x{cam.height}, one train_step through "
         f"the wavefront backward, lr {TRAIN_LR}, boundary_grads "
@@ -1810,7 +1943,9 @@ def train_spheres(torch, card, spheres, fwd_pps, name="spheres",
         f"fwd_over_fwdbwd {fwd_pps / pps:.3f}; loss {loss.item():.7f}; "
         f"launches {launches} "
         f"(backward calls {len(bwd.calls)}, launches in them {bwd.calls}); "
-        f"stackless walks {intersect.stackless_calls}; the step's peak "
+        f"the gathers' transposes {gathers} (tri_p0's "
+        f"{spheres.triangles.count} rows on plain indexing); stackless "
+        f"walks {intersect.stackless_calls}; the step's peak "
         f"memory {peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB held before)")
     if min(launches.values()) == 0:
         fail(f"the {name} training step did not launch B1 and both B2 "
@@ -1847,7 +1982,7 @@ def train_spheres(torch, card, spheres, fwd_pps, name="spheres",
         fail(f"non-finite {name} gradients")
     return dict(fwdbwd_pps=pps, fwd_over_fwdbwd=fwd_pps / pps,
                 launches=launches, bwd_launches=bwd.launches(),
-                peak_bytes=peak, refit_ms=refit_s * 1e3,
+                gathers=gathers, peak_bytes=peak, refit_ms=refit_s * 1e3,
                 repack_ms=repack_s * 1e3, **prof)
 
 
@@ -3038,6 +3173,7 @@ def main() -> None:
 
     # -- 13. main path 5: training (diff.train_steps / train_step) ----------
     mark(13)
+    gk = check_gather_kernel(torch, card)
     tr_a = train_cornell(torch, card, cornell, cornell_pps)
     tr_b = train_spheres(torch, card, spheres, spheres_pps)
     grads_gpu_vs_cpu(torch, "cornell 128x128 (scan)", scenes.write_cornell(
@@ -3169,6 +3305,12 @@ def main() -> None:
                 source="raytracingrenderer_tpu_torch/csrc/treelet_kernel.cu",
                 replaces="raytracingrenderer_tpu/ops/treelet.py:269",
                 launches=tl_launches["pair_test"], **b4)]
+        + [dict(gk, launches_training_cornell=tr_a["gathers"]["launches"],
+                launches_training_spheres=tr_b["gathers"]["launches"],
+                launches_training_boundary_cornell=(
+                    tr_c["gathers"]["launches"]),
+                plain_grad_calls_training_spheres=(
+                    tr_b["gathers"]["plain_grad_calls"]))]
         + probes}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

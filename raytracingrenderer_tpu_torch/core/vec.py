@@ -15,6 +15,8 @@ from typing import NamedTuple, Union
 
 import torch
 
+from ..ops.gather import gather_cols
+
 Scalar = Union[float, torch.Tensor]
 
 
@@ -127,9 +129,10 @@ class V3(NamedTuple):
                   torch.where(pred, self.z, other.z))
 
     def gather(self, idx: torch.Tensor) -> "V3":
-        """Rows `idx` of each component: plain indexing (the JAX package's
-        one-hot matmul, ops/gather.py, is a TPU-only workaround)."""
-        return V3(self.x[idx], self.y[idx], self.z[idx])
+        """Rows `idx` of each component: plain indexing, whose backward
+        is one launch of the transpose kernel for the three where a
+        gradient is recorded on the card (ops/gather.gather_cols)."""
+        return V3(*gather_cols(self, idx))
 
     @property
     def shape(self):

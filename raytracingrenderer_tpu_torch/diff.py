@@ -20,11 +20,12 @@ Where JAX takes jax.value_and_grad of a pure function, here the
 parameters become leaf tensors with requires_grad, the image is rendered
 with autograd recording, and torch.autograd.grad returns the gradients.
 The traversal kernels run under torch.no_grad (geometry/intersect.py):
-no kernel has, or needs, a backward.  SGD is out of place (p - lr * g),
-so a step's scene holds new tensors and the kernels' cached tables
-(keyed on them) are packed again.  A step that moves `tri_p0` leaves the
-BVH bounds and the light table's geometry copy stale: call
-geometry.refit.refit(scene) after it.
+none has, or needs, a backward; the one kernel of the backward is the
+transpose of the shading path's row gathers (ops/gather.py).  SGD is
+out of place (p - lr * g), so a step's scene holds new tensors and the
+kernels' cached tables (keyed on them) are packed again.  A step that
+moves `tri_p0` leaves the BVH bounds and the light table's geometry copy
+stale: call geometry.refit.refit(scene) after it.
 """
 from __future__ import annotations
 

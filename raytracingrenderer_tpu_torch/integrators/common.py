@@ -3,9 +3,11 @@
 Counterpart of raytracingrenderer_tpu/integrators/common.py (RTBase
 Scene::calculateShadingData, Scene.h:174-203, and RayTracer::
 computeDirect / computeDirectMIS, Renderer.h:423-557).  Hit attributes
-are read by plain indexing of the triangle and material tables; the JAX
-package packs them into one row per triangle (`pack_attrs` +
-`ops/gather.gather_rows`) only because gathers are slow on a TPU.
+are read by plain indexing of the triangle and material tables, those
+that carry gradients through ops/gather.gather_cols (its backward a
+kernel on the card); the JAX package packs them into one row per
+triangle (`pack_attrs` + `ops/gather.gather_rows`) only because gathers
+are slow on a TPU.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from ..geometry.intersect import Hit, _mt_test, occluded
 from ..imaging import texture as tex_mod
 from ..lights import lights as lights_mod
 from ..materials import bsdf as bsdf_mod
+from ..ops.gather import gather_cols
 from ..scene.types import Scene
 from ..utils.profiling import spanned
 
@@ -103,7 +106,8 @@ def shading_data(scene: Scene, hit: Hit, o: V3, d: V3,
         k=m.k.gather(mid),
         int_ior=m.int_ior[mid],
         ext_ior=m.ext_ior[mid],
-        alpha=torch.clamp(m.alpha[mid], min=bsdf_mod.MIN_ALPHA),
+        alpha=torch.clamp(gather_cols((m.alpha,), mid)[0],
+                          min=bsdf_mod.MIN_ALPHA),
         sigma=m.sigma[mid],
         emission=m.emission.gather(mid),
         is_emissive=m.is_emissive[mid],

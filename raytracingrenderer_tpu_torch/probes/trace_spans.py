@@ -14,10 +14,12 @@ with the spans on, and prints, a unit (pass or step), each span's calls,
 host ms, self host ms, device ms and kernels, and the device's idle gaps
 by the chain of spans they fall in (`walk`).  It counts one more pass
 (profiling.counting: lanes and live lanes a bounce; the kernels' rays
-and launches).  What tracing costs: `rounds` rounds, each a profiled
-block with the spans on, one with them off, an unprofiled pass or step,
-and a counted one, timed by the host clock after a synchronise.  Needs
-a card.
+and launches) and one more step (the gathers' transpose launches, the
+indices they reduced, and the gradient-carrying gathers left on plain
+indexing: the share of them the kernel took).  What tracing costs:
+`rounds` rounds, each a profiled block with the spans on, one with them
+off, an unprofiled pass or step, and a counted one, timed by the host
+clock after a synchronise.  Needs a card.
 """
 from __future__ import annotations
 
@@ -225,10 +227,12 @@ def timed(fn) -> float:
 
 
 def counters() -> Dict:
-    from raytracingrenderer_tpu_torch.ops import bvh_kernel, mt_kernel
+    from raytracingrenderer_tpu_torch.ops import bvh_kernel, gather, mt_kernel
     return dict(mt_rays=mt_kernel.rays, mt_launches=mt_kernel.launches,
                 bvh_rays=sum(bvh_kernel.rays.values()),
-                bvh_launches=sum(bvh_kernel.launches.values()))
+                bvh_launches=sum(bvh_kernel.launches.values()),
+                gather_launches=gather.launches, gather_rows=gather.rows,
+                gather_plain_grad_calls=gather.plain_grad_calls)
 
 
 def main() -> None:
@@ -310,6 +314,14 @@ def main() -> None:
         tscene = refit(tscene)
         step_no[0] += 1
     one_step()
+    before = counters()
+    one_step()
+    after = counters()
+    c = {k: after[k] - before[k] for k in after}
+    engaged = c["gather_launches"] + c["gather_plain_grad_calls"]
+    emit(what="train counted step", size=args.train_size, **c,
+         gather_engaged_pct=(100.0 * c["gather_launches"] / engaged
+                             if engaged else None))
     cost = {k: [] for k in ("traced_spans_s", "traced_s", "untraced_s")}
     for r in range(args.rounds):
         ev, w_on = profiled(one_step, 1, True)

@@ -42,7 +42,14 @@ and 65536, the TF32 dot also back to back on a side stream; a refused launch rai
 leaves no error behind; a launch with the tensors' device already
 current, or on a side stream, stays correct; binary walks back to back
 share one ray counter; a cornell pass hands B1 12 x pixels
-rays (mt_kernel.rays).  The relayout kernel is also held bit for bit at
+rays (mt_kernel.rays).  The transpose kernel of the shading path's
+row gathers (ops/gather.py) is held to the float64 sum within an ulp, to
+its numpy model (tests/gather_model.py) bit for bit, and to its plain
+version within the float32 sum-order bound, the same bits in two
+launches, on 1 to 2048 rows, 1 to 3 columns, 0 to 2^18 + 77
+indices (random, in runs, all one row, negative int32), its refusals
+raise, and a cornell gradient through it at 128x128 is held to plain
+indexing's within 1e-6.  The relayout kernel is also held bit for bit at
 one block of 32 rows, odd block counts and past one wave of its grid,
 on values >= 2^25 and fractions.  A cornell gradient with the boundary
 term (32x32) on the card is held to the CPU's by chip_smoke.py's
@@ -57,6 +64,8 @@ and the overlapped gradients held to the CPU's one-process results, and
 traverse_sharded over the scene sharded between them held to the CPU's
 replicated walk; render_elastic's command-line workers on the card, one
 killed and resumed bit for bit, held to a CPU worker."""
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -65,11 +74,12 @@ from raytracingrenderer_tpu_torch.config import RenderConfig
 from raytracingrenderer_tpu_torch.core.vec import V3
 from raytracingrenderer_tpu_torch.geometry import intersect
 from raytracingrenderer_tpu_torch.imaging import film as film_mod
-from raytracingrenderer_tpu_torch.ops import (bvh_kernel, mt_kernel, treelet,
-                                             visit)
+from raytracingrenderer_tpu_torch.ops import (bvh_kernel, gather, mt_kernel,
+                                             treelet, visit)
 from raytracingrenderer_tpu_torch.ops.launch import launch
 from raytracingrenderer_tpu_torch.render import render
 from raytracingrenderer_tpu_torch.scene.loader import load_scene
+from gather_model import transpose_model
 from torch_scenes import (PAIR_PATTERNS, pair_case, write_cornell,
                           write_spheres)
 
@@ -776,6 +786,124 @@ def test_train_step_on_the_card(cuda, tmp_path):
         assert b.device.type == "cuda"
         assert bool(torch.isfinite((a - b) / 0.01).all())
     assert bool((now["tri_p0"].y != old["tri_p0"].y).any())
+
+
+GATHER_SHAPES = [(1, 1), (8, 3), (36, 1), (36, 3), (700, 2),
+                 (gather.ROWS_MAX, 3)]
+
+
+def _gather_case(dev, rows, k, n, pattern, seed):
+    """(columns requiring grad, index, upstream gradients) on the card:
+    rows drawn at random, in runs of 64 (a frame's coherent hits), all
+    one row, or negative int32 indices."""
+    g = np.random.default_rng(seed)
+    idx = {"random": g.integers(0, rows, n),
+           "runs": np.repeat(g.integers(0, rows, n // 64 + 1), 64)[:n],
+           "one_row": np.full(n, rows - 1),
+           "negative": g.integers(-rows, 0, n)}[pattern]
+    idx = torch.from_numpy(idx.astype(
+        np.int32 if pattern == "negative" else np.int64)).to(dev)
+    cols = [torch.from_numpy(g.standard_normal(rows).astype(np.float32))
+            .to(dev).requires_grad_(True) for _ in range(k)]
+    grads = [torch.from_numpy(g.standard_normal(n).astype(np.float32))
+             .to(dev) for _ in range(k)]
+    return cols, idx, grads
+
+
+@pytest.mark.parametrize("pattern", ["random", "runs", "one_row",
+                                     "negative"])
+@pytest.mark.parametrize("n", [0, 1, 33, 2049, (1 << 18) + 77])
+@pytest.mark.parametrize("rows,k", GATHER_SHAPES)
+def test_gather_kernel_matches_plain(cuda, rows, k, n, pattern):
+    """gather_cols on the card: the forward is plain indexing bit for
+    bit; the backward (one launch of csrc/gather_kernel.cu for the k
+    columns, counted with its indices) is within an ulp of the float64
+    sum (2^-24 of the sum, plus 2^-32 of the sum of magnitudes: a bound
+    on both float64 sums' own rounding up to 2^20 terms), the same bits
+    in a second launch, and within the float32 sum-order bound
+    (2 (m - 1) 2^-24 sum|terms| a row of m terms) of the plain version,
+    whose index_add_ sums in no fixed order on the card, and equal bit
+    for bit to its numpy model
+    (tests/gather_model.py: its partition and sum order, in double,
+    rounded once)."""
+    cols, idx, grads = _gather_case(cuda, rows, k, n, pattern,
+                                    rows * 7 + k + n)
+    launches, reduced = gather.launches, gather.rows
+    outs = gather.gather_cols(cols, idx)
+    for o, c in zip(outs, cols):
+        assert torch.equal(o, c.detach()[idx])
+    got = torch.stack(torch.autograd.grad(outs, cols, grads))
+    torch.cuda.synchronize()
+    assert (gather.launches - launches, gather.rows - reduced) == (1, n)
+    assert torch.equal(got, gather.transpose_cols(grads, idx, rows))
+    flat = torch.where(idx < 0, idx + rows, idx).long()
+    ref = torch.stack([torch.zeros(rows, dtype=torch.float64, device=cuda)
+                       .index_add_(0, flat, g.double()) for g in grads])
+    mag = torch.stack([torch.zeros(rows, dtype=torch.float64, device=cuda)
+                       .index_add_(0, flat, g.abs().double())
+                       for g in grads])
+    err = (got.double() - ref).abs()
+    assert bool((err <= 2.0 ** -24 * ref.abs() + 2.0 ** -32 * mag).all())
+    m = torch.bincount(flat, minlength=rows).double()
+    plain = gather.transpose_plain(grads, idx, rows)
+    assert bool(((got.double() - plain.double()).abs()
+                 <= 2 * (m - 1).clamp(min=0) * 2.0 ** -24 * mag).all())
+    assert np.array_equal(got.cpu().numpy(), transpose_model(
+        [g.cpu().numpy() for g in grads], idx.cpu().numpy(), rows))
+
+
+def test_gather_kernel_refuses(cuda):
+    """A non-float32 column, an int16 index, a table past the kernel's
+    and an index out of range raise; a launch the card refuses (0
+    columns, past the launcher's own checks) raises, naming it."""
+    cols, idx, grads = _gather_case(cuda, 8, 3, 1000, "random", 1)
+    with pytest.raises(TypeError):
+        gather.transpose_cols([g.double() for g in grads], idx, 8)
+    with pytest.raises(TypeError):
+        gather.transpose_cols(grads, idx.short(), 8)
+    with pytest.raises(ValueError):
+        gather.transpose_cols(grads, idx, gather.TABLE_MAX)
+    with pytest.raises(IndexError):
+        gather.transpose_cols(grads, torch.full_like(idx, 8), 8)
+    with pytest.raises(IndexError):
+        gather.transpose_cols(grads, torch.full_like(idx, -9), 8)
+    out = torch.empty((1, 8), device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        launch(gather._library()["gather_transpose"], cuda,
+               (ctypes.c_void_p * 1)(grads[0].data_ptr()), 0,
+               idx.data_ptr(), 8, 1000, 8, 0, out.data_ptr())
+    assert torch.equal(gather.transpose_cols(grads, idx, 8),
+                       gather.transpose_cols(grads, idx, 8))
+
+
+def test_param_grads_kernel_against_plain_indexing(cuda, tmp_path,
+                                                   monkeypatch):
+    """diff.param_grads on the cornell box at 128x128: every
+    gradient-carrying gather through the kernel (30 launches, none left
+    on plain indexing) against the same with the dispatch rule patched
+    to plain indexing (index_put_ as the backward): each parameter within
+    a relative L2 distance of 1e-6 (the two sum each row's terms in
+    other orders; the kernel's is within an ulp of the exact sum)."""
+    from raytracingrenderer_tpu_torch import diff
+    from raytracingrenderer_tpu_torch.sampling import rng
+    scene = load_scene(write_cornell(str(tmp_path), 128, 128), cuda)
+    cfg = RenderConfig(mis=True, jitter=True, max_depth=4, seed=11)
+    target = torch.full((128, 128, 3), 0.2, device=cuda)
+    launches, plain = gather.launches, gather.plain_grad_calls
+    got = diff.param_grads(scene, target, rng.PRNGKey(11), cfg)
+    torch.cuda.synchronize()
+    assert gather.launches - launches == 30
+    assert gather.plain_grad_calls == plain
+    monkeypatch.setattr(gather, "takes_kernel", lambda *args: False)
+    ref = diff.param_grads(scene, target, rng.PRNGKey(11), cfg)
+    assert gather.launches - launches == 30
+    for name in diff.param_keys(got):
+        a = torch.stack(list(got[name])) if isinstance(
+            got[name], tuple) else got[name]
+        b = torch.stack(list(ref[name])) if isinstance(
+            ref[name], tuple) else ref[name]
+        norm = float(b.double().norm())
+        assert float((a.double() - b.double()).norm()) <= 1e-6 * norm, name
 
 
 def test_boundary_grads_cuda_match_cpu(cuda, tmp_path):
