@@ -23,8 +23,9 @@ run exactly as before.
 `transpose_cols` launches the kernel for CUDA tensors and raises if it
 cannot; for CPU tensors it calls `transpose_plain`, the plain torch
 version.  `launches` counts kernel launches, `rows` the indices they
-reduced, and `plain_grad_calls` the gradient-carrying gathers on the card
-that took plain indexing because the table was too large for the kernel.
+reduced, `plain_grad_calls` the gradient-carrying gathers on the card
+that took plain indexing because the table was too large for the kernel,
+and `plain_grad_rows` their indices.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ CHUNK = 512             # indices a block of the first pass reduces
 launches = 0             # kernel launches since import (or the last reset)
 rows = 0                 # the indices those launches reduced
 plain_grad_calls = 0     # gradient-carrying gathers on the card, plain
+plain_grad_rows = 0      # the indices of those gathers
 _lib = None
 
 
@@ -82,7 +84,7 @@ def gather_cols(cols: Sequence[torch.Tensor], idx: torch.Tensor
     """Rows `idx` of k same-length 1-D columns of one table: `c[idx]` for
     each, with the transpose kernel as their backward where
     `takes_kernel` says so."""
-    global plain_grad_calls
+    global plain_grad_calls, plain_grad_rows
     c0 = cols[0]
     if torch.is_grad_enabled() and c0.dim() == 1:
         req = any(c.requires_grad for c in cols)
@@ -90,6 +92,7 @@ def gather_cols(cols: Sequence[torch.Tensor], idx: torch.Tensor
             return _GatherCols.apply(idx, *cols)
         if req and c0.device.type == "cuda":
             plain_grad_calls += 1
+            plain_grad_rows += idx.numel()
     return tuple(c[idx] for c in cols)
 
 

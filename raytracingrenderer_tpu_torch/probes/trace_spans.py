@@ -1,14 +1,16 @@
 """Where a render pass and a training step spend their time, by the
-program's spans (utils/profiling: rtr.pass, rtr.bounce, rtr.intersect,
-rtr.shade, rtr.nee, rtr.bsdf, rtr.rng, rtr.compact, rtr.boundary*,
-rtr.train_step, rtr.forward, rtr.backward, rtr.sgd, rtr.refit).
+program's spans (utils/profiling: rtr.load.bvh, rtr.pass, rtr.bounce,
+rtr.intersect, rtr.shade, rtr.nee, rtr.bsdf, rtr.rng, rtr.compact,
+rtr.boundary*, rtr.train_step, rtr.forward, rtr.backward, rtr.sgd,
+rtr.refit).
 
     python -m raytracingrenderer_tpu_torch.probes.trace_spans
         [--size 2048] [--train-size 512] [--passes 2] [--rounds 3]
         [--seed 7] [--out FILE]
 
 On the cornell box (tests/torch_scenes.py, RenderConfig(mis, jitter,
-max_depth 4)) it profiles `passes` 1-spp passes at size x size and one
+max_depth 4)) it profiles the render scene's load (the tree's build in
+rtr.load.bvh), `passes` 1-spp passes at size x size and one
 training step (diff.train_step, then refit) at train_size x train_size
 with the spans on, and prints, a unit (pass or step), each span's calls,
 host ms, self host ms, device ms and kernels, and the device's idle gaps
@@ -16,10 +18,10 @@ by the chain of spans they fall in (`walk`).  It counts one more pass
 (profiling.counting: lanes and live lanes a bounce; the kernels' rays
 and launches) and one more step (the gathers' transpose launches, the
 indices they reduced, and the gradient-carrying gathers left on plain
-indexing: the share of them the kernel took).  What tracing costs:
-`rounds` rounds, each a profiled block with the spans on, one with them
-off, an unprofiled pass or step, and a counted one, timed by the host
-clock after a synchronise.  Needs a card.
+indexing and their indices: the share of them the kernel took).  What
+tracing costs: `rounds` rounds, each a profiled block with the spans
+on, one with them off, an unprofiled pass or step, and a counted one,
+timed by the host clock after a synchronise.  Needs a card.
 """
 from __future__ import annotations
 
@@ -232,7 +234,8 @@ def counters() -> Dict:
                 bvh_rays=sum(bvh_kernel.rays.values()),
                 bvh_launches=sum(bvh_kernel.launches.values()),
                 gather_launches=gather.launches, gather_rows=gather.rows,
-                gather_plain_grad_calls=gather.plain_grad_calls)
+                gather_plain_grad_calls=gather.plain_grad_calls,
+                gather_plain_grad_rows=gather.plain_grad_rows)
 
 
 def main() -> None:
@@ -267,8 +270,14 @@ def main() -> None:
 
     cfg = RenderConfig(**CFG, seed=args.seed)
     with tempfile.TemporaryDirectory() as tmp:
-        scene = load_scene(scenes.write_cornell(
-            str(Path(tmp) / "r"), args.size, args.size), dev)
+        rdir = scenes.write_cornell(str(Path(tmp) / "r"), args.size,
+                                    args.size)
+        loaded = []
+        ev, w_load = profiled(lambda i: loaded.append(load_scene(rdir, dev)),
+                              1, True)
+        emit(what="load", size=args.size, **walk(ev, w_load, 1))
+        del ev
+        scene = loaded[0]
         tscene = load_scene(scenes.write_cornell(
             str(Path(tmp) / "t"), args.train_size, args.train_size), dev)
     film = new_film(args.size, args.size, dev)

@@ -13,7 +13,8 @@ loader's BVH: the native binned-SAH builder (geometry/bvh_native.py)
 with 14-triangle leaves, 64 bins and all three axes swept, after which
 the triangles are reordered so that every leaf is a contiguous range
 and the light table's triangle ids are remapped; the tree carries the
-4-wide collapse (`ops/bvh_kernel.widen`) as the JAX loader's does.
+4-wide collapse (`ops/bvh_kernel.widen`) as the JAX loader's does; the
+build and the collapse run inside the span `rtr.load.bvh`.
 Scenes of 64 triangles or fewer still brute-force every ray
 (geometry/intersect.py), as in the JAX package, which builds their tree
 all the same.  A scene.json "envmap" makes the background that map, its
@@ -33,6 +34,7 @@ from ..core import matrix
 from ..core.vec import V3
 from ..io.hdr import read_hdr
 from ..io.png import read_png_float
+from ..utils.profiling import span
 from .gem import load_gem
 from .types import (BG_ENVMAP, BG_NONE, MAT_CONDUCTOR, MAT_DIELECTRIC,
                     MAT_DIFFUSE, MAT_GLASS, MAT_MIRROR, MAT_OREN_NAYAR,
@@ -399,10 +401,11 @@ def load_scene(scene_dir: str, device="cuda", build_bvh: bool = True,
     elif build_bvh and len(tp):
         from ..geometry.bvh_native import build as bvh_build
         from ..ops.bvh_kernel import widen
-        bvh, order = bvh_build(tp, max_leaf=BVH_MAX_LEAF, bins=BVH_BINS,
-                               all_axes=True)
-        # the 4-wide collapse, as the JAX loader attaches it
-        bvh = widen(bvh).to(device)
+        with span("rtr.load.bvh"):
+            bvh, order = bvh_build(tp, max_leaf=BVH_MAX_LEAF, bins=BVH_BINS,
+                                   all_axes=True)
+            # the 4-wide collapse, as the JAX loader attaches it
+            bvh = widen(bvh).to(device)
         # leaves index contiguous ranges of the reordered triangles; the
         # light table's triangle ids follow them
         inv = np.empty(len(order), np.int64)

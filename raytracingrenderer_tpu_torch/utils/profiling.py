@@ -7,9 +7,9 @@ phase timers that synchronise the card, with a rays/s report, a Chrome
 trace of a block under torch.profiler, and the CUDA caching allocator's
 statistics.
 
-Spans: the renderer marks its layers with `span("rtr.<layer>")` (pass,
-bounce, intersect, shade, nee, bsdf, rng, compact, boundary, train_step,
-forward, backward, sgd, refit).  A span is a
+Spans: the renderer marks its layers with `span("rtr.<layer>")` (load.bvh,
+pass, bounce, intersect, shade, nee, bsdf, rng, compact, boundary,
+train_step, forward, backward, sgd, refit).  A span is a
 torch.profiler.record_function range, so it lands on the profiler's
 timeline beside the kernels (on the card, Kineto also draws it as a
 device-side row over the kernels launched inside it); it has no clock

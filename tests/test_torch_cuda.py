@@ -49,7 +49,8 @@ version within the float32 sum-order bound, the same bits in two
 launches, on 1 to 2048 rows, 1 to 3 columns, 0 to 2^18 + 77
 indices (random, in runs, all one row, negative int32), its refusals
 raise, and a cornell gradient through it at 128x128 is held to plain
-indexing's within 1e-6.  The relayout kernel is also held bit for bit at
+indexing's within 1e-6; a gather of a table past the kernel's (a BVH
+scene's tri_p0) counts its indices in gather.plain_grad_rows.  The relayout kernel is also held bit for bit at
 one block of 32 rows, odd block counts and past one wave of its grid,
 on values >= 2^25 and fractions.  A cornell gradient with the boundary
 term (32x32) on the card is held to the CPU's by chip_smoke.py's
@@ -874,6 +875,24 @@ def test_gather_kernel_refuses(cuda):
                idx.data_ptr(), 8, 1000, 8, 0, out.data_ptr())
     assert torch.equal(gather.transpose_cols(grads, idx, 8),
                        gather.transpose_cols(grads, idx, 8))
+
+
+@pytest.mark.parametrize("rows,taken", [(262_156, False), (36, True)])
+def test_plain_grad_rows_counted(cuda, rows, taken):
+    """A gradient-carrying gather of a tri_p0-sized table, over the
+    kernel's TABLE_MAX, stays on plain indexing and adds its index count
+    to gather.plain_grad_rows (and one to plain_grad_calls); one of a
+    table the kernel takes adds nothing to either."""
+    assert (rows * 3 <= gather.TABLE_MAX) == taken
+    cols, idx, _ = _gather_case(cuda, rows, 3, (1 << 18) + 77, "random",
+                                rows)
+    calls, plain = gather.plain_grad_calls, gather.plain_grad_rows
+    outs = gather.gather_cols(cols, idx)
+    for o, c in zip(outs, cols):
+        assert torch.equal(o, c.detach()[idx])
+    n = 0 if taken else idx.numel()
+    assert gather.plain_grad_rows - plain == n
+    assert gather.plain_grad_calls - calls == (0 if taken else 1)
 
 
 def test_param_grads_kernel_against_plain_indexing(cuda, tmp_path,

@@ -4,7 +4,8 @@ probes/trace_spans.py, on the CPU.
 A 16x16 cornell render and one train_step under torch.profiler show the
 spans nested as the layers call each other (rtr.pass > rtr.bounce >
 rtr.intersect / rtr.shade / rtr.nee / rtr.bsdf / rtr.rng, rtr.train_step
-> rtr.forward / rtr.backward / rtr.sgd, rtr.refit after); without a
+> rtr.forward / rtr.backward / rtr.sgd, rtr.refit after), and a load's
+tree build in rtr.load.bvh; without a
 profiler recording, or with one that did not switch the spans on, no
 record_function is entered; profiling.counting() counts a bounce's
 lanes and live lanes; the image and the gradients are the same bit for
@@ -171,6 +172,17 @@ def test_trace_records_the_spans(scene, tmp_path):
     text = (tmp_path / "tr" / "trace.json").read_text()
     for name in ("rtr.pass", "rtr.bounce", "rtr.intersect", "rtr.rng"):
         assert f'"{name}"' in text
+
+
+def test_load_records_the_tree_build(tmp_path):
+    """load_scene's BVH build and 4-wide collapse run inside rtr.load.bvh
+    when the spans are on; a scene loaded without a tree has none."""
+    sdir = write_cornell(str(tmp_path / "c"), RES, RES)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.spans_on():
+            load_scene(sdir, "cpu")
+            load_scene(sdir, "cpu", build_bvh=False)
+    assert [n for n, _, _ in _spans(prof)] == ["rtr.load.bvh"]
 
 
 def test_walk_of_a_cpu_profile(scene):
