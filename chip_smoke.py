@@ -43,7 +43,12 @@ Phases (any failure exits non-zero):
   5. main path 1, the in-repo cornell box (36 triangles, brute force):
      1024x1024, RenderConfig(mis=True, jitter=True, max_depth=4), 8 spp,
      loaded and rendered on "cuda"; the MT kernel must have launched; a
-     finite image with a sane mean, written as .hdr;
+     finite image with a sane mean, written as .hdr.  Here and on every
+     later main path in this process (renders, training steps,
+     render_with, adaptive), with the counts set to 0 just before: the
+     RNG kernel (R1, csrc/rng_kernel.cu) must have launched, and no lane
+     may have been drawn on the card by the torch path
+     (`rng.plain_lanes_cuda`);
   6. main path 2, the spheres scene (BVH, the wavefront integrator
      chosen automatically): the same render; both B2 variants and B1
      (the any-hit proxy pre-pass) must have launched and no walk may
@@ -116,7 +121,15 @@ Phases (any failure exits non-zero):
      the same grid and block: what the card takes for any launch of that
      size;
  13. main path 5, training (diff.train_steps / train_step, zero target,
-     lr 0.01, RenderConfig(mis=True, jitter=True, max_depth=4)): (0) the
+     lr 0.01, RenderConfig(mis=True, jitter=True, max_depth=4)): (0) R1
+     at 1024x1024 and 2048x2048 lanes: `uniform_ids` on int32 and int64
+     pixel ids, in order and permuted, `uniform` in the jitter's shape
+     (the frame, and its lower half as a band), `random_bits` and
+     `randint`, each equal bit for bit to the torch path's (the dispatch
+     rule patched), in one launch of the frame's lanes (randint two) and
+     none on the torch path; at 2048x2048 its device time beside its
+     bound (the hash's int32 operations over the int32 rate, or the bytes
+     over 3.35 TB/s) and the torch path's; and the
      transpose kernel of the shading path's row gathers
      (csrc/gather_kernel.cu, ops/gather.py) at the train cell's shapes,
      262,144 indices into 1, 8 and 36 rows with k = 1 and 3, coherent
@@ -355,7 +368,7 @@ def build_all():
     with ThreadPoolExecutor(6) as pool:
         libs = [pool.submit(build.build, name)
                 for name in ("mt_kernel", "bvh_kernel", "treelet_kernel",
-                             "visit_kernel", "gather_kernel")]
+                             "visit_kernel", "gather_kernel", "rng_kernel")]
         native = pool.submit(bvh_native.library_path)
         paths = [f.result() for f in libs] + [native.result()]
     log(f"build: {', '.join(os.path.relpath(p, ROOT) for p in paths)} "
@@ -1469,9 +1482,12 @@ def dot_host_split(torch, a, b_in, prec):
 def reset_counts():
     from raytracingrenderer_tpu_torch.geometry import intersect
     from raytracingrenderer_tpu_torch.ops import (bvh_kernel, gather,
-                                                  mt_kernel, treelet)
+                                                  mt_kernel, rng_kernel,
+                                                  treelet)
+    from raytracingrenderer_tpu_torch.sampling import rng
     mt_kernel.launches = 0
     gather.launches = gather.rows = gather.plain_grad_calls = 0
+    rng_kernel.launches = rng_kernel.lanes = rng.plain_lanes_cuda = 0
     treelet.launches = 0
     for k in bvh_kernel.launches:
         bvh_kernel.launches[k] = 0
@@ -1714,6 +1730,127 @@ def check_gather_kernel(torch, card):
                 shapes=shapes)
 
 
+RNG_SIZES = (1024, 2048)  # frames: a render pass's lanes a draw
+RNG_OPS = 72             # int32 operations a lane of the hash (rng_kernel.cu)
+PEAK_INT32 = 64 * 132 * 1.98e9   # int32 operations a second: 64 a clock
+#                                  on each of 132 SMs at 1.98 GHz
+
+
+def rng_drawn(what: str) -> dict:
+    """The RNG's counts since the last reset: the kernel's launches and
+    lanes, and the lanes the torch path drew on the card, which must be 0
+    (every draw of a main path through the kernel, and at least one)."""
+    from raytracingrenderer_tpu_torch.ops import rng_kernel
+    from raytracingrenderer_tpu_torch.sampling import rng
+    c = dict(launches=rng_kernel.launches, lanes=rng_kernel.lanes,
+             plain_lanes_cuda=rng.plain_lanes_cuda)
+    log(f"{what}: the RNG kernel's launches {c['launches']}, lanes "
+        f"{c['lanes']}; lanes the torch path drew on the card "
+        f"{c['plain_lanes_cuda']}")
+    if c["plain_lanes_cuda"] or not c["launches"]:
+        fail(f"{what}: a draw on the card left the RNG kernel, or none "
+             f"reached it")
+    return c
+
+
+def on_torch_path(draw):
+    """draw() with every draw on the torch ops, on the card too (the
+    dispatch rule patched for the call)."""
+    from raytracingrenderer_tpu_torch.sampling import rng
+    rule = rng.takes_kernel
+    rng.takes_kernel = lambda device: False
+    try:
+        return draw()
+    finally:
+        rng.takes_kernel = rule
+
+
+def check_rng_kernel(torch, card):
+    """Phase 13 (0): the RNG's threefry kernel at a render pass's shapes,
+    1024x1024 and 2048x2048 lanes.  Gates: each draw equal bit for bit to
+    the torch path's (the dispatch rule patched), in one launch of the
+    frame's lanes and none on the torch path: `uniform_ids` on int32 and
+    int64 pixel ids, in order and permuted (as compaction leaves them);
+    `uniform` in the jitter's shape, over the frame and over its lower
+    half as a band (offset); `random_bits` (int64 words); `randint` (two
+    launches).  At 2048x2048, device times (probes.device_ms; beside them
+    a call back to back by CUDA events, which is the host's launch path),
+    the torch path's, the bound (the larger of RNG_OPS int32 operations a
+    lane over PEAK_INT32 and the bytes over PEAK_BYTES) -> the kernels
+    line's entry."""
+    from raytracingrenderer_tpu_torch.ops import rng_kernel
+    from raytracingrenderer_tpu_torch.probes import device_ms
+    from raytracingrenderer_tpu_torch.sampling import rng
+    key = rng.spp_key(rng.PRNGKey(2**31 - 1), 3)
+    draws = {}
+    for size in RNG_SIZES:
+        n = size * size
+        ids = torch.arange(n, dtype=torch.int64, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(size)
+        perm = ids[torch.randperm(n, generator=g, device="cuda")]
+        cases = {}
+        for dtype in (torch.int32, torch.int64):
+            for order, i in (("in_order", ids), ("permuted", perm)):
+                i = i.to(dtype)
+                cases[f"uniform_ids/{str(dtype)[6:]}/{order}"] = (
+                    lambda i=i: rng.uniform_ids(key, 2, rng.BSDF_U, i),
+                    n, 1, n * (i.element_size() + 4))
+        half = size // 2
+        cases["uniform/jitter"] = (
+            lambda: rng.uniform(key, 0, rng.PIXEL_JITTER_X, (size, size),
+                                "cuda"), n, 1, n * 4)
+        cases["uniform/jitter_band"] = (
+            lambda: rng.uniform(key, 0, rng.PIXEL_JITTER_Y, (half, size),
+                                "cuda", half * size), half * size, 1,
+            half * size * 4)
+        cases["random_bits"] = (
+            lambda: rng.random_bits(key, (n,), "cuda"), n, 1, n * 8)
+        cases["randint"] = (
+            lambda: rng.randint(key, (n,), 0, 1000, "cuda"), 2 * n, 2, None)
+        for name, (draw, lanes, launches, nbytes) in cases.items():
+            what = f"rng {name}, {size}x{size}"
+            c0 = (rng_kernel.launches, rng_kernel.lanes, rng.plain_lanes_cuda)
+            got = draw()
+            c1 = (rng_kernel.launches, rng_kernel.lanes, rng.plain_lanes_cuda)
+            if tuple(b - a for a, b in zip(c0, c1)) != (launches, lanes, 0):
+                fail(f"{what}: launches, lanes and torch-path lanes "
+                     f"{[b - a for a, b in zip(c0, c1)]}, expected "
+                     f"{[launches, lanes, 0]}")
+            if not torch.equal(got, on_torch_path(draw)):
+                fail(f"{what}: the kernel's bits differ from the torch "
+                     f"path's")
+            if size != RNG_SIZES[-1] or nbytes is None:
+                log(f"{what}: the torch path's bits, {launches} launch(es)")
+                continue
+            ms = device_ms(draw, 50)
+            call_ms = time_ms(torch, draw, 200)
+            plain_ms = device_ms(lambda: on_torch_path(draw), 3)
+            ops_ms = lanes * RNG_OPS / PEAK_INT32 * 1e3
+            bytes_ms = nbytes / PEAK_BYTES * 1e3
+            b = max(ops_ms, bytes_ms)
+            ent = draws[name] = dict(
+                lanes=lanes, ms=ms, bound_ms=b,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                bound_share=b / ms if ms else None, ops_ms=ops_ms,
+                bytes_ms=bytes_ms, call_ms=call_ms, plain_ms=plain_ms)
+            log(f"{what}: the torch path's bits; device ms: kernel "
+                f"{ms:.5f} (bound {b:.5f}: operations {ops_ms:.5f}, bytes "
+                f"{bytes_ms:.5f}; {ent['bound_share']:.1%} of it; a call "
+                f"back to back {call_ms:.5f}), the torch path {plain_ms:.4f}"
+                f" [{card}]")
+    n = RNG_SIZES[-1] ** 2
+    ids = torch.arange(n, dtype=torch.int64, device="cuda")
+    host_us = host_us_a_call(
+        torch, lambda: rng.uniform_ids(key, 2, rng.BSDF_U, ids))
+    main = draws["uniform_ids/int64/in_order"]
+    return dict(name="rng_threefry", route="cuda",
+                source="raytracingrenderer_tpu_torch/csrc/rng_kernel.cu",
+                replaces=None, lanes=n, ms=main["ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                bound_share=main["bound_share"], plain_ms=main["plain_ms"],
+                library_ms=None, host_us_call=host_us, draws=draws)
+
+
 class WatchBackward:
     """Counts of the kernels' launches made inside each torch.autograd.grad
     call (the backward of a training step), with that function wrapped
@@ -1832,6 +1969,7 @@ def train_cornell(torch, card, cornell, fwd_pps, steps=TRAIN_STEPS,
     launches = mt_kernel.launches
     gathers = dict(launches=gather.launches, rows=gather.rows,
                    plain_grad_calls=gather.plain_grad_calls)
+    drawn = rng_drawn(f"training {name}, {steps} step(s)")
     pps = cam.width * cam.height * steps / dt
     losses = losses.cpu().numpy()
     log(f"training {name} {cam.width}x{cam.height}, train_steps "
@@ -1892,7 +2030,7 @@ def train_cornell(torch, card, cornell, fwd_pps, steps=TRAIN_STEPS,
             for r, (peak, held) in mem.items()) + f" [{card}]")
     return dict(fwdbwd_pps=pps, fwd_over_fwdbwd=fwd_pps / pps,
                 b1_launches=launches, bwd_launches=bwd.launches(),
-                gathers=gathers, losses=losses.tolist(),
+                gathers=gathers, rng=drawn, losses=losses.tolist(),
                 **{f"peak_bytes_{'remat' if r else 'no_remat'}": m[0]
                    for r, m in mem.items()}, **prof)
 
@@ -1935,6 +2073,7 @@ def train_spheres(torch, card, spheres, fwd_pps, name="spheres",
         k: bvh_kernel.launches[k] for k in ("closest_hit", "any_hit")})
     gathers = dict(launches=gather.launches, rows=gather.rows,
                    plain_grad_calls=gather.plain_grad_calls)
+    drawn = rng_drawn(f"training {name}, one step")
     pps = cam.width * cam.height / dt
     log(f"training {name} {cam.width}x{cam.height}, one train_step through "
         f"the wavefront backward, lr {TRAIN_LR}, boundary_grads "
@@ -1982,7 +2121,7 @@ def train_spheres(torch, card, spheres, fwd_pps, name="spheres",
         fail(f"non-finite {name} gradients")
     return dict(fwdbwd_pps=pps, fwd_over_fwdbwd=fwd_pps / pps,
                 launches=launches, bwd_launches=bwd.launches(),
-                gathers=gathers, peak_bytes=peak, refit_ms=refit_s * 1e3,
+                gathers=gathers, rng=drawn, peak_bytes=peak, refit_ms=refit_s * 1e3,
                 repack_ms=repack_s * 1e3, **prof)
 
 
@@ -2064,6 +2203,7 @@ def sky_phase(torch, card, scenes, tmp, out_dir):
     if min(b2.values()) == 0 or b1 == 0 or intersect.stackless_calls:
         fail("the sky render did not launch both B2 variants and B1's "
              "pre-pass, or took the stackless walk")
+    drawn = rng_drawn("sky render")
     idle = profile_pass(torch, sky, "sky")
     sky128 = scenes.write_sky(os.path.join(tmp, "sky128"), 128, 128,
                               subdiv=2, env_h=256, env_w=512)
@@ -2072,7 +2212,7 @@ def sky_phase(torch, card, scenes, tmp, out_dir):
                      sky128, wave=True)
     cam = sky.camera
     return dict(pps=cam.width * cam.height * SPP / sky_s, s=sky_s,
-                idle=idle, launches=dict(mt=b1, **b2))
+                idle=idle, launches=dict(mt=b1, **b2), rng=drawn)
 
 
 DISPATCH = ("direct", "albedo", "normals", "lighttrace", "vpl")
@@ -2122,6 +2262,7 @@ def dispatch_phase(torch, card, scenes, tmp, out_dir, cornell, spheres,
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             b1, b2 = b12_counts()
+            drawn = rng_drawn(f"render_with {integ} {sname}")
             img = film_mod.to_hdr(film)
             if not bool(torch.isfinite(img).all()):
                 fail(f"{integ} {sname}: non-finite pixels")
@@ -2150,7 +2291,8 @@ def dispatch_phase(torch, card, scenes, tmp, out_dir, cornell, spheres,
             if integ in ("lighttrace", "vpl") and not brute:
                 idle = profile_pass(torch, scene, f"{integ} {sname}",
                                     run=lambda: render_with(scene, cfg, 1))
-            out[f"{integ}_{sname}"] = dict(pps=pps, s=dt, idle=idle, **got)
+            out[f"{integ}_{sname}"] = dict(pps=pps, s=dt, idle=idle,
+                                           rng=drawn, **got)
     cornell128 = scenes.write_cornell(os.path.join(tmp, "cornell128d"), 128,
                                       128)
     for sname, sdir in (("cornell", cornell128), ("spheres-5156",
@@ -2309,6 +2451,7 @@ def adaptive_phase(torch, card, scenes, tmp, out_dir, cornell, cornell_dir,
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         b1, b2 = b12_counts()
+        drawn = rng_drawn(f"adaptive {sname}")
         got = {"mt": b1, **({} if brute else b2)}
         half = traces * per_trace // 2
         want = ({"mt": traces * per_trace} if brute else
@@ -2341,7 +2484,7 @@ def adaptive_phase(torch, card, scenes, tmp, out_dir, cornell, cornell_dir,
             run=lambda: adaptive._scatter_round(
                 scene, st, rng.PRNGKey(99), specialize_config(cfg, scene),
                 n_round, h, w), what=f"one round of {n_round} rays")
-        out[sname] = dict(pps=pps, s=dt, idle=idle, **got)
+        out[sname] = dict(pps=pps, s=dt, idle=idle, rng=drawn, **got)
         films[sname] = img
     # (2) the command line
     ck = os.path.join(out_dir, "cli_adaptive.npz")
@@ -3098,6 +3241,7 @@ def main() -> None:
         f"{bvh_kernel.launches}")
     if mt_cornell == 0:
         fail("the cornell render never launched mt_kernel")
+    rng_cornell = rng_drawn("cornell render")
 
     # -- 6. main path 2: spheres (BVH, wavefront, B2 + B1) ------------------
     mark(6)
@@ -3114,6 +3258,7 @@ def main() -> None:
         fail("the spheres render never launched the proxy pre-pass")
     if intersect.stackless_calls:
         fail("the spheres render took the stackless walk")
+    rng_spheres = rng_drawn("spheres render")
     profile_pass(torch, spheres, "spheres")
     # the same render through the scan integrator, timed beside it
     scan_img, scan_s = render_full(torch, spheres, "spheres-scan", card,
@@ -3152,6 +3297,7 @@ def main() -> None:
     tl_launches = dict(pair_test=treelet.launches, mt=mt_kernel.launches,
                        **{k: bvh_kernel.launches[k]
                           for k in ("closest_hit", "any_hit")})
+    rng_treelet = rng_drawn("spheres-treelet render")
     log(f"spheres-treelet launches: {tl_launches}, treelet calls "
         f"{intersect.treelet_calls}, stackless walks "
         f"{intersect.stackless_calls}")
@@ -3174,6 +3320,7 @@ def main() -> None:
     # -- 13. main path 5: training (diff.train_steps / train_step) ----------
     mark(13)
     gk = check_gather_kernel(torch, card)
+    rk = check_rng_kernel(torch, card)
     tr_a = train_cornell(torch, card, cornell, cornell_pps)
     tr_b = train_spheres(torch, card, spheres, spheres_pps)
     grads_gpu_vs_cpu(torch, "cornell 128x128 (scan)", scenes.write_cornell(
@@ -3311,6 +3458,21 @@ def main() -> None:
                     tr_c["gathers"]["launches"]),
                 plain_grad_calls_training_spheres=(
                     tr_b["gathers"]["plain_grad_calls"]))]
+        + [dict(rk, launches=rng_cornell["launches"],
+                launches_spheres=rng_spheres["launches"],
+                launches_treelet_path=rng_treelet["launches"],
+                launches_training_cornell=tr_a["rng"]["launches"],
+                launches_training_spheres=tr_b["rng"]["launches"],
+                launches_training_boundary_cornell=tr_c["rng"]["launches"],
+                launches_training_boundary_spheres=tr_d["rng"]["launches"],
+                launches_sky=sky["rng"]["launches"],
+                launches_render_with={k: v["rng"]["launches"]
+                                      for k, v in disp.items()},
+                plain_lanes_cuda=sum(
+                    c["plain_lanes_cuda"] for c in (
+                        rng_cornell, rng_spheres, rng_treelet,
+                        *(t["rng"] for t in (tr_a, tr_b, tr_c, tr_d)),
+                        sky["rng"], *(v["rng"] for v in disp.values()))))]
         + probes}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -18,7 +18,9 @@ by the chain of spans they fall in (`walk`).  It counts one more pass
 (profiling.counting: lanes and live lanes a bounce; the kernels' rays
 and launches) and one more step (the gathers' transpose launches, the
 indices they reduced, and the gradient-carrying gathers left on plain
-indexing and their indices: the share of them the kernel took).  What
+indexing and their indices: the share of them the kernel took), and in
+both the RNG kernel's launches and lanes, the lanes the torch path drew
+on the card, and the share of the card's lanes the kernel drew.  What
 tracing costs: `rounds` rounds, each a profiled block with the spans
 on, one with them off, an unprofiled pass or step, and a counted one,
 timed by the host clock after a synchronise.  Needs a card.
@@ -88,7 +90,7 @@ def walk(events, wall_s: float, units: int) -> Dict:
     left out), launched (the device events whose runtime call is in the
     trace), spans {name: {calls, host_ms, self_host_ms, device_ms,
     kernels, idle_ms}} a unit over each name's outermost instances (a
-    span inside one of its own name, as rng.uniform's random_bits, is
+    span inside one of its own name, as rng.randint's random_bits, is
     counted in it): self host ms is the duration less the child spans',
     device ms and kernels those whose runtime call lies inside the
     instance, on any thread (a FunctionEvent's own `kernels`, and so
@@ -229,13 +231,25 @@ def timed(fn) -> float:
 
 
 def counters() -> Dict:
-    from raytracingrenderer_tpu_torch.ops import bvh_kernel, gather, mt_kernel
+    from raytracingrenderer_tpu_torch.ops import (bvh_kernel, gather,
+                                                 mt_kernel, rng_kernel)
+    from raytracingrenderer_tpu_torch.sampling import rng
     return dict(mt_rays=mt_kernel.rays, mt_launches=mt_kernel.launches,
                 bvh_rays=sum(bvh_kernel.rays.values()),
                 bvh_launches=sum(bvh_kernel.launches.values()),
                 gather_launches=gather.launches, gather_rows=gather.rows,
                 gather_plain_grad_calls=gather.plain_grad_calls,
-                gather_plain_grad_rows=gather.plain_grad_rows)
+                gather_plain_grad_rows=gather.plain_grad_rows,
+                rng_kernel_launches=rng_kernel.launches,
+                rng_kernel_lanes=rng_kernel.lanes,
+                rng_plain_lanes_cuda=rng.plain_lanes_cuda)
+
+
+def rng_engaged_pct(c: Dict):
+    """100 x the kernel's lanes over all lanes drawn on the card, of a
+    counters() difference; None where nothing was drawn."""
+    drawn = c["rng_kernel_lanes"] + c["rng_plain_lanes_cuda"]
+    return 100.0 * c["rng_kernel_lanes"] / drawn if drawn else None
 
 
 def main() -> None:
@@ -306,9 +320,10 @@ def main() -> None:
             cost["counted_s"].append(timed(one_pass))
         if r == 0:
             after = counters()
+            drawn = {k: after[k] - before[k] for k in after}
             emit(what="render counted pass", size=args.size, **c,
-                 live_pct=100.0 * c["live"] / c["lanes"],
-                 **{k: after[k] - before[k] for k in after})
+                 live_pct=100.0 * c["live"] / c["lanes"], **drawn,
+                 rng_engaged_pct=rng_engaged_pct(drawn))
     emit(what="render cost, s a pass", **cost)
 
     target = torch.zeros((args.train_size, args.train_size, 3), device=dev)
@@ -330,7 +345,8 @@ def main() -> None:
     engaged = c["gather_launches"] + c["gather_plain_grad_calls"]
     emit(what="train counted step", size=args.train_size, **c,
          gather_engaged_pct=(100.0 * c["gather_launches"] / engaged
-                             if engaged else None))
+                             if engaged else None),
+         rng_engaged_pct=rng_engaged_pct(c))
     cost = {k: [] for k in ("traced_spans_s", "traced_s", "untraced_s")}
     for r in range(args.rounds):
         ev, w_on = profiled(one_step, 1, True)

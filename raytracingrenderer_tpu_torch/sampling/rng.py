@@ -8,9 +8,15 @@ the same bits in both packages and renders compare pixel by pixel.
 
 A key is a pair of Python ints `(k0, k1)`, each a 32-bit word: keys are
 tiny and are derived on the host (`fold_in` per sample and per
-decision).  Random words on the device are int64 tensors masked with
-`& 0xFFFFFFFF` after each step, so no intermediate overflows.  There is
-no `torch.Generator` and no global state.
+decision).  There is no `torch.Generator` and no global state.
+
+Two paths compute the same bits.  On a CUDA device every draw is one
+launch of csrc/rng_kernel.cu (ops/rng_kernel.py; `takes_kernel` is the
+rule).  Elsewhere the draws run `threefry2x32` as int64 torch operations,
+each masked with `& 0xFFFFFFFF` so that no intermediate overflows: the
+CPU's path, and the kernel's oracle.  `plain_lanes_cuda` counts the lanes
+that the torch operations drew on a CUDA device, which the rule leaves at
+0.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from typing import Tuple
 
 import torch
 
+from ..ops import rng_kernel
 from ..utils.profiling import spanned
 
 # Decision ids: stable enumeration of every RNG consumption point so that
@@ -44,6 +51,19 @@ Key = Tuple[int, int]
 
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+plain_lanes_cuda = 0     # lanes the torch operations drew on a CUDA device
+
+
+def takes_kernel(device: torch.device) -> bool:
+    """The dispatch rule: draws on a CUDA device launch the kernel."""
+    return device.type == "cuda"
+
+
+def _count_plain(device: torch.device, n: int) -> None:
+    global plain_lanes_cuda
+    if device.type == "cuda":
+        plain_lanes_cuda += n
 
 
 def _rotl(x, r: int):
@@ -99,21 +119,36 @@ def split(key: Key) -> Tuple[Key, Key]:
 def random_bits(key: Key, shape, device=None, offset: int = 0
                 ) -> torch.Tensor:
     """`jax.random.bits(key, shape)` (32-bit, partitionable layout):
-    counters (0, flat index), hi and lo words XORed.
+    counters (0, flat index), hi and lo words XORed, as int64.
 
     `offset` is the flat index of the first lane: the lanes of a band
     that starts at lane `offset` of a larger draw get exactly the bits
     that the larger draw gives them, so a rank's share of a batch
     (parallel/) draws what the whole batch draws there."""
+    return _bits(key, shape, device, offset, False)
+
+
+def _bits(key: Key, shape, device, offset: int, unit_float: bool
+          ) -> torch.Tensor:
+    """random_bits, or with `unit_float` its `_bits_to_unit_float`."""
     n = 1
     for s in shape:
         n *= int(s)
     if not (0 <= offset and offset + n <= 2**32):
         raise ValueError(f"lanes [{offset}, {offset + n}) exceed the "
                          f"32-bit counter")
-    lo = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
-    y0, y1 = threefry2x32(key, 0, lo)
-    return (y0 ^ y1).reshape(shape)
+    dev = (torch.device(device) if device is not None
+           else torch.get_default_device())
+    if takes_kernel(dev):
+        out = rng_kernel.random_bits(key, n, offset, dev, unit_float)
+    else:
+        _count_plain(dev, n)
+        lo = torch.arange(offset, offset + n, dtype=torch.int64, device=dev)
+        y0, y1 = threefry2x32(key, 0, lo)
+        out = y0 ^ y1
+        if unit_float:
+            out = _bits_to_unit_float(out)
+    return out.reshape(shape)
 
 
 def _bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
@@ -129,8 +164,8 @@ def uniform(key: Key, bounce: int, decision: int, shape,
     """U[0,1) tensor of `shape` for one decision point of one bounce
     (= `jax.random.uniform(decision_key(...), shape)`); `offset` as in
     `random_bits`."""
-    return _bits_to_unit_float(random_bits(
-        decision_key(key, bounce, decision), shape, device, offset))
+    return _bits(decision_key(key, bounce, decision), shape, device, offset,
+                 True)
 
 
 @spanned("rtr.rng")
@@ -138,7 +173,7 @@ def raw_uniform(key: Key, shape, device=None, offset: int = 0
                 ) -> torch.Tensor:
     """`jax.random.uniform(key, shape)`: U[0,1) straight from `key`, with
     no decision key folded in (the adaptive sampler's draws)."""
-    return _bits_to_unit_float(random_bits(key, shape, device, offset))
+    return _bits(key, shape, device, offset, True)
 
 
 @spanned("rtr.rng")
@@ -168,6 +203,11 @@ def uniform_ids(key: Key, bounce: int, decision: int,
     (pixel id, bounce*16 + decision), so every stream is invariant under
     lane permutation.  Top 24 bits of the first output word, scaled by
     2^-24."""
-    y0, _ = threefry2x32(key, ids.to(torch.int64),
-                         (bounce * _NUM_DECISIONS + decision) & MASK)
+    counter = (bounce * _NUM_DECISIONS + decision) & MASK
+    if takes_kernel(ids.device):
+        if ids.dtype not in (torch.int32, torch.int64):
+            ids = ids.to(torch.int64)
+        return rng_kernel.uniform_ids(key, counter, ids)
+    _count_plain(ids.device, ids.numel())
+    y0, _ = threefry2x32(key, ids.to(torch.int64), counter)
     return (y0 >> 8).to(torch.float32) * (2.0 ** -24)

@@ -93,13 +93,13 @@ def test_spans_nest_as_the_layers_call_each_other(scene):
         assert inner and all(any(_inside(s, b) for b in bounces)
                              for s in inner if name != "rtr.rng")
     # 6 closest hits and 6 shadow batches a pass, the jitter's 2 draws
-    # outside the bounces (each with its random_bits inside)
+    # outside the bounces (each one draw, no random_bits span inside)
     assert sum(_inside(s, pas) for s in by["rtr.intersect"]) == 12
     draws = [s for s in by["rtr.rng"] if _inside(s, pas)
              and not any(_inside(s, b) for b in bounces)]
     outer = [s for s in draws
              if not any(t != s and _inside(s, t) for t in draws)]
-    assert (len(draws), len(outer)) == (4, 2)
+    assert (len(draws), len(outer)) == (2, 2)
     for name in ("rtr.forward", "rtr.backward", "rtr.sgd"):
         (s,) = by[name]
         assert _inside(s, ts)
@@ -196,7 +196,7 @@ def test_walk_of_a_cpu_profile(scene):
     assert sp["rtr.bounce"]["calls"] == CFG.max_depth + 2
     assert sp["rtr.intersect"]["calls"] == 12
     # 8 draws a bounce (4 for NEE, RR, 3 for the BSDF), the jitter's 2;
-    # uniform's random_bits is inside its own draw's span
+    # a draw inside another (randint's random_bits) counted in the outer
     assert sp["rtr.rng"]["calls"] == 8 * (CFG.max_depth + 2) + 2
     for row in sp.values():
         assert 0 <= row["self_host_ms"] <= row["host_ms"]
