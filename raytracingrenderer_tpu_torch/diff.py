@@ -29,7 +29,6 @@ stale: call geometry.refit.refit(scene) after it.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Callable, Dict, Tuple
 
@@ -123,23 +122,19 @@ def _diff_cfg(cfg: RenderConfig, scene: Scene) -> RenderConfig:
 
 
 def value_and_grad(scene: Scene, target: torch.Tensor, key,
-                   cfg: RenderConfig, sample: Callable = None,
-                   around: Callable = None) -> Tuple[torch.Tensor, Dict]:
+                   cfg: RenderConfig, sample: Callable = None
+                   ) -> Tuple[torch.Tensor, Dict]:
     """(loss, gradients by parameter key) of render_loss at the scene's
-    parameters, with `cfg` as given (callers pass `_diff_cfg`'s).
-    `around(half)`, where given, makes a context manager that is entered
-    around each half, "forward" (render_loss, recorded for autograd) then
-    "backward" (torch.autograd.grad): probes.profile_train_step times the
-    halves through it."""
-    if around is None:
-        around = lambda half: contextlib.nullcontext()  # noqa: E731
+    parameters, with `cfg` as given (callers pass `_diff_cfg`'s).  The
+    spans `rtr.forward` (render_loss, recorded for autograd) and
+    `rtr.backward` (torch.autograd.grad) split it into its halves."""
     params, _ = _split_scene(scene)
     leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
     live = _rebuild(params, leaves)
     with torch.enable_grad():
-        with around("forward"), span("rtr.forward"):
+        with span("rtr.forward"):
             loss = render_loss(live, scene, target, key, cfg, sample)
-        with around("backward"), span("rtr.backward"):
+        with span("rtr.backward"):
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
@@ -156,17 +151,16 @@ def _sgd(scene: Scene, grads, lr: float) -> Scene:
     return _merge_scene(_rebuild(params, new), scene)
 
 
-def loss_and_grads(scene: Scene, target, key, cfg: RenderConfig,
-                   around: Callable = None) -> Tuple[torch.Tensor, Dict]:
+def loss_and_grads(scene: Scene, target, key, cfg: RenderConfig
+                   ) -> Tuple[torch.Tensor, Dict]:
     """(loss, gradients by parameter key), dispatched as render() does:
     BVH-scale scenes (or cfg.wavefront) through the compacting wavefront,
-    the rest through the scan.  `around` as in value_and_grad."""
+    the rest through the scan."""
     from .render import _use_wavefront
     if _use_wavefront(scene, cfg):
         from .integrators import wavefront_diff
-        return wavefront_diff.loss_and_grads(scene, target, key, cfg, around)
-    return value_and_grad(scene, target, key, _diff_cfg(cfg, scene),
-                          around=around)
+        return wavefront_diff.loss_and_grads(scene, target, key, cfg)
+    return value_and_grad(scene, target, key, _diff_cfg(cfg, scene))
 
 
 @spanned("rtr.train_step")

@@ -21,7 +21,7 @@ scan integrator's to float tolerance (tests/test_torch_diff.py).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -30,17 +30,15 @@ from ..scene.types import Scene
 
 
 def loss_and_grads(scene: Scene, target: torch.Tensor, key,
-                   cfg: RenderConfig, around: Callable = None
-                   ) -> Tuple[torch.Tensor, Dict]:
+                   cfg: RenderConfig) -> Tuple[torch.Tensor, Dict]:
     """MSE loss against `target` and its gradient by parameter key
     (diff.PARAM_KEYS), through the compacting wavefront: the
-    counterpart of diff.value_and_grad for BVH-scale scenes (`around` as
-    there)."""
+    counterpart of diff.value_and_grad for BVH-scale scenes."""
     from .. import diff
     from .wavefront import sample_image_wavefront
     return diff.value_and_grad(scene, target, key,
                                diff._diff_cfg(cfg, scene),
-                               sample=sample_image_wavefront, around=around)
+                               sample=sample_image_wavefront)
 
 
 def train_step(scene: Scene, target: torch.Tensor, key, cfg: RenderConfig,

@@ -53,8 +53,8 @@ per output is at most TF32_KERNEL_BOUND * sum_k |a_k b_k| (`tf32_scale`
 computes that sum, the max of it where a min was taken).
 
 CUDA tensors launch a kernel or raise; CPU tensors take the plain
-version.  `launches` counts kernel launches, by the names of the kernels
-line of chip_smoke.py.  Nothing is built at import.
+version.  `launches` counts kernel launches, by kernel name ("visit/<variant>",
+"dot/<precision>", "relayout").  Nothing is built at import.
 
 The fp32 min visit (reduce="min", layout="ray", precision="highest", in
 the three tile modes) runs 4 rays a thread and splits a tile's columns

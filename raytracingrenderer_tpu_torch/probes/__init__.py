@@ -14,12 +14,13 @@ events over repeated launches after a warm-up; the TFLOP/s keep the
 scripts' count, visits * 2 * 16 * TT * R.
 
 Each module lists its visit runs in CONFIGS (dicts of `visit`'s
-arguments, sizes included), which chip_smoke.py also reads.
+arguments, sizes included), which `bench_visit` and the card tests
+(tests/test_torch_cuda.py) also read.
 
-Beside them: `bench_b2`, `bench_visit` and `bench_pairs` (a kernel
-source checked and timed beside another commit's in one call) and
-`trace_gpu_cpu` (the torch operators that make a render on the card part
-from the CPU's).
+Beside them, each checking a kernel source and timing it beside another
+commit's in one call: `bench_b2` (B2, B3), `bench_pairs` (B1, B4),
+`bench_visit` (P1-P3) and `bench_gather_rng` (G1, R1); and
+`trace_spans` (a pass and a training step by the program's spans).
 """
 from __future__ import annotations
 
@@ -189,63 +190,3 @@ def device_ms(fn: Callable, iters: int = 50):
             return sum(us / n * -(-n // iters) for us, n in rows) / 1e3
     return None
 
-
-def profile_train_step(scene, cfg, target, key, ranges=(),
-                       halves=("forward", "backward")) -> Tuple:
-    """One training step (diff.loss_and_grads, dispatched as train_step
-    does) with each half in `halves` under torch.profiler: the forward
-    (render_loss, recording for autograd) and the backward
-    (torch.autograd.grad) -> (gradients by key, dict of fwd_ms / bwd_ms,
-    the wall times, fwd_busy_ms / bwd_busy_ms, the device rows' time
-    (None for a half not profiled), fwd_ops / bwd_ops, [(host operator,
-    its own device ms, calls)] of each half by device time, and
-    fwd_ranges / bwd_ranges, {name: (device ms, calls)} of the program's
-    spans named in `ranges` (utils/profiling, recorded for the step)
-    that a half entered).  Walking a profiled half's events takes tens
-    of seconds with the boundary term on, the backward's most."""
-    import contextlib
-    import time
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from raytracingrenderer_tpu_torch import diff
-    from raytracingrenderer_tpu_torch.utils.profiling import (SPAN_PREFIX,
-                                                              spans_on)
-    profs, wall = {}, {}
-
-    @contextlib.contextmanager
-    def around(half):
-        torch.cuda.synchronize()
-        with (profile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA])
-              if half in halves else contextlib.nullcontext()) as prof:
-            t0 = time.perf_counter()
-            yield
-            torch.cuda.synchronize()
-            wall[half] = (time.perf_counter() - t0) * 1e3
-        if prof is not None:
-            profs[half] = prof
-
-    with spans_on():
-        _, grads = diff.loss_and_grads(scene, target, key, cfg, around)
-    averages = {h: p.key_averages() for h, p in profs.items()}
-    busy = {h: sum(us for _, us, _ in device_rows(p, averages[h])) / 1e3
-            for h, p in profs.items()}
-    out = dict(fwd_ms=wall["forward"], bwd_ms=wall["backward"],
-               fwd_busy_ms=busy.get("forward"),
-               bwd_busy_ms=busy.get("backward"))
-    for half in ("forward", "backward"):
-        tag = {"forward": "fwd", "backward": "bwd"}[half]
-        if half not in profs:
-            out[f"{tag}_ops"], out[f"{tag}_ranges"] = [], {}
-            continue
-        avgs = [e for e in averages[half]
-                if e.device_type == DeviceType.CPU]
-        ops = sorted(((e.key, (getattr(e, "self_device_time_total", 0)
-                               or 0) / 1e3, e.count) for e in avgs
-                      if not e.key.startswith(SPAN_PREFIX)),
-                     key=lambda r: -r[1])
-        out[f"{tag}_ops"] = [r for r in ops if r[1] > 0][:10]
-        out[f"{tag}_ranges"] = {
-            e.key: ((getattr(e, "device_time_total", 0) or 0) / 1e3, e.count)
-            for e in avgs if e.key in ranges}
-    return grads, out

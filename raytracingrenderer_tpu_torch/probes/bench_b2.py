@@ -13,8 +13,8 @@ over raw leaves) and every B2 launch of one sample pass of the render
 (coherence-sorted, narrowing: the main path's shapes), closest-hit and
 any-hit, the any-hit ones over both leaf forms.  `--wide` adds B3 on the
 2^20 random rays and on the pass's bounce and shadow launches (every
-launch but the primary closest-hit one, as chip_smoke.py phase 8 feeds
-it), and B2 on the same bounce launches ("pass bounce"; its shadow
+launch but the primary closest-hit one, as
+tests/test_torch_cuda.py::test_bvh_scale_walks_match_plain feeds it), and B2 on the same bounce launches ("pass bounce"; its shadow
 launches are the "pass any" sets).  Each kernel must equal
 `traverse_plain` bit for bit on every batch, or the script exits 1.
 Times are CUDA events over back-to-back calls of `traverse_packet`, the

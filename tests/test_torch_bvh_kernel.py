@@ -27,7 +27,7 @@
   as a permutation round trip.
 
 The CUDA kernel itself is checked against `traverse_plain` by
-tests/test_torch_cuda.py and chip_smoke.py on the card."""
+tests/test_torch_cuda.py on the card."""
 import jax.numpy as jnp
 import numpy as np
 import pytest

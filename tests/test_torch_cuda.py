@@ -52,32 +52,43 @@ raise, and a cornell gradient through it at 128x128 is held to plain
 indexing's within 1e-6; a gather of a table past the kernel's (a BVH
 scene's tri_p0) counts its indices in gather.plain_grad_rows.  The relayout kernel is also held bit for bit at
 one block of 32 rows, odd block counts and past one wave of its grid,
-on values >= 2^25 and fractions.  A cornell gradient with the boundary
-term (32x32) on the card is held to the CPU's by chip_smoke.py's
-gradient gate, with no kernel launched in the backward.  The sky scene
-(envmap lighting) and every integrator of `dispatch.render_with`, on the
-cornell box and the spheres scene, are held to the CPU at 32x32 as the
-renders are, the adaptive one too; so are the denoiser and the command
-line (cli.main on the card, adaptive, with -denoise, -profile and a
-checkpoint resumed).  parallel/ on the card: two gloo ranks sharing
-cuda:0 (tests/torch_dist.py) at 128x128, render_sharded on both scenes
-and the overlapped gradients held to the CPU's one-process results, and
-traverse_sharded over the scene sharded between them held to the CPU's
-replicated walk; render_elastic's command-line workers on the card, one
-killed and resumed bit for bit, held to a CPU worker."""
+on values >= 2^25 and fractions.  B2 and B3 are also held bit for bit
+on the 327,716-triangle tree (2^20 + 77 rays, a pass's launches), B4
+on a treelet pass's launches there, and
+the wavefront, the scan and the treelet route agree there.  Gradients
+(with and without the boundary term, the sky's env_data) on the card
+are held to the CPU's by `_grads_close`; a train step's gates (kernels
+in the forward only, G1 launched, descent) on both integrators.  The
+sky scene (envmap lighting) and every integrator of
+`dispatch.render_with`, on the cornell box and the spheres scene, are
+held to the CPU at 32x32 as the renders are, with every launch of their
+passes, the adaptive one too (and its draws' tiles); so are the
+denoiser, the probes' visit runs and the command line (cli.main on the
+card: adaptive, a resume with -denoise, -keys).  parallel/ on the card:
+render_sharded over NCCL with one rank; two gloo ranks sharing cuda:0
+(tests/torch_dist.py) at 128x128, render_sharded on both scenes, the
+overlapped and barriered gradients, a scene-sharded render,
+adaptive_render(mesh=), light_trace_pass(mesh=) and train_step_overlap
+held to one-process results, and traverse_sharded over the scene sharded
+between them held to the replicated walk on the card and on the CPU;
+render_elastic's command-line
+workers on the card, one killed and resumed bit for bit."""
 import ctypes
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from raytracingrenderer_tpu_torch.config import RenderConfig
+from raytracingrenderer_tpu_torch.config import MAX_VPL, RenderConfig
 from raytracingrenderer_tpu_torch.core.vec import V3
 from raytracingrenderer_tpu_torch.geometry import intersect
 from raytracingrenderer_tpu_torch.imaging import film as film_mod
 from raytracingrenderer_tpu_torch.ops import (bvh_kernel, gather, mt_kernel,
                                              treelet, visit)
 from raytracingrenderer_tpu_torch.ops.launch import launch
+from raytracingrenderer_tpu_torch.probes import inputs, visit_args
+from raytracingrenderer_tpu_torch.probes.bench_visit import visit_runs
 from raytracingrenderer_tpu_torch.render import render
 from raytracingrenderer_tpu_torch.scene.loader import load_scene
 from gather_model import transpose_model
@@ -107,6 +118,16 @@ def scene_dir(tmp_path_factory):
 def spheres_dir(tmp_path_factory):
     return write_spheres(str(tmp_path_factory.mktemp("spheres")), 32, 32,
                          subdiv=2)
+
+
+@pytest.fixture(scope="module")
+def big(tmp_path_factory):
+    """The spheres scene at BVH scale (327,716 triangles, a tree of depth
+    20) at 128x128, loaded on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return load_scene(write_spheres(str(tmp_path_factory.mktemp("big")),
+                                    128, 128, subdiv=5), "cuda")
 
 
 def _v3(a, dev):
@@ -195,6 +216,7 @@ def test_mt_kernel_matches_plain(cuda, scene_dir, n, n_tri):
 
 
 def test_render_cuda_matches_cpu(cuda, scene_dir):
+    assert load_scene(scene_dir, cuda).triangles.count == 36
     before = mt_kernel.launches
     a = _render(scene_dir, cuda)
     assert mt_kernel.launches - before == 2 * 6 * 2   # spp x bounces x 2
@@ -279,6 +301,88 @@ def test_spheres_render_cuda_matches_cpu(cuda, spheres_dir):
     assert mt_kernel.launches > before[1]
     assert intersect.stackless_calls == before[2]
     _agree(a, _render(spheres_dir, "cpu"))
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["B2", "B3"])
+def test_bvh_scale_walks_match_plain(cuda, big, wide):
+    """B2 (B3) on the 327,716-triangle tree bit for bit, no dead lane
+    hitting: 2^20 + 77 rays, 10% dead, closest- and any-hit (B2 over both
+    leaf forms); and the launches of both variants in a 128x128 pass
+    (probes.capture_pass; B3 all but the primary one, as bench_b2)."""
+    from raytracingrenderer_tpu_torch.probes import capture_pass
+    bvh, tris = big.bvh, big.triangles
+    assert tris.count == 327_716 and bvh.wsel is not None
+    assert bvh_kernel.wide_ok(bvh) and bvh_kernel.usable(bvh)
+    o, d, t0, max_t, _ = _rays_n(cuda, (1 << 20) + 77, 4)
+    kept = []
+
+    def keep(bvh, tris, o, d, t_init, any_hit=False, **kw):
+        kept.append((any_hit, V3(*(c.clone() for c in o)),
+                     V3(*(c.clone() for c in d)), t_init.clone()))
+
+    capture_pass(big, [(bvh_kernel, "traverse_packet", keep)], mis=True,
+                 jitter=True, max_depth=4)
+    assert {a for a, *_ in kept} == {False, True}
+    if wide:
+        kept = [b for b in kept if b[0]] + [b for b in kept if not b[0]][1:]
+    for i, (any_hit, o, d, t_init) in enumerate(
+            [(False, o, d, t0), (True, o, d, max_t)] + kept):
+        key = ("wide_" if wide else "") + ("any_hit" if any_hit
+                                          else "closest_hit")
+        for leaf16 in ((None, False) if any_hit and not wide else (None,)):
+            before = bvh_kernel.launches[key]
+            hk = bvh_kernel.traverse_packet(bvh, tris, o, d, t_init,
+                                            any_hit=any_hit, leaf16=leaf16,
+                                            wide=wide)
+            torch.cuda.synchronize()
+            assert bvh_kernel.launches[key] == before + 1
+            hp = bvh_kernel.traverse_plain(bvh, tris, o, d, t_init,
+                                           any_hit=any_hit, leaf16=leaf16,
+                                           wide=wide)
+            for k, p in zip(hk, hp):
+                assert torch.equal(k, p), (i, key, leaf16)
+            assert not bool((hk.tri[t_init < 0] >= 0).any())
+            if i < 2:
+                assert (hk.tri >= 0).float().mean().item() > 0.1
+
+
+def test_bvh_scale_routes_agree(cuda, big, monkeypatch):
+    """The 327,716-triangle scene at 128x128, 2 spp, by the wavefront,
+    the scan and the treelet route (B4 too), each with B1 and both B2
+    variants launched and no stackless walk, a plausible image, the scan's
+    and the treelet route's held to the wavefront's by the render bar;
+    every B4 launch of the treelet route bit for bit with pair_test_plain
+    on its inputs."""
+    from raytracingrenderer_tpu_torch.render import _use_wavefront
+    cfg = RenderConfig(mis=True, jitter=True, max_depth=4)
+    assert _use_wavefront(big, cfg)
+    routes = (("wavefront", big, cfg),
+              ("scan", big, dataclasses.replace(cfg, wavefront=False)),
+              ("treelet", big._replace(bvh=treelet.attach_treelets(big.bvh)),
+               cfg))
+    real, pairs = treelet.pair_test, []
+
+    def pair_test(consts, feats, tid):
+        got = real(consts, feats, tid)
+        pairs.append(all(map(torch.equal, got, treelet.pair_test_plain(
+            consts, feats, tid))))
+        return got
+
+    monkeypatch.setattr(treelet, "pair_test", pair_test)
+    imgs = {}
+    for route, sc, c in routes:
+        before = (_launches(), treelet.launches, intersect.treelet_calls,
+                  intersect.stackless_calls)
+        img = film_mod.to_hdr(render(sc, c, spp=2)).cpu().numpy()
+        assert min(_launches(before[0])) > 0, route
+        assert intersect.stackless_calls == before[3]
+        assert (treelet.launches > before[1]) == (route == "treelet")
+        assert (intersect.treelet_calls > before[2]) == (route == "treelet")
+        assert img.shape == (128, 128, 3) and 0.03 < img.mean() < 0.5
+        imgs[route] = img
+    assert pairs and all(pairs)
+    _agree(imgs["scan"], imgs["wavefront"])
+    _agree(imgs["treelet"], imgs["wavefront"])
 
 
 @pytest.mark.parametrize("case", ["full", "one", "33", "half_dead", "miss"])
@@ -403,14 +507,17 @@ def test_pair_kernel_back_to_back_on_a_side_stream(cuda):
 
 def test_treelet_render_cuda_matches_cpu(cuda, spheres_dir):
     """The treelet route on the card: B4, B1 (proxy pre-pass) and B2
-    (the overflow fallback) launch, and the image matches the CPU's."""
+    (the overflow fallback) launch, the CPU takes the route too, and the
+    image matches the CPU's."""
     before = (treelet.launches, mt_kernel.launches,
               bvh_kernel.launches["closest_hit"], intersect.treelet_calls)
     a = _render(spheres_dir, cuda, treelets=True)
     after = (treelet.launches, mt_kernel.launches,
              bvh_kernel.launches["closest_hit"], intersect.treelet_calls)
     assert all(x > y for x, y in zip(after, before))
-    _agree(a, _render(spheres_dir, "cpu", treelets=True))
+    b = _render(spheres_dir, "cpu", treelets=True)
+    assert intersect.treelet_calls > after[3]
+    _agree(a, b)
 
 
 def _visit_inputs(dev, n_tiles, tt, blocks, seed):
@@ -752,34 +859,56 @@ def test_bvh_launches_back_to_back(cuda, spheres_dir):
             assert torch.equal(x, y)
 
 
-def test_train_step_on_the_card(cuda, tmp_path):
-    """One cornell train_step at 256x256 on the card: B1 launches in the
+@pytest.mark.parametrize("which,boundary", [
+    ("cornell", False), ("cornell", True), ("spheres", False),
+    ("spheres", True)])
+def test_train_step_on_the_card(cuda, tmp_path, spheres_dir, which,
+                                boundary):
+    """One train_step (lr 0.01) on the card by the scan (the cornell box
+    at 256x256) and the wavefront (the spheres scene at 32x32), with and
+    without the boundary term: B1 (and both B2 variants) launch in the
     forward and never inside the backward (torch.autograd.grad, watched),
-    whose recompute replays the recorded hits; the loss and the gradients
-    (the step's parameter change over lr) are finite and the vertices
-    moved."""
+    whose recompute replays the recorded hits; G1 launched, for every
+    gather on the cornell box; the loss and the gradients (the step's
+    parameter change over lr) are finite and the vertices moved; the
+    cornell loss on the step's key lower after it, the refitted spheres'
+    gradients finite."""
     from raytracingrenderer_tpu_torch import diff
+    from raytracingrenderer_tpu_torch.geometry.refit import refit
+    from raytracingrenderer_tpu_torch.render import _use_wavefront
     from raytracingrenderer_tpu_torch.sampling import rng
-    scene = load_scene(write_cornell(str(tmp_path), 256, 256), cuda)
-    cfg = RenderConfig(mis=True, jitter=True, max_depth=4)
-    target = torch.zeros((256, 256, 3), device=cuda)
+    scene = load_scene(write_cornell(str(tmp_path), 256, 256)
+                       if which == "cornell" else spheres_dir, cuda)
+    cfg = RenderConfig(mis=True, jitter=True, max_depth=4,
+                       boundary_grads=boundary)
+    assert _use_wavefront(scene, cfg) == (which == "spheres")
+    cam = scene.camera
+    target = torch.zeros((cam.height, cam.width, 3), device=cuda)
+    key = rng.PRNGKey(0)
     real, inside = torch.autograd.grad, []
 
     def grad(*args, **kwargs):
-        before = mt_kernel.launches
+        before = _launches()
         out = real(*args, **kwargs)
-        inside.append(mt_kernel.launches - before)
+        inside.append(_launches(before))
         return out
 
-    before = mt_kernel.launches
+    before = (_launches(), gather.launches, gather.plain_grad_calls)
     torch.autograd.grad = grad
     try:
-        new, loss = diff.train_step(scene, target, rng.PRNGKey(0), cfg,
-                                    lr=0.01)
+        new, loss = diff.train_step(scene, target, key, cfg, lr=0.01)
     finally:
         torch.autograd.grad = real
     torch.cuda.synchronize()
-    assert mt_kernel.launches - before == 12 and inside == [0]
+    got = _launches(before[0])
+    if which == "cornell":
+        # 6 bounces: closest hits, shadow rays (and 2 x 4 boundary probes)
+        assert got == (6 * (10 if boundary else 2), 0, 0)
+        assert gather.plain_grad_calls == before[2]
+    else:
+        assert min(got) > 0
+    assert inside == [(0, 0, 0)]
+    assert gather.launches > before[1]
     assert bool(torch.isfinite(loss))
     old, _ = diff._split_scene(scene)
     now, _ = diff._split_scene(new)
@@ -787,6 +916,133 @@ def test_train_step_on_the_card(cuda, tmp_path):
         assert b.device.type == "cuda"
         assert bool(torch.isfinite((a - b) / 0.01).all())
     assert bool((now["tri_p0"].y != old["tri_p0"].y).any())
+    if which == "cornell":
+        with torch.no_grad():
+            after = diff.render_loss(now, new, target, key,
+                                     diff._diff_cfg(cfg, new))
+        assert float(after) < float(loss)
+    else:
+        _, g = diff.loss_and_grads(refit(new), target, rng.PRNGKey(2), cfg)
+        assert all(bool(torch.isfinite(x).all()) for x in diff._leaves(g))
+
+
+@pytest.mark.parametrize("which,boundary", [
+    ("cornell", False), ("spheres", False), ("spheres", True),
+    ("sky", False)])
+def test_grads_cuda_match_cpu(cuda, tmp_path, which, boundary):
+    """diff.loss_and_grads at 64x64 on the card against "cpu" by
+    `_grads_close`: cornell by the scan, spheres and sky (env_data among
+    the keys) by the wavefront, spheres also with the boundary (cornell's
+    is test_boundary_grads_cuda_match_cpu)."""
+    from raytracingrenderer_tpu_torch import diff
+    from raytracingrenderer_tpu_torch.render import _use_wavefront
+    from raytracingrenderer_tpu_torch.sampling import rng
+    from torch_scenes import write_sky
+    d = {"cornell": lambda: write_cornell(str(tmp_path), 64, 64),
+         "spheres": lambda: write_spheres(str(tmp_path), 64, 64, subdiv=2),
+         "sky": lambda: write_sky(str(tmp_path), 64, 64, subdiv=2,
+                                  env_h=64, env_w=128)}[which]()
+    cfg = RenderConfig(mis=True, jitter=True, max_depth=4,
+                       boundary_grads=boundary)
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        sc = load_scene(d, dev)
+        assert _use_wavefront(sc, cfg) == (which != "cornell")
+        loss, g = diff.loss_and_grads(sc, torch.zeros((64, 64, 3),
+                                                      device=dev),
+                                      rng.PRNGKey(3), cfg)
+        got[dev.type] = (loss.item(), _grads_np(g))
+    assert which != "sky" or "env_data" in got["cpu"][1]
+    _grads_close(got["cuda"], got["cpu"])
+
+
+def test_render_sharded_nccl_world_one(cuda, spheres_dir, tmp_path):
+    """render_sharded over NCCL, this process the one rank: sample_image
+    bit for bit, B1 and both B2 variants launched."""
+    import datetime
+    import torch.distributed as dist
+    from raytracingrenderer_tpu_torch.parallel.mesh import (make_mesh,
+                                                            render_sharded)
+    from raytracingrenderer_tpu_torch.render import sample_image
+    from raytracingrenderer_tpu_torch.sampling import rng
+    scene = load_scene(spheres_dir, cuda)
+    cfg = RenderConfig(mis=True, jitter=True, max_depth=4)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path / 'store'}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=60),
+        device_id=torch.device("cuda", 0))
+    try:
+        before = _launches()
+        img = render_sharded(scene, rng.spp_key(rng.PRNGKey(0), 0), cfg,
+                             make_mesh())
+        assert min(_launches(before)) > 0
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(img, sample_image(scene, rng.spp_key(rng.PRNGKey(0),
+                                                            0), cfg))
+
+
+def test_adaptive_draws_cuda_match_cpu(cuda):
+    """adaptive._sample_pixels on the card and the CPU, same state and
+    key, 16 tiles: a draw in the same tile picks the same pixel; one in
+    another tile is in the next, within 4 * 2^-24 of their CDF boundary
+    (the card's cumsum sums in another order)."""
+    from raytracingrenderer_tpu_torch.config import TILE_SIZE as ts
+    from raytracingrenderer_tpu_torch.integrators import adaptive
+    from raytracingrenderer_tpu_torch.sampling import rng
+    g = torch.Generator().manual_seed(5)
+    four = torch.full((128, 128), 4.0)
+    st = adaptive.AdaptiveState(torch.rand((128, 128, 3), generator=g),
+                                four, torch.rand((128, 128), generator=g),
+                                torch.rand((128, 128), generator=g), four)
+    var = adaptive._tile_variance(st) + 1e-8
+    cdf = torch.cumsum((var / var.sum()).reshape(-1), 0)
+    n = 12_288
+    for seed in range(8):
+        key = rng.PRNGKey(seed)
+        cx, cy = adaptive._sample_pixels(st, key, n, 128, 128)
+        gx, gy = (a.cpu() for a in adaptive._sample_pixels(
+            adaptive.AdaptiveState(*(a.to(cuda) for a in st)), key, n, 128,
+            128))
+        gt, ct = (y // ts * (128 // ts) + x // ts
+                  for x, y in ((gx, gy), (cx, cy)))
+        same = gt == ct
+        assert torch.equal(gx[same], cx[same])
+        assert torch.equal(gy[same], cy[same])
+        u = (torch.arange(n, dtype=torch.float32)
+             + rng.raw_uniform(key, (n,))) / n
+        i = torch.nonzero(~same).flatten()
+        assert bool(((gt[i] - ct[i]).abs() == 1).all())
+        k = torch.minimum(gt[i], ct[i])
+        assert bool(((u[i] - cdf[k]).abs() <= 4 * 2.0 ** -24).all())
+
+
+@pytest.mark.parametrize("name,cfg", visit_runs(),
+                         ids=[n.replace(" ", "-") for n, _ in visit_runs()])
+def test_probe_runs_match_plain(cuda, name, cfg):
+    """Each distinct visit run of the probes at its size (up to 512 visits
+    of 512 tiles, 8 x 4096 rays): fp32 bit for bit, TF32 in its bound."""
+    tab, feats = inputs(cfg["n_tiles"], cfg["tt"], cfg["blocks"], cuda)
+    kw = visit_args(cfg)
+    tk, ok = visit.visit(tab, feats, **kw)
+    tp, op = visit.visit_plain(tab, feats, **kw)
+    assert torch.equal(ok, op)
+    if cfg["precision"] == "highest":
+        assert torch.equal(tk, tp)
+    else:
+        scale = visit.visit_tf32_scale(tab, feats, **{
+            k: kw[k] for k in ("n_visits", "n_tiles", "tile", "layout")})
+        assert ((tk - tp).abs() <= visit.TF32_KERNEL_BOUND * scale).all()
+
+
+def test_probe_entry_points_launch_every_kernel(cuda):
+    """probe_mxu, 2 and 3 launch every kernel of visit_kernel.cu."""
+    from raytracingrenderer_tpu_torch.probes import (probe_mxu, probe_mxu2,
+                                                     probe_mxu3)
+    before = dict(visit.launches)
+    for mod in (probe_mxu, probe_mxu2, probe_mxu3):
+        mod.main()
+    assert all(visit.launches[k] > n for k, n in before.items())
 
 
 GATHER_SHAPES = [(1, 1), (8, 3), (36, 1), (36, 3), (700, 2),
@@ -926,15 +1182,13 @@ def test_param_grads_kernel_against_plain_indexing(cuda, tmp_path,
 
 
 def test_boundary_grads_cuda_match_cpu(cuda, tmp_path):
-    """A cornell gradient with the boundary term at 32x32 on the card
+    """A cornell gradient with the boundary term at 64x64 on the card
     (B1 for the hits, the shadow rays and the boundary probes) against
-    the same on "cpu" (the plain versions), same key: loss within rel
-    1e-4, materials and lights within rtol 1e-3 / atol 1e-3 * max|g|,
-    tri_p0 within a relative L2 error of 1e-2 (chip_smoke.py's gradient
-    gate); no kernel launches inside the backward."""
+    the same on "cpu" (the plain versions), same key, by `_grads_close`'s
+    bars; no kernel launches inside the backward."""
     from raytracingrenderer_tpu_torch import diff
     from raytracingrenderer_tpu_torch.sampling import rng
-    d = write_cornell(str(tmp_path), 32, 32)
+    d = write_cornell(str(tmp_path), 64, 64)
     cfg = RenderConfig(mis=True, jitter=True, max_depth=4,
                        boundary_grads=True)
     got = {}
@@ -952,27 +1206,38 @@ def test_boundary_grads_cuda_match_cpu(cuda, tmp_path):
         torch.autograd.grad = grad
         try:
             loss, g = diff.value_and_grad(
-                scene, torch.zeros((32, 32, 3), device=dev),
+                scene, torch.zeros((64, 64, 3), device=dev),
                 rng.PRNGKey(3), diff._diff_cfg(cfg, scene))
         finally:
             torch.autograd.grad = real
         if dev.type == "cuda":
             # 6 bounces: closest hits, shadow rays, 2 x 4 probes each
             assert mt_kernel.launches - before == 6 * (2 + 8)
-        got[dev.type] = (loss.item(), {
-            k: (v.stacked() if hasattr(v, "stacked") else v).cpu().numpy()
-            for k, v in g.items()})
+        got[dev.type] = (loss.item(), _grads_np(g))
     assert inside == [0, 0]
-    (lg, gg), (lc, gc) = got["cuda"], got["cpu"]
+    assert np.abs(got["cpu"][1]["tri_p0"]).max() > 0
+    _grads_close(got["cuda"], got["cpu"])
+
+
+def _grads_np(g):
+    return {k: (v.stacked() if hasattr(v, "stacked") else v).cpu().numpy()
+            for k, v in g.items()}
+
+
+def _grads_close(got, ref):
+    """(loss, {key: gradient}) against a reference's: the loss within rel
+    1e-4; every gradient finite; tri_p0 within a relative L2 error of
+    1e-2; every other key within rtol 1e-3 / atol 1e-3 * max|g| (a key
+    with no entries, light_le of a scene lit by its sky only, skipped)."""
+    (lg, gg), (lc, gc) = got, ref
     assert lg == pytest.approx(lc, rel=1e-4)
-    for k in diff.PARAM_KEYS:
-        a, b = gg[k], gc[k]
+    for k, b in gc.items():
+        a = gg[k]
         assert np.isfinite(a).all(), k
-        if k == "tri_p0":
-            assert np.abs(b).max() > 0
+        if b.size and k == "tri_p0":
             assert (np.linalg.norm(a - b)
                     / max(np.linalg.norm(b), 1e-30)) <= 1e-2
-        else:
+        elif b.size:
             np.testing.assert_allclose(a, b, rtol=1e-3,
                                        atol=1e-3 * np.abs(b).max(),
                                        err_msg=k)
@@ -980,17 +1245,37 @@ def test_boundary_grads_cuda_match_cpu(cuda, tmp_path):
 
 def test_sky_render_cuda_matches_cpu(cuda, tmp_path):
     """The envmap slice on the card: the 5,122-triangle sky scene (a
-    64 x 128 map, no area light) at 32x32 through the wavefront, B2 and
-    B1's pre-pass launched, against the same render on "cpu"."""
+    64 x 128 map, no area light, its alias table from the native
+    library) at 32x32 through the wavefront, B2 and B1's pre-pass
+    launched, no stackless walk, against the same render on "cpu"."""
     from torch_scenes import write_sky
     d = write_sky(str(tmp_path), 32, 32, subdiv=2, env_h=64, env_w=128)
-    before = (dict(bvh_kernel.launches), mt_kernel.launches)
+    from raytracingrenderer_tpu_torch.geometry import bvh_native
+    before = (dict(bvh_kernel.launches), mt_kernel.launches,
+              intersect.stackless_calls)
     a = _render(d, cuda)
     assert all(bvh_kernel.launches[k] > before[0][k]
                for k in ("closest_hit", "any_hit"))
     assert mt_kernel.launches > before[1]
-    assert load_scene(d, cuda).background.envmap.data.device.type == "cuda"
+    assert intersect.stackless_calls == before[2]
+    env = load_scene(d, cuda).background.envmap.data
+    assert env.device.type == "cuda" and tuple(env.shape) == (64, 128, 3)
+    assert hasattr(bvh_native._load(), "alias_build")
     _agree(a, _render(d, "cpu"))
+
+
+def _launches(before=(0, 0, 0)):
+    """(B1, B2 closest-hit, B2 any-hit) launches since `before`."""
+    return tuple(n - b for n, b in zip((
+        mt_kernel.launches, bvh_kernel.launches["closest_hit"],
+        bvh_kernel.launches["any_hit"]), before))
+
+
+# (closest-hit, any-hit) traversal calls of a render_with pass by max_depth
+_CALLS = {"direct": lambda m: (1, 1), "albedo": lambda m: (1, 0),
+          "normals": lambda m: (1, 0),
+          "lighttrace": lambda m: (m + 1, m + 2),
+          "vpl": lambda m: (m + 2, MAX_VPL * (m + 2))}
 
 
 @pytest.mark.parametrize("integ", ["direct", "albedo", "normals",
@@ -1007,8 +1292,12 @@ def test_render_with_cuda_matches_cpu(cuda, scene_dir, spheres_dir, which,
     (d^2 just above the reference's 1e-4 cutoff), so an ulp of the
     card's rsqrt or sqrt, or the cutoff itself, moves a whole VPL's
     contribution in a few pixels (98.73% within the bar at 32x32, 99.27%
-    at 128x128 in chip_smoke.py, on the H100); the means stay within
-    0.5%."""
+    at 128x128, on the H100); the means stay within 0.5%.
+
+    The card's launches are every traversal call of the passes: a call
+    is one B1 launch on the cornell box; on the spheres a closest-hit
+    call is one B2 launch and an any-hit call a B1 pre-pass and a B2
+    launch (`_CALLS`)."""
     from raytracingrenderer_tpu_torch.integrators.dispatch import \
         render_with
     d = scene_dir if which == "cornell" else spheres_dir
@@ -1016,13 +1305,15 @@ def test_render_with_cuda_matches_cpu(cuda, scene_dir, spheres_dir, which,
                        max_depth=2 if integ == "vpl" else 4)
     imgs = {}
     for dev in (cuda, torch.device("cpu")):
-        before = (mt_kernel.launches, bvh_kernel.launches["closest_hit"])
+        before = _launches()
         film = render_with(load_scene(d, dev), cfg, 2)
         imgs[dev.type] = film_mod.to_hdr(film).cpu().numpy()
         if dev.type == "cuda":
             assert film.buffer.device.type == "cuda"
-            assert (mt_kernel.launches > before[0]
-                    or bvh_kernel.launches["closest_hit"] > before[1])
+            closest, any_ = (2 * n for n in _CALLS[integ](cfg.max_depth))
+            assert _launches(before) == (
+                (closest + any_, 0, 0) if which == "cornell"
+                else (any_, closest, any_))
     _agree(imgs["cuda"], imgs["cpu"],
            0.98 if (which, integ) == ("spheres", "vpl") else 0.99)
 
@@ -1032,22 +1323,24 @@ def test_adaptive_cuda_matches_cpu(cuda, scene_dir, spheres_dir, which):
     """render_with(integrator="adaptive") on the card (B1 on the cornell
     box; B2 and B1's pre-pass on the spheres scene) against "cpu" at
     32x32, 4 spp (2 init passes, 8 rounds of 256 rays): one tile, so
-    every draw is the same on both devices."""
+    every draw is the same on both devices.  The card launches each of
+    its 10 traces' traversal calls (a scan pass: max_depth + 2
+    closest-hit and as many any-hit calls) as render_with's do."""
     from raytracingrenderer_tpu_torch.integrators.dispatch import \
         render_with
     d = scene_dir if which == "cornell" else spheres_dir
     cfg = RenderConfig(mis=True, jitter=True, integrator="adaptive")
     imgs, seen = {}, []
     for dev in (cuda, torch.device("cpu")):
-        before = (mt_kernel.launches, bvh_kernel.launches["closest_hit"])
+        before = _launches()
         film = render_with(load_scene(d, dev), cfg, 4,
                            on_sample=lambda s, f: seen.append(s))
         imgs[dev.type] = film_mod.to_hdr(film).cpu().numpy()
         if dev.type == "cuda":
             assert film.buffer.device.type == "cuda"
-            assert mt_kernel.launches > before[0]
-            if which == "spheres":
-                assert bvh_kernel.launches["closest_hit"] > before[1]
+            n = 10 * (cfg.max_depth + 2)
+            assert _launches(before) == ((2 * n, 0, 0) if which == "cornell"
+                                         else (n, n, n))
     assert seen == list(range(10)) * 2
     _agree(imgs["cuda"], imgs["cpu"])
 
@@ -1066,12 +1359,15 @@ def test_denoise_cuda_matches_cpu(cuda):
                                    rtol=1e-5, atol=1e-6)
 
 
-def test_cli_on_the_card(cuda, scene_dir, tmp_path):
+def test_cli_on_the_card(cuda, scene_dir, tmp_path, caplog):
     """cli.main on "cuda" (the default device) at 32x32: adaptive with
-    -denoise, -profile and -checkpoint, B1 launched, the film
-    checkpointed and a resume adding its spp; the image held to the
-    same command on "cpu"."""
+    -profile and -checkpoint, its 10 traces' 120 B1 launches, the film
+    checkpointed and a resume with -denoise -profile adding its spp, each
+    phase report logged (the resume's with its denoise); the image held
+    to the same command on "cpu"."""
+    import logging
     from raytracingrenderer_tpu_torch import cli
+    caplog.set_level(logging.INFO, logger="rtr")
     from raytracingrenderer_tpu_torch.io.hdr import read_hdr
     imgs = {}
     for dev in ("cuda", "cpu"):
@@ -1082,20 +1378,44 @@ def test_cli_on_the_card(cuda, scene_dir, tmp_path):
         assert cli.main(args + (["-device", "cpu"] if dev == "cpu"
                                 else [])) == 0
         if dev == "cuda":
-            assert mt_kernel.launches > before
+            assert mt_kernel.launches - before == 120
+            assert "phase report" in caplog.text and "render:" in caplog.text
         with np.load(ck) as z:
             assert float(z["spp"]) == 4.0
             imgs[dev] = z["buffer"] / 4.0
         assert np.isfinite(read_hdr(out)).all()
     _agree(imgs["cuda"], imgs["cpu"])
     out = str(tmp_path / "dn.hdr")
+    caplog.clear()
     assert cli.main(["-scene", scene_dir, "-outputFilename", out, "-SPP",
                      "4", "-checkpoint", str(tmp_path / "cuda.npz"),
-                     "-denoise"]) == 0
+                     "-denoise", "-profile"]) == 0
+    assert "denoise:" in caplog.text
     with np.load(str(tmp_path / "cuda.npz")) as z:
         assert float(z["spp"]) == 8.0
     img = read_hdr(out)
     assert np.isfinite(img).all() and img.mean() > 0.01
+
+
+def test_cli_keys_on_the_card(cuda, scene_dir, tmp_path, caplog):
+    """cli.main's scripted interactive session on the card (-keys
+    w,left,p,l,esc -profile, the cornell box at 32x32): exit 0, the .hdr
+    and the key's .png written, a finite image with a plausible mean,
+    three passes' 36 B1 launches, the phase report logged."""
+    import logging
+    import os
+    from raytracingrenderer_tpu_torch import cli
+    from raytracingrenderer_tpu_torch.io.hdr import read_hdr
+    caplog.set_level(logging.INFO, logger="rtr")
+    out = str(tmp_path / "keys.hdr")
+    before = mt_kernel.launches
+    assert cli.main(["-scene", scene_dir, "-outputFilename", out, "-keys",
+                     "w,left,p,l,esc", "-profile"]) == 0
+    assert mt_kernel.launches - before == 36
+    assert os.path.exists(out[:-4] + ".png")
+    img = read_hdr(out)
+    assert np.isfinite(img).all() and 0.03 < img.mean() < 0.5
+    assert "phase report" in caplog.text and "render:" in caplog.text
 
 
 @pytest.fixture(scope="module")
@@ -1109,7 +1429,7 @@ def card_ranks(tmp_path_factory):
     dirs = dict(cornell_dir=write_cornell(str(base / "c"), 128, 128),
                 spheres_dir=write_spheres(str(base / "s"), 128, 128,
                                           subdiv=2))
-    o, d, _, max_t, _ = _rays_n("cpu", 20_000, 18)
+    o, d, _, max_t, _ = _rays_n("cpu", (1 << 20) + 77, 18)
     return dict(dirs, o=o, d=d, max_t=max_t, ranks=run(
         "card", 2, base, device="cuda:0", o=tuple(o), d=tuple(d),
         max_t=max_t, **dirs))
@@ -1128,62 +1448,101 @@ def test_render_sharded_on_the_card(cuda, card_ranks):
         ref = sample_image(sc, rng.PRNGKey(3), RenderConfig(
             max_depth=4, mis=True, jitter=True)).numpy()
         _agree(r0[name], ref)
-    assert min(r0["render_launches"]) > 0 and min(r1["render_launches"]) > 0
+    for r in (r0, r1):
+        assert r["cornell_launches"][0] > 0
+        assert min(r["spheres_launches"]) > 0
 
 
 def test_traverse_sharded_on_the_card(cuda, card_ranks):
-    """traverse_sharded over 2 ranks' shards on the card against the
-    replicated walk on the CPU (the plain version): the triangles (mapped
-    by geometry) agree on >= 99.9% of 20,000 rays, with t bit for bit
-    there; the occlusion bits on as many."""
+    """traverse_sharded over 2 ranks' shards, 2^20 + 77 rays (a tenth
+    dead for the occlusion bits): the ranks agree and no dead ray is
+    occluded; against the replicated walk on the card, the triangles
+    (mapped by geometry) and the occlusion bits agree on >= 99.999% of
+    the rays, and against the replicated walk on the CPU (the plain
+    version) on >= 99.9% of the first 20,000, with t bit for bit where
+    the triangles agree."""
     r0, r1 = card_ranks["ranks"]
     for a, b in zip(r0["closest"], r1["closest"]):
         np.testing.assert_array_equal(a, b)
-    assert r0["traverse_launches"] > 0
-    rep = load_scene(card_ranks["spheres_dir"], "cpu")
-    tr = rep.triangles
+    np.testing.assert_array_equal(r0["occluded"], r1["occluded"])
+    assert r0["traverse_launches"][1] > 0
+    assert r0["occluded_launches"][0] > 0 and r0["occluded_launches"][2] > 0
+    occ_s = r0["occluded"].astype(bool)
+    dead = card_ranks["max_t"].numpy() <= 0
+    assert dead.any() and not occ_s[dead].any()
+    t_s, tri_s = r0["closest"][:2]
+    assert (tri_s >= 0).mean() > 0.5
+    tr = load_scene(card_ranks["spheres_dir"], "cpu").triangles
     where = {row.tobytes(): i for i, row in enumerate(np.stack(
         [c.numpy() for f in (tr.p0, tr.e1, tr.e2) for c in f], -1))}
     geom = np.concatenate([r0["geometry"], r1["geometry"]])
     to_rep = np.asarray([where.get(row.tobytes(), -1) for row in geom])
-    o, d, max_t = card_ranks["o"], card_ranks["d"], card_ranks["max_t"]
-    h = intersect.closest_hit(rep, o, d)
-    t_s, tri_s = r0["closest"][:2]
-    assert (tri_s >= 0).mean() > 0.5
     mapped = np.where(tri_s >= 0, to_rep[np.maximum(tri_s, 0)], -1)
-    same = mapped == h.tri.numpy()
-    assert same.mean() >= 0.999
-    np.testing.assert_array_equal(t_s[same], h.t.numpy()[same])
-    occ = intersect.occluded(rep, o, d, max_t).numpy()
-    assert (r0["occluded"].astype(bool) == occ).mean() >= 0.999
+    for dev, n, bar in ((cuda, len(tri_s), 0.99999), ("cpu", 20_000, 0.999)):
+        rep = load_scene(card_ranks["spheres_dir"], dev)
+        o, d = (V3(*(c[:n].to(dev) for c in card_ranks[k]))
+                for k in ("o", "d"))
+        h = intersect.closest_hit(rep, o, d)
+        same = mapped[:n] == h.tri.cpu().numpy()
+        assert same.mean() >= bar, dev
+        np.testing.assert_array_equal(t_s[:n][same], h.t.cpu().numpy()[same])
+        occ = intersect.occluded(rep, o, d, card_ranks["max_t"][:n].to(dev))
+        assert (occ_s[:n] == occ.cpu().numpy()).mean() >= bar, dev
 
 
 def test_overlap_grads_on_the_card(cuda, card_ranks):
-    """param_grads_sharded (a reduction a bounce) over 2 ranks on the
-    card at 128x128 against diff.param_grads on the CPU (jitter off),
-    under chip_smoke.py's gradient gate."""
+    """param_grads_sharded on 2 ranks at 128x128, jitter off, overlapped
+    (6 reductions) and barriered (1): equal on both ranks, held by
+    `_grads_close` to one process (cornell on the CPU, spheres on the
+    card)."""
     from raytracingrenderer_tpu_torch import diff
     from raytracingrenderer_tpu_torch.sampling import rng
     r0, r1 = card_ranks["ranks"]
-    assert r0["reductions"] == r1["reductions"] == 6
-    sc = load_scene(card_ranks["cornell_dir"], "cpu")
     cfg = RenderConfig(max_depth=4, mis=True, jitter=False)
-    loss, g = diff.value_and_grad(sc, torch.zeros((128, 128, 3)),
-                                  rng.PRNGKey(3), diff._diff_cfg(cfg, sc))
-    (lg, gg) = r0["grads"]
-    assert lg == pytest.approx(loss.item(), rel=1e-4)
-    for k, v in g.items():
-        a = gg[k]
-        b = (v.stacked() if hasattr(v, "stacked") else v).numpy()
-        np.testing.assert_array_equal(a, r1["grads"][1][k])
-        assert np.isfinite(a).all(), k
-        if k == "tri_p0":
-            assert (np.linalg.norm(a - b)
-                    / max(np.linalg.norm(b), 1e-30)) <= 1e-2
-        else:
-            np.testing.assert_allclose(a, b, rtol=1e-3,
-                                       atol=1e-3 * np.abs(b).max(),
-                                       err_msg=k)
+    for name, dev in (("cornell", "cpu"), ("spheres", cuda)):
+        sc = load_scene(card_ranks[f"{name}_dir"], dev)
+        loss, g = diff.value_and_grad(sc, torch.zeros((128, 128, 3),
+                                                      device=dev),
+                                      rng.PRNGKey(3), diff._diff_cfg(cfg, sc))
+        for step, reductions in (("overlap", 6), ("barriered", 1)):
+            got = r0[f"{name}_{step}"]
+            assert got[2] == r1[f"{name}_{step}"][2] == reductions
+            for k, a in got[1].items():
+                np.testing.assert_array_equal(a, r1[f"{name}_{step}"][1][k])
+            _grads_close(got[:2], (loss.item(), _grads_np(g)))
+
+
+def test_parallel_paths_on_the_card(cuda, card_ranks):
+    """The ranks' other steps launch B1 (B2 on the spheres); the
+    scene-sharded render meets the replicated one; adaptive_render(mesh=)
+    the same film on both ranks, 120 B1 launches; light_trace_pass(mesh=)
+    within rel 1e-4 of one process; train_step_overlap descends."""
+    from raytracingrenderer_tpu_torch.integrators.lighttracer import (
+        light_trace_pass)
+    from raytracingrenderer_tpu_torch.sampling import rng
+    r0, r1 = card_ranks["ranks"]
+    for r in (r0, r1):
+        for step in ("sharded_render", "spheres_overlap",
+                     "spheres_barriered"):
+            assert min(r[f"{step}_launches"]) > 0, step
+        for step in ("cornell_overlap", "cornell_barriered", "lighttrace"):
+            assert r[f"{step}_launches"][0] > 0, step
+        assert r["adaptive_launches"] == (120, 0, 0)
+    _agree(r0["sharded_render"], r0["spheres"])
+    (film, spp), (film1, _) = r0["adaptive"], r1["adaptive"]
+    np.testing.assert_array_equal(film, film1)
+    assert np.isfinite(film).all() and 0.03 < film.mean() / spp < 0.5
+    cornell = load_scene(card_ranks["cornell_dir"], cuda)
+    lt = light_trace_pass(cornell, film_mod.new_film(128, 128, cuda),
+                          rng.PRNGKey(7), RenderConfig(
+                              max_depth=4, mis=True, jitter=True),
+                          128 * 128).buffer.cpu().numpy()
+    for r in (r0, r1):
+        got = r["lighttrace"]
+        assert abs(got.sum() - lt.sum()) <= 1e-4 * abs(lt.sum())
+        assert np.isclose(got, lt, rtol=1e-3, atol=1e-5).all(-1).mean() \
+            >= 0.99
+    assert r0["train_losses"][1] < r0["train_losses"][0]
 
 
 def test_render_elastic_on_the_card(cuda, tmp_path):

@@ -30,10 +30,7 @@ which are absent, so these use the scenes of tests/torch_scenes.py.
   occlusion bits; remat on and off give the same gradients.
 - geom_grads leaves the forward image bit-identical.
 - a masked MIS pdf lane at the miss clamp gets a zero gradient, not NaN.
-- the `around` hook that splits a step into its halves for the profiler
-  changes nothing.
 """
-import contextlib
 import dataclasses
 
 import jax
@@ -105,7 +102,8 @@ def _zero():
 
 
 def close_grads(got, want, what=""):
-    """chip_smoke.py's GPU-against-CPU bars for gradients by key."""
+    """The card tests' GPU-against-CPU bars for gradients by key
+    (tests/test_torch_cuda.py::_grads_close)."""
     for k in diff.PARAM_KEYS:
         a, b = got[k], want[k]
         assert np.isfinite(a).all(), (what, k)
@@ -408,34 +406,3 @@ def test_geom_grads_leaves_image_unchanged(request, which):
     b = render(sc, dataclasses.replace(cfg, geom_grads=True), spp=1).buffer
     assert bool(a.abs().sum() > 0)
     np.testing.assert_array_equal(a.numpy(), b.numpy())
-
-
-@pytest.mark.parametrize("which", ["cornell-scan", "spheres-wavefront"])
-def test_around_hook_splits_the_halves(request, counted, which):
-    """diff.loss_and_grads enters `around` once a half, forward then
-    backward (probes.profile_train_step times the halves through it):
-    the forward traverses, the backward does not, and the hook leaves the
-    loss and gradients bit for bit as they are without it."""
-    sc = request.getfixturevalue("scene" if which == "cornell-scan"
-                                 else "spheres")
-    cfg = RenderConfig(**(MIS if which == "cornell-scan" else SPHERES))
-    key = rng.PRNGKey(13)
-    seen = []
-
-    @contextlib.contextmanager
-    def around(half):
-        seen.append((half, "enter", counted["closest_hit"]))
-        yield
-        seen.append((half, "exit", counted["closest_hit"]))
-
-    loss, got = diff.loss_and_grads(sc, _zero(), key, cfg, around)
-    assert [h[:2] for h in seen] == [("forward", "enter"),
-                                     ("forward", "exit"),
-                                     ("backward", "enter"),
-                                     ("backward", "exit")]
-    assert seen[1][2] - seen[0][2] == cfg.max_depth + 2
-    assert seen[3][2] == seen[2][2]
-    want_loss, want = diff.loss_and_grads(sc, _zero(), key, cfg)
-    assert float(loss) == float(want_loss)
-    for k in diff.PARAM_KEYS:
-        np.testing.assert_array_equal(_np(got[k]), _np(want[k]), err_msg=k)

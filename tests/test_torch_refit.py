@@ -67,7 +67,8 @@ def cornell(tmp_path_factory):
 
 
 def _rays(n, seed):
-    """Rays from inside the box, as chip_smoke.make_rays draws them."""
+    """Rays from inside the box, as tests/test_torch_cuda.py::_rays_n draws
+    them."""
     g = np.random.default_rng(seed)
     o = (g.uniform(-1, 1, (n, 3)) * 0.5 + [0, 1, 0.5]).astype(np.float32)
     d = g.standard_normal((n, 3)).astype(np.float32)

@@ -27,6 +27,8 @@ cornell pass and the gradients of one training step, equal with the
 kernel and with the torch path forced (a patch of the dispatch rule),
 every draw of the first through the kernel.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -253,18 +255,31 @@ def test_random_bits_kernel_matches_torch(cuda, offset, n):
     plain = rng.plain_lanes_cuda
     for key in KEYS:
         for shape in ((n,), (1, n)):
-            got = rng.random_bits(key, shape, cuda, offset)
+            got = _one_launch(lambda: rng.random_bits(key, shape, cuda,
+                                                      offset), n)
             want = rng.random_bits(key, shape, CPU, offset)
             assert got.dtype == torch.int64 and got.shape == want.shape
             assert torch.equal(got.cpu(), want)
         for bounce, decision in ((0, rng.PIXEL_JITTER_Y), (3, rng.BSDF_V)):
-            got = rng.uniform(key, bounce, decision, (n,), cuda, offset)
+            got = _one_launch(lambda: rng.uniform(key, bounce, decision,
+                                                  (n,), cuda, offset), n)
             want = rng.uniform(key, bounce, decision, (n,), CPU, offset)
             assert got.dtype == torch.float32
             assert torch.equal(got.cpu(), want)
-        assert torch.equal(rng.raw_uniform(key, (n,), cuda, offset).cpu(),
-                           rng.raw_uniform(key, (n,), CPU, offset))
+        assert torch.equal(_one_launch(lambda: rng.raw_uniform(
+            key, (n,), cuda, offset), n).cpu(),
+            rng.raw_uniform(key, (n,), CPU, offset))
     assert rng.plain_lanes_cuda == plain
+
+
+def _one_launch(draw, n, launches=1):
+    """draw(), asserting it made `launches` kernel launches over n lanes
+    each (none for n = 0)."""
+    before = (rng_kernel.launches, rng_kernel.lanes)
+    out = draw()
+    assert (rng_kernel.launches - before[0], rng_kernel.lanes - before[1]
+            ) == ((launches, launches * n) if n else (0, 0))
+    return out
 
 
 @pytest.mark.cuda
@@ -288,7 +303,8 @@ def test_plain_lanes_cuda_counts_card_draws(cuda, monkeypatch):
 def test_randint_kernel_matches_torch(cuda, lo, hi):
     for key in KEYS:
         for shape in ((1,), (1001,), (64, 3)):
-            got = rng.randint(key, shape, lo, hi, cuda)
+            got = _one_launch(lambda: rng.randint(key, shape, lo, hi, cuda),
+                              int(np.prod(shape)), launches=2)
             assert got.dtype == torch.int32
             assert torch.equal(got.cpu(), rng.randint(key, shape, lo, hi))
 
@@ -357,3 +373,50 @@ def test_train_step_grads_same_with_the_torch_path(cuda, tmp_path,
         a, b = got[1][name], ref[1][name]
         for x, y in (zip(a, b) if isinstance(a, tuple) else ((a, b),)):
             assert torch.equal(x, y), name
+
+
+PATHS = (["scan", "wavefront", "treelet", "sky", "train-scan",
+          "train-scan-boundary", "train-wavefront",
+          "train-wavefront-boundary"]
+         + [f"{integ}-{which}" for integ in ("direct", "albedo", "normals",
+                                              "lighttrace", "vpl", "adaptive")
+            for which in ("cornell", "spheres")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", PATHS)
+def test_every_path_draws_through_the_kernel(cuda, tmp_path, path):
+    """A 32x32 pass or train step of every path (routes, sky, integrators,
+    training with and without the boundary term) launches the RNG kernel
+    and draws no lane on the card by the torch path."""
+    from raytracingrenderer_tpu_torch import diff
+    from raytracingrenderer_tpu_torch.integrators.dispatch import render_with
+    from raytracingrenderer_tpu_torch.ops import treelet
+    from raytracingrenderer_tpu_torch.render import render
+    from raytracingrenderer_tpu_torch.scene.loader import load_scene
+    from torch_scenes import write_sky, write_spheres
+    d = str(tmp_path)
+    cornell = path in ("scan", "train-scan", "train-scan-boundary") \
+        or path.endswith("-cornell")
+    d = (write_cornell(d, 32, 32) if cornell else
+         write_sky(d, 32, 32, subdiv=2, env_h=64, env_w=128)
+         if path == "sky" else write_spheres(d, 32, 32, subdiv=2))
+    scene = load_scene(d, cuda)
+    cfg = RenderConfig(mis=True, jitter=True, max_depth=4,
+                       boundary_grads=path.endswith("-boundary"))
+    before = (rng_kernel.launches, rng.plain_lanes_cuda)
+    if path.startswith("train"):
+        diff.train_step(scene, torch.zeros((32, 32, 3), device=cuda),
+                        rng.PRNGKey(0), cfg, lr=0.01)
+    elif path in ("scan", "wavefront", "treelet", "sky"):
+        if path == "treelet":
+            scene = scene._replace(bvh=treelet.attach_treelets(scene.bvh))
+        render(scene, cfg, spp=1)
+    else:
+        integ = path.split("-")[0]
+        render_with(scene, dataclasses.replace(
+            cfg, integrator=integ, max_depth=2 if integ == "vpl" else 4),
+            3 if integ == "adaptive" else 1)
+    torch.cuda.synchronize()
+    assert rng_kernel.launches > before[0]
+    assert rng.plain_lanes_cuda == before[1]

@@ -22,7 +22,7 @@ small triangle soup:
   at the bar of tests/test_torch_render.py.
 
 The CUDA kernel itself is checked against `pair_test_plain` by
-tests/test_torch_cuda.py and chip_smoke.py on the card; here a torch
+tests/test_torch_cuda.py on the card; here a torch
 model of its partition (the runs of equal treelet id that a block of
 pairs walks, the window of tiles resident at a time, a pair tested
 against its own run's tile only, the sums without negated features, the

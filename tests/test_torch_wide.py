@@ -26,7 +26,7 @@
   (the 4-wide walk takes the ray counter).
 
 The CUDA kernel itself is checked against `traverse_plain` by
-tests/test_torch_cuda.py and chip_smoke.py on the card."""
+tests/test_torch_cuda.py on the card."""
 import dataclasses
 import os
 import re

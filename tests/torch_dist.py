@@ -14,6 +14,7 @@ into its time limit.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -222,27 +223,46 @@ def job_cli(mesh, argv):
 
 
 def job_card(mesh, cornell_dir, spheres_dir, o, d, max_t):
-    """On the ranks' card: render_sharded on both scenes, the scene
-    sharded over the ranks (its shards' geometry and traverse_sharded),
-    the overlapped gradients with jitter off; with the kernels' launches."""
+    """On the ranks' card: render_sharded on both scenes; the scene
+    sharded over the ranks (its shards' geometry, traverse_sharded and a
+    render); the overlapped and barriered gradients with jitter off on
+    both scenes; adaptive_render(mesh=), light_trace_pass(mesh=) and two
+    train_step_overlap steps on the cornell box; each step's launches
+    (B1, B2 closest-hit, B2 any-hit) under "<step>_launches"."""
     from raytracingrenderer_tpu_torch.config import RenderConfig
     from raytracingrenderer_tpu_torch.core.vec import V3
     from raytracingrenderer_tpu_torch.geometry.intersect import BIG_T
+    from raytracingrenderer_tpu_torch.imaging.film import new_film
+    from raytracingrenderer_tpu_torch.integrators.adaptive import (
+        adaptive_render)
+    from raytracingrenderer_tpu_torch.integrators.lighttracer import (
+        light_trace_pass)
     from raytracingrenderer_tpu_torch.ops import bvh_kernel, mt_kernel
     from raytracingrenderer_tpu_torch.parallel import overlap
     from raytracingrenderer_tpu_torch.parallel import scene_shard as ss
     from raytracingrenderer_tpu_torch.parallel.mesh import render_sharded
+    from raytracingrenderer_tpu_torch.render import sample_image
     from raytracingrenderer_tpu_torch.sampling import rng
     from raytracingrenderer_tpu_torch.scene.loader import load_scene
     dev = mesh.device
     cfg = RenderConfig(max_depth=4, mis=True, jitter=True)
+    nojit = RenderConfig(max_depth=4, mis=True, jitter=False)
     out = {}
-    mt0, b20 = mt_kernel.launches, bvh_kernel.launches["closest_hit"]
-    for name, sdir in (("cornell", cornell_dir), ("spheres", spheres_dir)):
-        sc = load_scene(sdir, dev)
-        out[name] = _np(render_sharded(sc, rng.PRNGKey(3), cfg, mesh))
-    out["render_launches"] = (mt_kernel.launches - mt0,
-                              bvh_kernel.launches["closest_hit"] - b20)
+
+    def counted(step, fn):
+        before = (mt_kernel.launches, bvh_kernel.launches["closest_hit"],
+                  bvh_kernel.launches["any_hit"])
+        res = fn()
+        out[f"{step}_launches"] = tuple(n - b for n, b in zip((
+            mt_kernel.launches, bvh_kernel.launches["closest_hit"],
+            bvh_kernel.launches["any_hit"]), before))
+        return res
+
+    scenes = {name: load_scene(sdir, dev) for name, sdir in (
+        ("cornell", cornell_dir), ("spheres", spheres_dir))}
+    for name, sc in scenes.items():
+        out[name] = _np(counted(name, lambda: render_sharded(
+            sc, rng.PRNGKey(3), cfg, mesh)))
     sc = load_scene(spheres_dir, dev, scene_shards=mesh.size)
     sh = sc.bvh.shards[mesh.rank]
     out["geometry"] = np.stack([_np(c) for f in (sh.triangles.p0,
@@ -250,22 +270,39 @@ def job_card(mesh, cornell_dir, spheres_dir, o, d, max_t):
                                                  sh.triangles.e2)
                                 for c in f], -1)
     o, d = V3(*(c.to(dev) for c in o)), V3(*(c.to(dev) for c in d))
-    b20 = bvh_kernel.launches["closest_hit"]
-    h = ss.traverse_sharded(sc.bvh, o, d,
-                            torch.full((o.x.shape[0],), BIG_T, device=dev))
-    out["traverse_launches"] = bvh_kernel.launches["closest_hit"] - b20
+    h = counted("traverse", lambda: ss.traverse_sharded(
+        sc.bvh, o, d, torch.full((o.x.shape[0],), BIG_T, device=dev)))
     out["closest"] = [_np(a) for a in h]
-    out["occluded"] = _np(ss.occluded_sharded(sc.bvh, o, d, max_t.to(dev)))
-    cornell = load_scene(cornell_dir, dev)
+    out["occluded"] = _np(counted("occluded", lambda: ss.occluded_sharded(
+        sc.bvh, o, d, max_t.to(dev))))
+    out["sharded_render"] = _np(counted("sharded_render", lambda: (
+        sample_image(sc, rng.PRNGKey(3), cfg))))
+    for name, sc in scenes.items():
+        h, w = sc.camera.height, sc.camera.width
+        for ov in (True, False):
+            step = f"{name}_{'overlap' if ov else 'barriered'}"
+            before = overlap.reductions
+            g, loss = counted(step, lambda: overlap.param_grads_sharded(
+                sc, torch.zeros((h, w, 3), device=dev), rng.PRNGKey(3),
+                nojit, mesh, overlap=ov))
+            out[step] = (float(loss), {
+                k: _np(v.stacked() if hasattr(v, "stacked") else v)
+                for k, v in g.items()}, overlap.reductions - before)
+    cornell = scenes["cornell"]
     h, w = cornell.camera.height, cornell.camera.width
-    before = overlap.reductions
-    g, loss = overlap.param_grads_sharded(
-        cornell, torch.zeros((h, w, 3), device=dev), rng.PRNGKey(3),
-        RenderConfig(max_depth=4, mis=True, jitter=False), mesh)
-    out["grads"] = (float(loss), {
-        k: _np(v.stacked() if hasattr(v, "stacked") else v)
-        for k, v in g.items()})
-    out["reductions"] = overlap.reductions - before
+    film = counted("adaptive", lambda: adaptive_render(
+        cornell, dataclasses.replace(cfg, integrator="adaptive"), 4,
+        mesh=mesh))
+    out["adaptive"] = (_np(film.buffer), float(film.spp))
+    out["lighttrace"] = _np(counted("lighttrace", lambda: light_trace_pass(
+        cornell, new_film(h, w, dev), rng.PRNGKey(7), cfg, h * w,
+        mesh=mesh)).buffer)
+    out["train_losses"] = []
+    for _ in range(2):
+        cornell, loss = overlap.train_step_overlap(
+            cornell, torch.zeros((h, w, 3), device=dev), rng.PRNGKey(8),
+            cfg, mesh, lr=0.5)
+        out["train_losses"].append(float(loss))
     return out
 
 

@@ -3,8 +3,8 @@ the cornell box (`write_cornell`) and the cornell box with 16 icospheres
 (`write_spheres`, 5,156 to 327,716 triangles, for the BVH path).
 
 A numpy-only helper (no JAX, no torch) shared by the JAX package's loader,
-the PyTorch port's loader and `chip_smoke.py`, so that both packages read
-the same scene from disk.
+the PyTorch port's loader and the port's card tests, so that both
+packages read the same scene from disk.
 
 The geometry follows the published Cornell Box data (Cornell University
 Program of Computer Graphics, "Cornell Box Data": a 556 x 548.8 x 559.2 mm
