@@ -247,6 +247,13 @@ def _sort_key(scene, o: V3, d: V3, active) -> torch.Tensor:
     return torch.where(active, key, 0x7FFFFFFF)
 
 
+def inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
+    """inv with inv[perm[i]] = i: a scatter, where `inv[perm] = ...` would
+    be an index_put_."""
+    return torch.empty_like(perm).scatter_(
+        0, perm, torch.arange(perm.numel(), device=perm.device))
+
+
 def _sorted_call(scene, o: V3, d: V3, active, payload, fn):
     """Sort the rays by coherence key (stable), run fn(o, d, *payload) on
     the sorted batch, and return its per-ray output (a tensor or a
@@ -254,8 +261,7 @@ def _sorted_call(scene, o: V3, d: V3, active, payload, fn):
     perm = torch.sort(_sort_key(scene, o, d, active), stable=True).indices
     out = fn(V3(*(c[perm] for c in o)), V3(*(c[perm] for c in d)),
              *(p[perm] for p in payload))
-    inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+    inv = inverse_permutation(perm)
     if isinstance(out, torch.Tensor):
         return out[inv]
     return type(out)(*(a[inv] for a in out))

@@ -51,6 +51,41 @@ def _map(state: dict, fn) -> dict:
             for k, v in state.items()}
 
 
+class _Permute(torch.autograd.Function):
+    """a[perm] for a permutation `perm` of a's lanes, whose transpose
+    gathers by the inverse permutation `inv`: each lane receives exactly
+    one gradient, so nothing is summed.  Autograd's transpose of
+    indexing is index_put_(accumulate=True), which sorts the indices
+    again (9 ms of a 1024x1024 cornell-tetra training step on an
+    H100)."""
+
+    @staticmethod
+    def forward(ctx, a, perm, inv):
+        ctx.save_for_backward(inv)
+        return a[perm]
+
+    @staticmethod
+    def backward(ctx, g):
+        inv, = ctx.saved_tensors
+        return g[inv], None, None
+
+
+def _permute(state: dict, perm: torch.Tensor) -> dict:
+    """Every per-ray tensor of the state in the order `perm`, a
+    permutation of the lanes; those that carry a gradient through
+    `_Permute`, with the inverse made once for them."""
+    inv = None
+
+    def one(a):
+        nonlocal inv
+        if not (a.requires_grad and torch.is_grad_enabled()):
+            return a[perm]
+        if inv is None:
+            inv = intersect.inverse_permutation(perm)
+        return _Permute.apply(a, perm, inv)
+    return _map(state, one)
+
+
 @profiling.spanned("rtr.compact")
 def _sort_flush(scene: Scene, img: torch.Tensor, state: dict):
     """Add the radiance of dead rays into `img` (in place) and zero it,
@@ -63,7 +98,7 @@ def _sort_flush(scene: Scene, img: torch.Tensor, state: dict):
                                       for c in state["radiance"])))
     key = intersect._sort_key(scene, state["o"], state["d"], alive)
     perm = torch.sort(key, stable=True).indices
-    return img, _map(state, lambda a: a[perm]), int(alive.sum())
+    return img, _permute(state, perm), int(alive.sum())
 
 
 def _final_flush(img: torch.Tensor, state: dict) -> torch.Tensor:

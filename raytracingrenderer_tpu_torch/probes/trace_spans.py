@@ -16,14 +16,15 @@ with the spans on, and prints, a unit (pass or step), each span's calls,
 host ms, self host ms, device ms and kernels, and the device's idle gaps
 by the chain of spans they fall in (`walk`).  It counts one more pass
 (profiling.counting: lanes and live lanes a bounce; the kernels' rays
-and launches) and one more step (the gathers' transpose launches, the
-indices they reduced, and the gradient-carrying gathers left on plain
-indexing and their indices: the share of them the kernel took), and in
-both the RNG kernel's launches and lanes, the lanes the torch path drew
-on the card, and the share of the card's lanes the kernel drew.  What
-tracing costs: `rounds` rounds, each a profiled block with the spans
-on, one with them off, an unprofiled pass or step, and a counted one,
-timed by the host clock after a synchronise.  Needs a card.
+and launches) and one more step (the gathers' transpose launches, G1's
+and G2's, the indices they reduced, and the gradient-carrying gathers
+left on plain indexing and their indices: the share of them the kernels
+took), and in both the RNG kernel's launches and lanes, the lanes the
+torch path drew on the card, and the share of the card's lanes the
+kernel drew.  What tracing costs: `rounds` rounds, each a profiled
+block with the spans on, one with them off, an unprofiled pass or step,
+and a counted one, timed by the host clock after a synchronise.  Needs
+a card.
 """
 from __future__ import annotations
 
@@ -238,6 +239,8 @@ def counters() -> Dict:
                 bvh_rays=sum(bvh_kernel.rays.values()),
                 bvh_launches=sum(bvh_kernel.launches.values()),
                 gather_launches=gather.launches, gather_rows=gather.rows,
+                gather_sorted_launches=gather.sorted_launches,
+                gather_sorted_rows=gather.sorted_rows,
                 gather_plain_grad_calls=gather.plain_grad_calls,
                 gather_plain_grad_rows=gather.plain_grad_rows,
                 rng_kernel_launches=rng_kernel.launches,
@@ -342,9 +345,10 @@ def main() -> None:
     one_step()
     after = counters()
     c = {k: after[k] - before[k] for k in after}
-    engaged = c["gather_launches"] + c["gather_plain_grad_calls"]
+    kernels = c["gather_launches"] + c["gather_sorted_launches"]
+    engaged = kernels + c["gather_plain_grad_calls"]
     emit(what="train counted step", size=args.train_size, **c,
-         gather_engaged_pct=(100.0 * c["gather_launches"] / engaged
+         gather_engaged_pct=(100.0 * kernels / engaged
                              if engaged else None),
          rng_engaged_pct=rng_engaged_pct(c))
     cost = {k: [] for k in ("traced_spans_s", "traced_s", "untraced_s")}

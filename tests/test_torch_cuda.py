@@ -49,10 +49,16 @@ version within the float32 sum-order bound, the same bits in two
 launches, on 1 to 2048 rows, 1 to 3 columns, 0 to 2^18 + 77
 indices (random, in runs, all one row, negative int32), its refusals
 raise, and a cornell gradient through it at 128x128 is held to plain
-indexing's within 1e-6; a gather of a table past the kernel's (a BVH
-scene's tri_p0) counts its indices in gather.plain_grad_rows.  The relayout kernel is also held bit for bit at
-one block of 32 rows, odd block counts and past one wave of its grid,
-on values >= 2^25 and fractions.  B2 and B3 are also held bit for bit
+indexing's within 1e-6.  G2, the sorted transpose of tables past G1's
+(a BVH scene's tri_p0), is held to its numpy model bit for bit and to
+itself in a second launch on 6,145 to 262,156 rows, 1 to 3 columns, 0
+to 2^19 + 77 indices (random, in runs, 12 hot rows, one row, every row
+once, negative int32, a third out of range); every gradient-carrying
+gather takes G1 or G2 (none counted in gather.plain_grad_rows), and a
+327,716-triangle spheres gradient through G2, whose backward on the
+card runs no index_put_, is held to the CPU's.  The relayout kernel is
+also held bit for bit at one block of 32 rows, odd block counts and past
+one wave of its grid, on values >= 2^25 and fractions.  B2 and B3 are also held bit for bit
 on the 327,716-triangle tree (2^20 + 77 rays, a pass's launches), B4
 on a treelet pass's launches there, and
 the wavefront, the scan and the treelet route agree there.  Gradients
@@ -91,7 +97,8 @@ from raytracingrenderer_tpu_torch.probes import inputs, visit_args
 from raytracingrenderer_tpu_torch.probes.bench_visit import visit_runs
 from raytracingrenderer_tpu_torch.render import render
 from raytracingrenderer_tpu_torch.scene.loader import load_scene
-from gather_model import transpose_model
+from gather_model import (SORTED_CASES, SORTED_ROWS, sorted_case,
+                          transpose_model, transpose_sorted_model)
 from torch_scenes import (PAIR_PATTERNS, pair_case, write_cornell,
                           write_spheres)
 
@@ -869,8 +876,9 @@ def test_train_step_on_the_card(cuda, tmp_path, spheres_dir, which,
     without the boundary term: B1 (and both B2 variants) launch in the
     forward and never inside the backward (torch.autograd.grad, watched),
     whose recompute replays the recorded hits; G1 launched, for every
-    gather on the cornell box; the loss and the gradients (the step's
-    parameter change over lr) are finite and the vertices moved; the
+    gather on the cornell box, and G2 on the spheres (tri_p0); the loss
+    and the gradients (the step's parameter change over lr) are finite
+    and the vertices moved; the
     cornell loss on the step's key lower after it, the refitted spheres'
     gradients finite."""
     from raytracingrenderer_tpu_torch import diff
@@ -893,7 +901,8 @@ def test_train_step_on_the_card(cuda, tmp_path, spheres_dir, which,
         inside.append(_launches(before))
         return out
 
-    before = (_launches(), gather.launches, gather.plain_grad_calls)
+    before = (_launches(), gather.launches, gather.plain_grad_calls,
+              gather.sorted_launches)
     torch.autograd.grad = grad
     try:
         new, loss = diff.train_step(scene, target, key, cfg, lr=0.01)
@@ -909,6 +918,8 @@ def test_train_step_on_the_card(cuda, tmp_path, spheres_dir, which,
         assert min(got) > 0
     assert inside == [(0, 0, 0)]
     assert gather.launches > before[1]
+    # the spheres' tri_p0 (5,156 rows x 3) is past G1's table: G2
+    assert (gather.sorted_launches > before[3]) == (which == "spheres")
     assert bool(torch.isfinite(loss))
     old, _ = diff._split_scene(scene)
     now, _ = diff._split_scene(new)
@@ -1119,7 +1130,7 @@ def test_gather_kernel_refuses(cuda):
     with pytest.raises(TypeError):
         gather.transpose_cols(grads, idx.short(), 8)
     with pytest.raises(ValueError):
-        gather.transpose_cols(grads, idx, gather.TABLE_MAX)
+        gather.transpose_cols(grads, idx, gather.INDEX_MAX + 1)
     with pytest.raises(IndexError):
         gather.transpose_cols(grads, torch.full_like(idx, 8), 8)
     with pytest.raises(IndexError):
@@ -1129,26 +1140,122 @@ def test_gather_kernel_refuses(cuda):
         launch(gather._library()["gather_transpose"], cuda,
                (ctypes.c_void_p * 1)(grads[0].data_ptr()), 0,
                idx.data_ptr(), 8, 1000, 8, 0, out.data_ptr())
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        launch(gather._library()["gather_transpose_sorted"], cuda,
+               (ctypes.c_void_p * 1)(grads[0].data_ptr()), 0,
+               idx.data_ptr(), 8, 1000, 8, 0, 0, out.data_ptr())
     assert torch.equal(gather.transpose_cols(grads, idx, 8),
                        gather.transpose_cols(grads, idx, 8))
 
 
-@pytest.mark.parametrize("rows,taken", [(262_156, False), (36, True)])
-def test_plain_grad_rows_counted(cuda, rows, taken):
-    """A gradient-carrying gather of a tri_p0-sized table, over the
-    kernel's TABLE_MAX, stays on plain indexing and adds its index count
-    to gather.plain_grad_rows (and one to plain_grad_calls); one of a
-    table the kernel takes adds nothing to either."""
-    assert (rows * 3 <= gather.TABLE_MAX) == taken
-    cols, idx, _ = _gather_case(cuda, rows, 3, (1 << 18) + 77, "random",
-                                rows)
+@pytest.mark.parametrize("n,kind", SORTED_CASES)
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("rows", SORTED_ROWS)
+def test_sorted_kernel_matches_model(cuda, rows, k, n, kind):
+    """G2 (the sorted transpose of csrc/gather_kernel.cu, the backward's
+    path for tables past TABLE_MAX) equal bit for bit to its numpy model
+    (tests/gather_model.py: a block's rows in position order, each row's
+    blocks in block order, the hot rows' windows and trees) and to itself
+    in a second launch, on tables of 6,145 to 262,156 rows, 1 to 3
+    columns, 1 to 2^19 + 77 indices drawn at random, in runs, with 12 hot
+    rows (60% of them, a frame's walls), on one row, every row once,
+    negative (as int32), a third out of range (skipped) and none; each
+    call counted with its indices in sorted_launches and sorted_rows, and
+    none in G1's counters."""
+    idx, grads = sorted_case(rows, k, n, kind, seed=1)
+    want = transpose_sorted_model(grads, idx, rows)
+    it = torch.from_numpy(idx.astype(
+        np.int32 if kind == "negative" else np.int64)).to(cuda)
+    gt = [torch.from_numpy(g).to(cuda) for g in grads]
+    before = (gather.sorted_launches, gather.sorted_rows, gather.launches)
+    got = gather._transpose(gt, it, rows)
+    again = gather._transpose(gt, it, rows)
+    torch.cuda.synchronize()
+    assert (gather.sorted_launches - before[0],
+            gather.sorted_rows - before[1],
+            gather.launches - before[2]) == (2, 2 * idx.size, 0)
+    assert got.shape == (k, rows) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    assert np.array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("rows,sorted_path", [(262_156, True),
+                                              (gather.ROWS_MAX + 1, True),
+                                              (36, False)])
+def test_plain_grad_rows_counted(cuda, rows, sorted_path):
+    """A gradient-carrying gather on the card takes a kernel whatever
+    the table's size, so it adds nothing to gather.plain_grad_rows and
+    plain_grad_calls: a tri_p0-sized table, and one just past G1's
+    TABLE_MAX, G2 (sorted_launches), a small one G1 (launches); the
+    backward within an ulp of the float64 sum."""
+    assert gather.small_table(rows, 3) != sorted_path
+    cols, idx, grads = _gather_case(cuda, rows, 3, (1 << 18) + 77,
+                                    "random", rows)
     calls, plain = gather.plain_grad_calls, gather.plain_grad_rows
+    before = (gather.sorted_launches, gather.launches)
     outs = gather.gather_cols(cols, idx)
     for o, c in zip(outs, cols):
         assert torch.equal(o, c.detach()[idx])
-    n = 0 if taken else idx.numel()
-    assert gather.plain_grad_rows - plain == n
-    assert gather.plain_grad_calls - calls == (0 if taken else 1)
+    got = torch.stack(torch.autograd.grad(outs, cols, grads))
+    torch.cuda.synchronize()
+    assert gather.plain_grad_rows == plain
+    assert gather.plain_grad_calls == calls
+    assert (gather.sorted_launches - before[0],
+            gather.launches - before[1]) == ((1, 0) if sorted_path
+                                             else (0, 1))
+    ref = torch.stack([torch.zeros(rows, dtype=torch.float64, device=cuda)
+                       .index_add_(0, idx, g.double()) for g in grads])
+    mag = torch.stack([torch.zeros(rows, dtype=torch.float64, device=cuda)
+                       .index_add_(0, idx, g.abs().double())
+                       for g in grads])
+    err = (got.double() - ref).abs()
+    assert bool((err <= 2.0 ** -24 * ref.abs() + 2.0 ** -32 * mag).all())
+
+
+def test_bvh_scale_grads_through_g2(cuda, tmp_path, monkeypatch):
+    """diff.loss_and_grads on the 327,716-triangle spheres scene at 64x64
+    by the wavefront: every gradient-carrying gather takes a kernel (G2
+    for tri_p0's table, G1 for the materials' and lights'), none plain
+    indexing, the card's backward runs no index_put_ (the compaction's
+    permutations transposed by `wavefront._Permute`), and the loss and
+    gradients are held to the CPU's by `_grads_close`."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from raytracingrenderer_tpu_torch import diff
+    from raytracingrenderer_tpu_torch.render import _use_wavefront
+    from raytracingrenderer_tpu_torch.sampling import rng
+    d = write_spheres(str(tmp_path), 64, 64, subdiv=5)
+    cfg = RenderConfig(mis=True, jitter=True, max_depth=4)
+    ops, real_grad = [], torch.autograd.grad
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    def grad(*args, **kwargs):
+        with Ops():
+            return real_grad(*args, **kwargs)
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        sc = load_scene(d, dev)
+        assert sc.triangles.count == 327_716 and _use_wavefront(sc, cfg)
+        before = (gather.sorted_launches, gather.launches,
+                  gather.plain_grad_rows, gather.plain_grad_calls)
+        with monkeypatch.context() as m:
+            if dev.type == "cuda":
+                m.setattr(torch.autograd, "grad", grad)
+            loss, g = diff.loss_and_grads(sc, torch.zeros((64, 64, 3),
+                                                          device=dev),
+                                          rng.PRNGKey(5), cfg)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert gather.sorted_launches > before[0]
+            assert gather.launches > before[1]
+            assert (gather.plain_grad_rows,
+                    gather.plain_grad_calls) == before[2:]
+            assert ops and not [op for op in ops if "index_put" in op]
+        got[dev.type] = (loss.item(), _grads_np(g))
+    _grads_close(got["cuda"], got["cpu"])
 
 
 def test_param_grads_kernel_against_plain_indexing(cuda, tmp_path,

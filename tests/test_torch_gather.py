@@ -10,14 +10,20 @@ gathers, its dispatch rule and its autograd Function.
   backward equal to `transpose_plain`, columns that need no gradient
   left without one.
 - the dispatch rule `takes_kernel` with a device argument, so it runs
-  without a card; `gather_cols` on the CPU is plain indexing.
-- `transpose_cols` refuses what the kernel does not take.
-- a numpy model of the kernel's partition and sum order
-  (tests/gather_model.py, which the card's tests hold the kernel to bit
-  for bit) within an ulp of the exact sum.
+  without a card, and `small_table`, which picks G1 or G2 by the
+  table's size; `gather_cols` on the CPU is plain indexing.
+- `transpose_cols` refuses what the kernels do not take, and takes a
+  table past G1's.
+- a numpy model of G1's partition and sum order (tests/gather_model.py,
+  which the card's tests hold the kernel to bit for bit) within an ulp
+  of the exact sum (G2's model: tests/test_torch_gather_sorted.py).
 - `diff.param_grads` on the cornell box with every gradient-carrying
   gather through the Function (the rule widened to the CPU for the test)
   against plain indexing, through the checkpointed bounces.
+- the compacting wavefront's backward on a BVH scene with the rule so
+  widened: no index_put_ (the tables' gathers through the Function, the
+  compaction's permutations through `wavefront._Permute`), the same
+  gradients as with the permutations on plain indexing.
 
 Tolerance of a backward: the two sides sum the same float32 terms in
 other orders, and a float32 sum of m terms in any order lies within
@@ -35,7 +41,7 @@ from raytracingrenderer_tpu_torch.ops import gather
 from raytracingrenderer_tpu_torch.sampling import rng
 from raytracingrenderer_tpu_torch.scene.loader import load_scene
 from gather_model import transpose_model
-from torch_scenes import write_cornell
+from torch_scenes import write_cornell, write_spheres
 
 torch.set_num_threads(2)
 
@@ -166,13 +172,24 @@ CUDA, CPU = torch.device("cuda"), torch.device("cpu")
     (CPU, True, True, 36, 3, False),                    # CPU: plain
     (CUDA, False, True, 36, 3, False),                  # grad mode off
     (CUDA, True, False, 36, 3, False),                  # no column needs it
-    (CUDA, True, True, gather.ROWS_MAX + 1, 3, False),  # table too large
+    (CUDA, True, True, gather.ROWS_MAX + 1, 3, True),   # large table: G2
+    (CUDA, True, True, 262_156, 3, True),               # a BVH's tri_p0
     (CUDA, True, True, 36, 3, True),                    # card, grad, small
     (CUDA, True, True, gather.ROWS_MAX, 3, True),
     (CUDA, True, True, 8, gather.KMAX + 1, False),      # too many columns
 ])
 def test_dispatch_rule(device, grad, req, rows, k, want):
     assert gather.takes_kernel(device, rows, k, grad, req) is want
+
+
+@pytest.mark.parametrize("rows,k,small", [
+    (gather.ROWS_MAX, 3, True), (gather.ROWS_MAX + 1, 3, False),
+    (gather.TABLE_MAX, 1, True), (gather.TABLE_MAX + 1, 1, False),
+    (3072, 2, True), (3073, 2, False), (1, 3, True), (262_156, 3, False)])
+def test_table_size_picks_the_kernel(rows, k, small):
+    """G1 takes tables of up to TABLE_MAX entries (rows x k), G2 the
+    rest."""
+    assert gather.small_table(rows, k) is small
 
 
 def test_gather_cols_on_the_cpu_is_plain_indexing():
@@ -203,9 +220,13 @@ def test_transpose_cols_refuses():
     with pytest.raises(ValueError):
         gather.transpose_cols(grads * 3, idx, 8)
     with pytest.raises(ValueError):
-        gather.transpose_cols(grads, idx, gather.ROWS_MAX + 1)
+        gather.transpose_cols(grads, idx, gather.INDEX_MAX + 1)
     assert torch.equal(gather.transpose_cols(grads, idx, 8),
                        gather.transpose_plain(grads, idx, 8))
+    assert torch.equal(gather.transpose_cols(grads, idx,
+                                             gather.ROWS_MAX + 1),
+                       gather.transpose_plain(grads, idx,
+                                              gather.ROWS_MAX + 1))
 
 
 @pytest.fixture(scope="module")
@@ -242,3 +263,45 @@ def test_param_grads_through_the_function(cornell, monkeypatch, remat):
             plain[name], tuple) else plain[name]
         norm = float(b.double().norm())
         assert float((a.double() - b.double()).norm()) <= 1e-6 * norm, name
+
+
+def test_wavefront_backward_calls_no_index_put(monkeypatch, tmp_path):
+    """The compacting wavefront's backward on the 5,156-triangle spheres
+    scene, the gather rule widened to the CPU as on the card, calls no
+    index_put_ (autograd's transpose of indexing): the tables' gathers,
+    tri_p0's past G1's table among them, take the Function, and the
+    compaction's permutations `wavefront._Permute`, whose transpose
+    gathers by the inverse permutation.  The gradients equal, bit for
+    bit, those with the permutations on plain indexing."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from raytracingrenderer_tpu_torch.integrators import wavefront
+    from raytracingrenderer_tpu_torch.render import _use_wavefront
+    scene = load_scene(write_spheres(str(tmp_path), 24, 24, subdiv=2),
+                       "cpu")
+    cfg = RenderConfig(mis=True, jitter=True, max_depth=4, seed=5)
+    assert _use_wavefront(scene, cfg)
+    target = torch.full((24, 24, 3), 0.2)
+    monkeypatch.setattr(gather, "takes_kernel",
+                        lambda dev, n, k, grad, req: grad and req)
+    ops, real_grad = [], torch.autograd.grad
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    def grad(*args, **kwargs):
+        with Ops():
+            return real_grad(*args, **kwargs)
+    monkeypatch.setattr(torch.autograd, "grad", grad)
+    _, got = diff.loss_and_grads(scene, target, rng.PRNGKey(5), cfg)
+    assert ops and not [op for op in ops if "index_put" in op]
+    monkeypatch.setattr(wavefront, "_permute", lambda state, perm:
+                        wavefront._map(state, lambda a: a[perm]))
+    ops.clear()
+    _, plain = diff.loss_and_grads(scene, target, rng.PRNGKey(5), cfg)
+    assert [op for op in ops if "index_put" in op]
+    for name in diff.param_keys(got):
+        a, b = got[name], plain[name]
+        for x, y in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
+            assert torch.equal(x, y), name
